@@ -1,0 +1,127 @@
+"""Weights into the port: reference ``.pth`` files and the JAX package's
+flax variables.
+
+The port's modules carry the reference state_dict names, so a reference
+checkpoint needs no re-layout, only unwrapping
+(:func:`load_reference_checkpoint`, as ``load_torch_checkpoint`` in
+``bcp_tpu/convert/torch_ckpt.py:318-332``). Flax variables (numpy arrays)
+go through :func:`state_dict_from_flax`, with the transposes of
+``export_state_dict`` (`torch_ckpt.py:239-315`):
+
+- conv kernel (*k, Ci, Co) -> weight (Co, Ci, *k);
+- transposed-conv kernel (*k, Ci, Co) -> weight (Ci, Co, *k), spatially
+  un-flipped (flax lowers it as an un-flipped fractionally-strided
+  correlation, torch's is the conv adjoint);
+- TorchBatchNorm scale/bias + batch_stats mean/var -> weight/bias +
+  running_mean/running_var, and a zero ``num_batches_tracked``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+_BN_LEAVES = (
+    ("weight", "params", "scale"),
+    ("bias", "params", "bias"),
+    ("running_mean", "batch_stats", "mean"),
+    ("running_var", "batch_stats", "var"),
+)
+
+#: reference state_dict prefixes with no counterpart in the port: the dead
+#: contrastive heads (`networks/VNet.py:250-278`, `networks/unet.py:214-236`)
+DEAD_PREFIXES = ("projection_head", "prediction_head",
+                 "contrastive_class_selector", "branchs")
+
+
+def _vnet_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(state_dict prefix, flax path, kind) of the LA V-Net
+    (`torch_ckpt.py:58-102`, nested, batchnorm)."""
+    out = []
+    stages = [("encoder.", "block_one", 1), ("encoder.", "block_two", 2),
+              ("encoder.", "block_three", 3), ("encoder.", "block_four", 3),
+              ("encoder.", "block_five", 3), ("decoder.", "block_six", 3),
+              ("decoder.", "block_seven", 3), ("decoder.", "block_eight", 2),
+              ("decoder.", "block_nine", 1)]
+    for pre, blk, n in stages:
+        for i in range(n):
+            out.append((f"{pre}{blk}.conv.{3 * i}", (blk, f"conv{i}"), "conv"))
+            out.append((f"{pre}{blk}.conv.{3 * i + 1}",
+                        (blk, f"norm{i}", "TorchBatchNorm_0"), "bn"))
+    for blk in ("block_one_dw", "block_two_dw", "block_three_dw",
+                "block_four_dw"):
+        out.append((f"encoder.{blk}.conv.0", (blk, "conv"), "conv"))
+        out.append((f"encoder.{blk}.conv.1",
+                    (blk, "norm", "TorchBatchNorm_0"), "bn"))
+    for blk in ("block_five_up", "block_six_up", "block_seven_up",
+                "block_eight_up"):
+        out.append((f"decoder.{blk}.conv.0", (blk, "deconv"), "deconv"))
+        out.append((f"decoder.{blk}.conv.1",
+                    (blk, "norm", "TorchBatchNorm_0"), "bn"))
+    out.append(("decoder.out_conv", ("out_conv",), "conv"))
+    return out
+
+
+_MAPPINGS = {"VNet": _vnet_mapping}
+
+
+def _get(tree, path: Tuple[str, ...]):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def state_dict_from_flax(variables: Dict[str, dict],
+                         net_type: str = "VNet") -> "OrderedDict[str, torch.Tensor]":
+    """The JAX package's ``{"params", "batch_stats"}`` -> the port's
+    state_dict (loads with ``strict=True``)."""
+    if net_type not in _MAPPINGS:
+        raise KeyError(f"no mapping for net_type {net_type!r}; "
+                       f"have {sorted(_MAPPINGS)}")
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for prefix, fpath, kind in _MAPPINGS[net_type]():
+        if kind == "bn":
+            for suffix, col, leaf in _BN_LEAVES:
+                src = params if col == "params" else stats
+                out[f"{prefix}.{suffix}"] = _tensor(_get(src, fpath + (leaf,)))
+            out[f"{prefix}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.long)
+            continue
+        w = np.asarray(_get(params, fpath + ("kernel",)), np.float32)
+        nsp = w.ndim - 2
+        if kind == "conv":      # (*k, Ci, Co) -> (Co, Ci, *k)
+            w = np.transpose(w, (nsp + 1, nsp) + tuple(range(nsp)))
+        else:                   # un-flip, then (*k, Ci, Co) -> (Ci, Co, *k)
+            w = np.transpose(np.flip(w, axis=tuple(range(nsp))),
+                             (nsp, nsp + 1) + tuple(range(nsp)))
+        out[f"{prefix}.weight"] = _tensor(w)
+        out[f"{prefix}.bias"] = _tensor(_get(params, fpath + ("bias",)))
+    return out
+
+
+def load_reference_checkpoint(path: str) -> "OrderedDict[str, torch.Tensor]":
+    """A reference ``.pth`` as a state_dict for the port's module. Accepts a
+    raw state_dict (LA, `LA_BCP_train.py:287`), ``{'net': ...}`` and
+    ``{'state_dict': ...}``; strips a ``module.`` (DataParallel) prefix and
+    drops the dead heads."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("net", "state_dict"):
+        if isinstance(blob, dict) and isinstance(blob.get(wrapper), dict):
+            blob = blob[wrapper]
+            break
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for k, v in blob.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if not k.startswith(DEAD_PREFIXES):
+            out[k] = v
+    return out

@@ -1,0 +1,6 @@
+"""Models of the port (eval mode in this slice)."""
+
+from bcp_tpu_torch.models.factory import create_model
+from bcp_tpu_torch.models.vnet3d import VNet3D
+
+__all__ = ["create_model", "VNet3D"]

@@ -1,0 +1,137 @@
+"""VNet3D, the 3-D segmentation net of the LA pipeline, in eval mode.
+
+Counterpart of ``bcp_tpu/models/vnet3d.py`` with the reference module tree
+(`networks/VNet.py:145-290`), so the state_dict names are the reference's:
+``encoder.block_one.conv.0.weight`` ... ``decoder.out_conv.weight``, with
+each block's Sequential stepping over [conv, norm, relu]. A reference LA
+``.pth`` loads by name (``convert.load_reference_checkpoint``).
+
+Tensors are logical NCDHW. On the card the activations run in
+channels_last_3d, the layout of the conv kernel (each voxel's channels
+contiguous, as the JAX package's NDHWC). The dead projection / prediction
+heads of the reference are omitted as in the JAX package; dropout belongs
+to training and is absent from this eval-only slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from bcp_tpu_torch.models.layers import (Conv3d, Conv3x3x3, ConvTranspose3d,
+                                         TorchBatchNorm)
+
+
+class ConvBlock(nn.Module):
+    """`ConvBlock` (`networks/VNet.py:6-32`): n x (3^3 conv, norm, relu)."""
+
+    def __init__(self, n_stages: int, n_in: int, n_out: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        ops = []
+        for i in range(n_stages):
+            ops += [Conv3x3x3(n_in if i == 0 else n_out, n_out, dtype=dtype),
+                    TorchBatchNorm(n_out, dtype=dtype), nn.ReLU()]
+        self.conv = nn.Sequential(*ops)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class DownBlock(nn.Module):
+    """`DownsamplingConvBlock` (`VNet.py:68-92`): 2^3 conv, stride 2."""
+
+    def __init__(self, n_in: int, n_out: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = nn.Sequential(
+            Conv3d(n_in, n_out, 2, stride=2, dtype=dtype),
+            TorchBatchNorm(n_out, dtype=dtype), nn.ReLU())
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class UpBlock(nn.Module):
+    """`UpsamplingDeconvBlock` (`VNet.py:95-119`): 2^3 deconv, stride 2."""
+
+    def __init__(self, n_in: int, n_out: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = nn.Sequential(
+            ConvTranspose3d(n_in, n_out, 2, stride=2, dtype=dtype),
+            TorchBatchNorm(n_out, dtype=dtype), nn.ReLU())
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Encoder(nn.Module):
+    def __init__(self, n_channels: int, nf: int, dtype):
+        super().__init__()
+        self.block_one = ConvBlock(1, n_channels, nf, dtype)
+        self.block_one_dw = DownBlock(nf, 2 * nf, dtype)
+        self.block_two = ConvBlock(2, 2 * nf, 2 * nf, dtype)
+        self.block_two_dw = DownBlock(2 * nf, 4 * nf, dtype)
+        self.block_three = ConvBlock(3, 4 * nf, 4 * nf, dtype)
+        self.block_three_dw = DownBlock(4 * nf, 8 * nf, dtype)
+        self.block_four = ConvBlock(3, 8 * nf, 8 * nf, dtype)
+        self.block_four_dw = DownBlock(8 * nf, 16 * nf, dtype)
+        self.block_five = ConvBlock(3, 16 * nf, 16 * nf, dtype)
+
+    def forward(self, x):
+        x1 = self.block_one(x)
+        x2 = self.block_two(self.block_one_dw(x1))
+        x3 = self.block_three(self.block_two_dw(x2))
+        x4 = self.block_four(self.block_three_dw(x3))
+        x5 = self.block_five(self.block_four_dw(x4))
+        return x1, x2, x3, x4, x5
+
+
+class Decoder(nn.Module):
+    def __init__(self, n_classes: int, nf: int, dtype):
+        super().__init__()
+        self.block_five_up = UpBlock(16 * nf, 8 * nf, dtype)
+        self.block_six = ConvBlock(3, 8 * nf, 8 * nf, dtype)
+        self.block_six_up = UpBlock(8 * nf, 4 * nf, dtype)
+        self.block_seven = ConvBlock(3, 4 * nf, 4 * nf, dtype)
+        self.block_seven_up = UpBlock(4 * nf, 2 * nf, dtype)
+        self.block_eight = ConvBlock(2, 2 * nf, 2 * nf, dtype)
+        self.block_eight_up = UpBlock(2 * nf, nf, dtype)
+        self.block_nine = ConvBlock(1, nf, nf, dtype)
+        self.out_conv = Conv3d(nf, n_classes, 1, dtype=dtype)
+
+    def forward(self, feats):
+        x1, x2, x3, x4, x5 = feats
+        x6 = self.block_six(self.block_five_up(x5) + x4)
+        x7 = self.block_seven(self.block_six_up(x6) + x3)
+        x8 = self.block_eight(self.block_seven_up(x7) + x2)
+        x8_up = self.block_eight_up(x8) + x1
+        return self.out_conv(self.block_nine(x8_up)), x8_up
+
+
+class VNet3D(nn.Module):
+    """`VNet` (`networks/VNet.py:145-290`) with batchnorm, eval mode.
+
+    ``forward(x)`` takes (B, n_channels, X, Y, Z) and returns
+    ``(logits, x8_up)`` with the logits promoted to at least f32
+    (`vnet3d.py:221-226`). ``dtype`` is the compute dtype; parameters stay
+    f32."""
+
+    def __init__(self, n_channels: int = 1, n_classes: int = 2,
+                 n_filters: int = 16, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.encoder = Encoder(n_channels, n_filters, dtype)
+        self.decoder = Decoder(n_classes, n_filters, dtype)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        if x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last_3d)
+        logits, x8_up = self.decoder(self.encoder(x))
+        return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
+            x8_up

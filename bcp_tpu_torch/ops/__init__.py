@@ -1,0 +1,1 @@
+"""Operators with a hand-written CUDA kernel and a plain PyTorch version."""

@@ -1,0 +1,93 @@
+"""The port's hand-written CUDA kernels against their plain versions, on
+the card. Every test here needs a CUDA device and skips without one.
+
+This file imports neither jax nor the JAX package, so it also runs on a
+GPU host that has only the port's dependencies:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \\
+        tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bcp_tpu_torch.ops.conv3d import (conv3x3x3_same,
+                                      conv3x3x3_same_reference)
+from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
+                                       scatter_add_windows_reference)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no "
+                    "CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _conv_case(B, X, Y, Z, Ci, Co, seed):
+    """Logical NCDHW x and (Co, Ci, 3, 3, 3) w from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, Ci, X, Y, Z)).astype(np.float32)
+    w = (rng.normal(size=(Co, Ci, 3, 3, 3)) / np.sqrt(27 * Ci)).astype(
+        np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", [(2, 6, 5, 7, 16, 16), (1, 4, 4, 3, 32, 64),
+                                   (2, 3, 5, 4, 256, 256),
+                                   (1, 9, 11, 13, 32, 48),
+                                   (2, 7, 7, 5, 256, 256)])
+def test_conv_kernel_matches_plain(cuda_device, shape, dtype, tol):
+    """f32 to rtol = atol = 1e-4; bf16 (f32 sums in another order, one
+    rounding) to max|kernel - plain| <= 1e-2 max|plain|."""
+    x, w = (t.to(cuda_device, dtype) for t in _conv_case(*shape, seed=4))
+    before = conv3x3x3_same.launches
+    got = conv3x3x3_same(x, w)
+    want = conv3x3x3_same_reference(x, w)
+    torch.cuda.synchronize()
+    assert conv3x3x3_same.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item()
+
+
+def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, w = (t.to(cuda_device) for t in _conv_case(1, 4, 4, 4, 8, 16, 0))
+    with pytest.raises(ValueError, match="does not take"):
+        conv3x3x3_same(x, w)
+    with pytest.raises(TypeError):
+        conv3x3x3_same(x.half(), w.half())
+
+
+def _scatter_case(seed, X=40, Y=36, Z=28, C=2, B=6, p=(16, 12, 8)):
+    rng = np.random.default_rng(seed)
+    score = rng.random((X, Y, Z, C)).astype(np.float32)
+    probs = rng.random((B, *p, C)).astype(np.float32)
+    starts = np.stack([rng.integers(0, X - p[0] + 1, B),
+                       rng.integers(0, Y - p[1] + 1, B),
+                       rng.integers(0, Z - p[2] + 1, B)], 1).astype(np.int32)
+    starts[-1] = starts[0]   # a window repeated
+    return score, probs, starts
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scatter_kernel_equals_plain(cuda_device, seed):
+    score, probs, starts = _scatter_case(seed)
+    s_dev = torch.from_numpy(score).to(cuda_device)
+    p_dev = torch.from_numpy(probs).to(cuda_device)
+    want = scatter_add_windows_reference(s_dev.clone(), p_dev, starts)
+    before = scatter_add_windows.launches
+    got = scatter_add_windows(s_dev.clone(), p_dev, starts)
+    torch.cuda.synchronize()
+    assert scatter_add_windows.launches == before + 1
+    assert torch.equal(got, want)

@@ -1,0 +1,44 @@
+"""Shared fixtures of the bcp_tpu_torch parity tests: one flax V-Net with
+random, non-trivial weights and BN statistics, handed to the port as numpy
+arrays through ``state_dict_from_flax``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from bcp_tpu.models import VNet3D as FlaxVNet3D
+from bcp_tpu_torch.convert import state_dict_from_flax
+from bcp_tpu_torch.models import VNet3D
+
+
+def flax_vnet_variables(n_filters=4, patch=(16, 16, 16), seed=0):
+    """(flax model, numpy variables) with random BN scale/bias/stats."""
+    model = FlaxVNet3D(n_classes=2, n_filters=n_filters,
+                       normalization="batchnorm", has_dropout=False)
+    x = jnp.zeros((1, *patch, 1), jnp.float32)
+    variables = model.init(jax.random.PRNGKey(seed), x, train=False)
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    rng = np.random.default_rng(seed)
+
+    def randomise(path, leaf):
+        name = path[-1].key
+        if name == "mean":
+            return rng.normal(0.0, 0.1, leaf.shape).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        if name == "scale":
+            return rng.uniform(0.8, 1.2, leaf.shape).astype(np.float32)
+        if name == "bias" and len(path) >= 2 and \
+                path[-2].key == "TorchBatchNorm_0":
+            return rng.normal(0.0, 0.1, leaf.shape).astype(np.float32)
+        return leaf
+
+    variables = jax.tree_util.tree_map_with_path(randomise, variables)
+    return model, {"params": variables["params"],
+                   "batch_stats": variables["batch_stats"]}
+
+
+def port_vnet(variables, n_filters=4, dtype=None):
+    net = VNet3D(n_classes=2, n_filters=n_filters, dtype=dtype)
+    net.load_state_dict(state_dict_from_flax(variables), strict=True)
+    return net.eval()
