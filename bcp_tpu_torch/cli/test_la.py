@@ -15,13 +15,13 @@ import os
 
 import numpy as np
 
-from bcp_tpu_torch.cli.common import (best_model_path, load_eval_model,
-                                      snapshot_dir)
+from bcp_tpu_torch.cli.common import load_eval_model
 from bcp_tpu_torch.config import la_config
 from bcp_tpu_torch.data.datasets import LAHeartDataset
 from bcp_tpu_torch.eval.metrics import (calculate_metric_percase,
                                         host_largest_cc)
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
+from bcp_tpu_torch.train.checkpoints import best_model_path, snapshot_dir
 
 
 def build_parser():

@@ -74,14 +74,15 @@ def _get(tree, path: Tuple[str, ...]):
     return tree
 
 
-def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, np.float32))
+def _tensor(a, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype))
 
 
-def state_dict_from_flax(variables: Dict[str, dict],
-                         net_type: str = "VNet") -> "OrderedDict[str, torch.Tensor]":
+def state_dict_from_flax(variables: Dict[str, dict], net_type: str = "VNet",
+                         dtype=np.float32) -> "OrderedDict[str, torch.Tensor]":
     """The JAX package's ``{"params", "batch_stats"}`` -> the port's
-    state_dict (loads with ``strict=True``)."""
+    state_dict (loads with ``strict=True``), floats as ``dtype`` (f64 for
+    the double-precision step tests)."""
     if net_type not in _MAPPINGS:
         raise KeyError(f"no mapping for net_type {net_type!r}; "
                        f"have {sorted(_MAPPINGS)}")
@@ -92,19 +93,20 @@ def state_dict_from_flax(variables: Dict[str, dict],
         if kind == "bn":
             for suffix, col, leaf in _BN_LEAVES:
                 src = params if col == "params" else stats
-                out[f"{prefix}.{suffix}"] = _tensor(_get(src, fpath + (leaf,)))
+                out[f"{prefix}.{suffix}"] = _tensor(_get(src, fpath + (leaf,)),
+                                                    dtype)
             out[f"{prefix}.num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long)
             continue
-        w = np.asarray(_get(params, fpath + ("kernel",)), np.float32)
+        w = np.asarray(_get(params, fpath + ("kernel",)), dtype)
         nsp = w.ndim - 2
         if kind == "conv":      # (*k, Ci, Co) -> (Co, Ci, *k)
             w = np.transpose(w, (nsp + 1, nsp) + tuple(range(nsp)))
         else:                   # un-flip, then (*k, Ci, Co) -> (Ci, Co, *k)
             w = np.transpose(np.flip(w, axis=tuple(range(nsp))),
                              (nsp, nsp + 1) + tuple(range(nsp)))
-        out[f"{prefix}.weight"] = _tensor(w)
-        out[f"{prefix}.bias"] = _tensor(_get(params, fpath + ("bias",)))
+        out[f"{prefix}.weight"] = _tensor(w, dtype)
+        out[f"{prefix}.bias"] = _tensor(_get(params, fpath + ("bias",)), dtype)
     return out
 
 

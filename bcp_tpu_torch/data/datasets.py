@@ -3,8 +3,10 @@
 Same on-disk layout and split lists as the reference
 (`dataloaders/dataset.py:91-126`): <root>/train.list, <root>/test.list and
 <root>/2018LA_Seg_Training Set/<case>/mri_norm2.h5. ``h5py`` is imported
-only when a volume is read. :class:`VolumeList` serves volumes already in
-memory through the same ``len`` / ``load`` interface.
+only when a volume is read; train volumes stay cached in memory after the
+first read, as the JAX package's ``_VolumeCache`` does. :class:`VolumeList`
+serves volumes already in memory through the same ``len`` / ``load`` /
+``sample_train`` interface.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from bcp_tpu_torch.data.transforms import la_train_transform
 
 #: the port's copies of the reference's `data_split/` lists
 VENDORED_SPLITS = os.path.join(os.path.dirname(__file__), "splits")
@@ -42,12 +46,15 @@ def _read_h5(path: str) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class LAHeartDataset:
-    """`LAHeart` (`dataloaders/dataset.py:91-126`), test-time reads."""
+    """`LAHeart` (`dataloaders/dataset.py:91-126`). ``cache`` keeps read
+    volumes in memory (the train split, read every step)."""
 
-    def __init__(self, base_dir: str, split: str = "train"):
+    def __init__(self, base_dir: str, split: str = "train",
+                 cache: bool = False):
         self.base_dir = base_dir
         self.cases = read_list(_split_list_path(base_dir, f"{split}.list",
                                                 "LA"))
+        self._cache = {} if cache else None
 
     def __len__(self):
         return len(self.cases)
@@ -57,7 +64,16 @@ class LAHeartDataset:
                             self.cases[idx], "mri_norm2.h5")
 
     def load(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
-        return _read_h5(self.case_path(idx))
+        if self._cache is None:
+            return _read_h5(self.case_path(idx))
+        if idx not in self._cache:
+            self._cache[idx] = _read_h5(self.case_path(idx))
+        return self._cache[idx]
+
+    def sample_train(self, idx: int, patch_size, rng):
+        """`LAHeartDataset.sample_train` (`datasets.py:98-100`)."""
+        image, label = self.load(idx)
+        return la_train_transform(image, label, patch_size, rng)
 
 
 class VolumeList:
@@ -71,3 +87,7 @@ class VolumeList:
 
     def load(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
         return self.cases[idx]
+
+    def sample_train(self, idx: int, patch_size, rng):
+        image, label = self.load(idx)
+        return la_train_transform(image, label, patch_size, rng)

@@ -1,0 +1,52 @@
+"""LA train augmentation: ``bcp_tpu/data/transforms.py``'s LA part for the
+port. Pure numpy over an explicit ``np.random.Generator``, drawing the same
+numbers in the same order as the JAX package, so the same seed gives the
+same crops bit for bit."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+
+def random_rot_flip(image: np.ndarray, label: np.ndarray,
+                    rng: np.random.Generator):
+    """k*90-degree rotation in the leading two axes, then a flip along axis
+    0 or 1 (`transforms.py:18-29`, `dataloaders/dataset.py:52-59`)."""
+    k = int(rng.integers(0, 4))
+    image = np.rot90(image, k)
+    label = np.rot90(label, k)
+    axis = int(rng.integers(0, 2))
+    image = np.flip(image, axis=axis).copy()
+    label = np.flip(label, axis=axis).copy()
+    return image, label
+
+
+def _pad_to_fit(arrs, output_size, extra: int):
+    """Pad-if-small, +3 per side for LA (`transforms.py:68-78`)."""
+    shape = arrs[0].shape
+    if all(s > o for s, o in zip(shape, output_size)):
+        return arrs
+    pads = [max((o - s) // 2 + extra, 0) for s, o in zip(shape, output_size)]
+    pad_width = [(p, p) for p in pads]
+    return [np.pad(a, pad_width, mode="constant", constant_values=0)
+            for a in arrs]
+
+
+def random_crop(image: np.ndarray, label: np.ndarray,
+                output_size: Sequence[int], rng: np.random.Generator,
+                pad_extra: int = 3):
+    """Pad-then-random-crop (`transforms.py:81-91`, `RandomCrop`)."""
+    image, label = _pad_to_fit([image, label], output_size, pad_extra)
+    starts = [int(rng.integers(0, s - o))
+              for s, o in zip(image.shape, output_size)]
+    sl = tuple(slice(st, st + o) for st, o in zip(starts, output_size))
+    return image[sl], label[sl]
+
+
+def la_train_transform(image, label, patch_size, rng):
+    """RandomRotFlip -> RandomCrop (`transforms.py:113-118`)."""
+    image, label = random_rot_flip(image, label, rng)
+    image, label = random_crop(image, label, patch_size, rng)
+    return image.astype(np.float32), label.astype(np.int32)

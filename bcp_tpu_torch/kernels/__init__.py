@@ -42,6 +42,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                            _I, _P),
         "conv3x3x3_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
+    "conv3x3x3_dw": {
+        "conv3x3x3_dw_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P),
+        "conv3x3x3_dw_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _P),
+    },
 }
 
 

@@ -1,4 +1,4 @@
-"""Models of the port (eval mode in this slice)."""
+"""Models of the port."""
 
 from bcp_tpu_torch.models.factory import create_model
 from bcp_tpu_torch.models.vnet3d import VNet3D

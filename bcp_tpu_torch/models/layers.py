@@ -1,5 +1,5 @@
-"""Building blocks of the port's models: convs with a compute dtype and the
-eval-mode BatchNorm of the JAX package.
+"""Building blocks of the port's models: convs with a compute dtype, the
+JAX package's grouped BatchNorm and channel dropout.
 
 Counterpart of ``bcp_tpu/models/layers.py``. Parameters stay f32 and keep
 ``nn.Conv3d`` / ``nn.BatchNorm3d`` names and layouts, so a reference
@@ -10,13 +10,14 @@ module's compute dtype (bf16 for mixed precision), as the flax modules'
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bcp_tpu_torch.ops.conv3d import conv3x3x3_same, kernel_takes
+from bcp_tpu_torch.ops.conv3d import Conv3x3x3Function, kernel_takes
 
 
 def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -26,8 +27,9 @@ def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
 class Conv3x3x3(nn.Conv3d):
     """3^3 stride-1 SAME conv: ``ZPackedConv3D`` (`layers.py:162-249`).
 
-    Channel counts the CUDA kernel takes go through ``conv3x3x3_same``
-    (the kernel on the card, its plain version on the CPU); the rest
+    Channel counts the CUDA kernels take go through
+    ``Conv3x3x3Function``: kernel B forward and for dx, kernel C for dW on
+    the card, their plain versions on the CPU; the rest
     (the V-Net's Ci = 1 first conv) use ``F.conv3d``, as the JAX package
     leaves those to XLA. The bias is added after the conv, in the compute
     dtype (`layers.py:249`)."""
@@ -42,7 +44,7 @@ class Conv3x3x3(nn.Conv3d):
         x = _cast(x, self.compute_dtype)
         w = self.weight.to(x.dtype)
         if kernel_takes(self.in_channels, self.out_channels):
-            y = conv3x3x3_same(x, w)
+            y = Conv3x3x3Function.apply(x, w)
         else:
             y = F.conv3d(x, w, None, padding=1)
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)
@@ -81,21 +83,33 @@ class ConvTranspose3d(nn.ConvTranspose3d):
 
 
 class TorchBatchNorm(nn.Module):
-    """``TorchBatchNorm`` (`layers.py:262-353`) in eval mode, with
-    ``nn.BatchNorm3d``'s parameter and buffer names.
+    """``TorchBatchNorm`` (`layers.py:262-353`) with ``nn.BatchNorm3d``'s
+    parameter and buffer names.
 
-    The arithmetic mirrors the JAX package's running-average branch in
-    the compute dtype (`layers.py:299-304`):
+    Eval mode mirrors the running-average branch in the compute dtype
+    (`layers.py:299-304`):
     ``x * (rsqrt(var + eps) * scale) + (bias - mean * inv * scale)``.
-    Train mode, with its grouped batch statistics, comes with the training
-    slice and raises here."""
+
+    Train mode (`layers.py:306-353`) treats the batch as ``groups``
+    concatenated sub-batches, each normalised with its own statistics: the
+    mean and E[x^2] in f32 (f64 stays f64) from the compute-dtype input,
+    var = max(E[x^2] - mean^2, 0), and the normalisation's ``mul`` / ``add``
+    cast to the compute dtype. The running statistics fold the groups one
+    after another with momentum 0.9 (torch's 0.1) and the unbiased
+    variance, unless ``update_running`` is off (the teacher's forward,
+    :func:`frozen_running_stats`); ``num_batches_tracked`` counts one per
+    group, as the reference's one forward per sub-batch does."""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, groups: int = 1):
         super().__init__()
         self.num_features = num_features
         self.eps = eps
         self.compute_dtype = dtype
+        self.groups = groups
+        self.update_running = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -104,20 +118,129 @@ class TorchBatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "TorchBatchNorm runs in eval mode only; batch statistics "
-                "come with the training slice")
         x = _cast(x, self.compute_dtype)
         dt = x.dtype
-        mean = self.running_mean.to(dt)
-        var = self.running_var.to(dt)
-        scale = self.weight.to(dt)
-        # eps rounded to dt first, as the JAX package's weakly typed add;
-        # a 0-dim host tensor enters the kernel as a scalar, while one made
-        # on the card would be a blocking copy that stalls the host
-        inv = torch.rsqrt(var + torch.tensor(self.eps, dtype=dt))
-        mul = inv * scale
-        add = self.bias.to(dt) - mean * inv * scale
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * mul.view(shape) + add.view(shape)
+        if not self.training:
+            mean = self.running_mean.to(dt)
+            var = self.running_var.to(dt)
+            scale = self.weight.to(dt)
+            # eps rounded to dt first, as the JAX package's weakly typed
+            # add; a 0-dim host tensor enters the kernel as a scalar, while
+            # one made on the card would be a blocking copy that stalls the
+            # host
+            inv = torch.rsqrt(var + torch.tensor(self.eps, dtype=dt))
+            mul = inv * scale
+            add = self.bias.to(dt) - mean * inv * scale
+            return x * mul.view(shape) + add.view(shape)
+        G = self.groups
+        n = x.shape[0]
+        if n % G:
+            raise ValueError(f"batch {n} does not split into {G} groups")
+        xg = x.reshape(G, n // G, *x.shape[1:])
+        red = (1,) + tuple(range(3, xg.dim()))
+        sdt = torch.promote_types(torch.float32, dt)
+        xf = xg.to(sdt)
+        mean_g = xf.mean(dim=red)                       # (G, C)
+        mean2_g = xf.square().mean(dim=red)
+        var_g = torch.clamp(mean2_g - mean_g.square(), min=0.0)
+        inv_g = torch.rsqrt(var_g + self.eps)
+        scale = self.weight.to(sdt)[None]
+        mul = (inv_g * scale).to(dt)
+        add = (self.bias.to(sdt)[None] - mean_g * inv_g * scale).to(dt)
+        shape_g = (G, 1, -1) + (1,) * (xg.dim() - 3)
+        y = (xg * mul.view(shape_g) + add.view(shape_g)).reshape(x.shape)
+        if self.update_running:
+            count = xg[0, :, 0].numel()
+            with torch.no_grad():
+                var_u = var_g * (count / max(count - 1, 1))
+                m = self.momentum
+                mean, var = self.running_mean, self.running_var
+                for g in range(G):
+                    mean = m * mean + (1 - m) * mean_g[g].to(mean.dtype)
+                    var = m * var + (1 - m) * var_u[g].to(var.dtype)
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+                self.num_batches_tracked += G
+        return y
+
+
+class ChannelDropout(nn.Module):
+    """Channel dropout (`layers.py:411-420`; ``nn.Dropout3d`` semantics):
+    in train mode each (sample, channel) map is kept with probability
+    1 - p and scaled by 1 / (1 - p), else zeroed. The keep mask (N, C) is
+    ``keep`` when a caller set it (:func:`dropout_draws`), else drawn from
+    ``generator`` (a ``torch.Generator`` on x's device, or torch's default
+    one when None)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+        self.keep: Optional[torch.Tensor] = None
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        keep = self.keep
+        if keep is None:
+            keep = torch.rand(x.shape[:2], generator=self.generator,
+                              device=x.device) < 1.0 - self.p
+        keep = keep.to(x.device).reshape(*x.shape[:2], *(1,) * (x.dim() - 2))
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def _modules(model: nn.Module, kind) -> list:
+    return [m for m in model.modules() if isinstance(m, kind)]
+
+
+@contextlib.contextmanager
+def bn_groups(model: nn.Module, groups: int) -> Iterator[None]:
+    """Run ``model``'s BatchNorms with ``groups`` sub-batches
+    (``VNet3D.bn_groups``, `vnet3d.py:170-172`; the self-train step's
+    concat forwards use 2)."""
+    bns = _modules(model, TorchBatchNorm)
+    old = [m.groups for m in bns]
+    for m in bns:
+        m.groups = groups
+    try:
+        yield
+    finally:
+        for m, g in zip(bns, old):
+            m.groups = g
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module) -> Iterator[None]:
+    """Train-mode forwards that leave the running statistics as they are:
+    the teacher's BN buffer updates are discarded (`steps.py:63-68`)."""
+    bns = _modules(model, TorchBatchNorm)
+    for m in bns:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_running = True
+
+
+@contextlib.contextmanager
+def dropout_draws(model: nn.Module,
+                  keep: Optional[Sequence[torch.Tensor]] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Iterator[None]:
+    """Hand ``model``'s channel dropouts their draws for one forward: the
+    keep masks ``keep`` (one (N, C) bool tensor per dropout, in forward
+    order), or a ``generator`` they draw from."""
+    drops = _modules(model, ChannelDropout)
+    if keep is not None and len(keep) != len(drops):
+        raise ValueError(f"{len(keep)} keep masks for {len(drops)} dropouts")
+    for i, m in enumerate(drops):
+        m.keep = None if keep is None else keep[i]
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.keep = None
+            m.generator = None

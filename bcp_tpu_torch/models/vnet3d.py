@@ -1,4 +1,4 @@
-"""VNet3D, the 3-D segmentation net of the LA pipeline, in eval mode.
+"""VNet3D, the 3-D segmentation net of the LA pipeline.
 
 Counterpart of ``bcp_tpu/models/vnet3d.py`` with the reference module tree
 (`networks/VNet.py:145-290`), so the state_dict names are the reference's:
@@ -9,8 +9,10 @@ each block's Sequential stepping over [conv, norm, relu]. A reference LA
 Tensors are logical NCDHW. On the card the activations run in
 channels_last_3d, the layout of the conv kernel (each voxel's channels
 contiguous, as the JAX package's NDHWC). The dead projection / prediction
-heads of the reference are omitted as in the JAX package; dropout belongs
-to training and is absent from this eval-only slice.
+heads of the reference are omitted as in the JAX package. With
+``has_dropout`` (train-mode construction) a channel dropout follows
+block_five and block_nine (`vnet3d.py:205-220`); it holds no parameters, so
+train and eval models share one state_dict layout.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from bcp_tpu_torch.models.layers import (Conv3d, Conv3x3x3, ConvTranspose3d,
-                                         TorchBatchNorm)
+from bcp_tpu_torch.models.layers import (ChannelDropout, Conv3d, Conv3x3x3,
+                                         ConvTranspose3d, TorchBatchNorm)
 
 
 class ConvBlock(nn.Module):
@@ -91,7 +93,8 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, n_classes: int, nf: int, dtype):
+    def __init__(self, n_classes: int, nf: int, dtype,
+                 has_dropout: bool = False):
         super().__init__()
         self.block_five_up = UpBlock(16 * nf, 8 * nf, dtype)
         self.block_six = ConvBlock(3, 8 * nf, 8 * nf, dtype)
@@ -102,6 +105,7 @@ class Decoder(nn.Module):
         self.block_eight_up = UpBlock(2 * nf, nf, dtype)
         self.block_nine = ConvBlock(1, nf, nf, dtype)
         self.out_conv = Conv3d(nf, n_classes, 1, dtype=dtype)
+        self.dropout = ChannelDropout() if has_dropout else nn.Identity()
 
     def forward(self, feats):
         x1, x2, x3, x4, x5 = feats
@@ -109,29 +113,34 @@ class Decoder(nn.Module):
         x7 = self.block_seven(self.block_six_up(x6) + x3)
         x8 = self.block_eight(self.block_seven_up(x7) + x2)
         x8_up = self.block_eight_up(x8) + x1
-        return self.out_conv(self.block_nine(x8_up)), x8_up
+        x9 = self.dropout(self.block_nine(x8_up))
+        return self.out_conv(x9), x8_up
 
 
 class VNet3D(nn.Module):
-    """`VNet` (`networks/VNet.py:145-290`) with batchnorm, eval mode.
+    """`VNet` (`networks/VNet.py:145-290`) with batchnorm.
 
     ``forward(x)`` takes (B, n_channels, X, Y, Z) and returns
     ``(logits, x8_up)`` with the logits promoted to at least f32
     (`vnet3d.py:221-226`). ``dtype`` is the compute dtype; parameters stay
-    f32."""
+    f32. :func:`~bcp_tpu_torch.models.layers.bn_groups` sets the
+    BatchNorms' number of sub-batches in train mode (`vnet3d.py:170-172`)."""
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
-                 n_filters: int = 16, dtype: Optional[torch.dtype] = None):
+                 n_filters: int = 16, dtype: Optional[torch.dtype] = None,
+                 has_dropout: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         self.encoder = Encoder(n_channels, n_filters, dtype)
-        self.decoder = Decoder(n_classes, n_filters, dtype)
+        self.enc_dropout = ChannelDropout() if has_dropout else nn.Identity()
+        self.decoder = Decoder(n_classes, n_filters, dtype, has_dropout)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last_3d)
-        logits, x8_up = self.decoder(self.encoder(x))
+        x1, x2, x3, x4, x5 = self.encoder(x)
+        logits, x8_up = self.decoder((x1, x2, x3, x4, self.enc_dropout(x5)))
         return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
             x8_up

@@ -1,0 +1,82 @@
+"""The LA losses: ``bcp_tpu/ops/losses.py`` :34-136 for the port.
+
+Logits are (N, C, *S) (the JAX package's are channels-last), integer
+targets (N, *S). Same smoothing constants and reductions as the reference
+(`utils/losses.py:47-77`, `utils/BCP_utils.py:58-69`), in the dtype of the
+logits (f32 from the model).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def softmax_probs(logits: torch.Tensor) -> torch.Tensor:
+    """Class probabilities; sigmoid expanded to [1-p, p] when C == 1
+    (`losses.py:34-42`)."""
+    if logits.shape[1] == 1:
+        p = torch.sigmoid(logits)
+        return torch.cat([1.0 - p, p], dim=1)
+    return torch.softmax(logits, dim=1)
+
+
+def _one_hot(target: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """(N, *S) -> (N, n, *S)."""
+    return F.one_hot(target.long(), n).movedim(-1, 1).to(dtype)
+
+
+def masked_dice_loss(logits: torch.Tensor, target: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     smooth: float = 1e-5) -> torch.Tensor:
+    """`mask_DiceLoss` (`losses.py:52-74`): per-(sample, class) dice over
+    the spatial dims, the optional mask on both sums, ``1 - mean``."""
+    probs = softmax_probs(logits)
+    n, c = probs.shape[:2]
+    p = probs.reshape(n, c, -1)
+    t = _one_hot(target, c, p.dtype).reshape(n, c, -1)
+    inter = p * t
+    union = p + t
+    if mask is not None:
+        m = mask.reshape(n, 1, -1).to(p.dtype)
+        inter = inter * m
+        union = union * m
+    dice = (2.0 * inter.sum(-1) + smooth) / (union.sum(-1) + smooth)
+    return 1.0 - dice.mean()
+
+
+def pixel_ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-pixel cross entropy (`losses.py:100-105`), (N, *S)."""
+    logp = torch.log_softmax(logits, dim=1)
+    return -(logp * _one_hot(target, logits.shape[1], logp.dtype)).sum(1)
+
+
+def masked_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """sum(CE * mask) / (sum(mask) + 1e-16) (`losses.py:108-113`)."""
+    ce = pixel_ce(logits, target)
+    m = mask.to(ce.dtype)
+    return (ce * m).sum() / (m.sum() + 1e-16)
+
+
+def cross_entropy_mean(logits: torch.Tensor,
+                       target: torch.Tensor) -> torch.Tensor:
+    """Plain mean CE (`losses.py:116-118`)."""
+    return pixel_ce(logits, target).mean()
+
+
+def mix_loss_volume(logits: torch.Tensor, img_l: torch.Tensor,
+                    patch_l: torch.Tensor, mask: torch.Tensor,
+                    l_weight: float = 1.0, u_weight: float = 0.5,
+                    unlab: bool = False) -> torch.Tensor:
+    """The LA mix loss (`losses.py:121-136`): ``mask == 1`` pixels carry
+    ``img_l``; with ``unlab`` the image / patch weights swap."""
+    image_w, patch_w = (u_weight, l_weight) if unlab else (l_weight, u_weight)
+    patch_mask = 1 - mask
+    dice = masked_dice_loss(logits, img_l, mask) * image_w
+    dice = dice + masked_dice_loss(logits, patch_l, patch_mask) * patch_w
+    ce = image_w * masked_cross_entropy(logits, img_l, mask)
+    ce = ce + patch_w * masked_cross_entropy(logits, patch_l, patch_mask)
+    return (dice + ce) / 2.0

@@ -1,0 +1,85 @@
+"""Train state: ``bcp_tpu/train/state.py`` for the port.
+
+The student, its EMA teacher, the optimizer and the update counter. The
+JAX package keeps them in one pytree that its jitted step returns anew;
+here the modules and the optimizer are updated in place.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Iterable, Optional
+
+import torch
+from torch import nn
+
+from bcp_tpu_torch.config import Config
+from bcp_tpu_torch.device import resolve_device
+from bcp_tpu_torch.models import create_model
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class TrainState:
+    model: nn.Module              # student, train mode
+    teacher: nn.Module            # EMA teacher, train mode, no grads
+    optimizer: torch.optim.Optimizer
+    step: int = 0                 # updates done in this stage
+
+
+def lr_at(cfg: Config, stage: str, step: int) -> float:
+    """Pre-train: constant base_lr. LA self-train: base * 0.1**(step //
+    lr_decay_every) (`state.py:34-44`, `LA_BCP_train.py:273-276`)."""
+    if stage == "self" and cfg.lr_decay_every:
+        return cfg.base_lr * 0.1 ** (step // cfg.lr_decay_every)
+    return cfg.base_lr
+
+
+def build_optimizer(cfg: Config,
+                    params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
+    """``optim.SGD(lr, momentum=0.9, weight_decay=1e-4)``
+    (`LA_BCP_train.py:135,218`): the decay is added to the gradient before
+    the momentum trace, the ordering of ``build_optimizer``
+    (`state.py:47-62`)."""
+    if cfg.optimizer != "sgd":
+        raise NotImplementedError(
+            f"optimizer {cfg.optimizer!r}: the port has SGD (LA); Adam "
+            f"comes with the pancreas slice")
+    return torch.optim.SGD(params, lr=cfg.base_lr, momentum=cfg.momentum,
+                           weight_decay=cfg.weight_decay)
+
+
+def build_model(cfg: Config, mode: str = "train", device=None,
+                seed: Optional[int] = None) -> nn.Module:
+    """The config's model on ``device``, its initial weights drawn on the
+    host from ``seed`` (torch's default initialisation, the reference's)
+    without touching the global generator's state."""
+    extra = {"n_filters": cfg.n_filters} if cfg.n_filters else {}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed if seed is None else seed)
+        model = create_model(cfg.net_type, cfg.num_classes, mode=mode,
+                             compute_dtype=_DTYPES[cfg.compute_dtype],
+                             device="cpu", **extra)
+    return model.to(resolve_device(device))
+
+
+def init_state(cfg: Config, device=None,
+               seed: Optional[int] = None) -> TrainState:
+    """Student == teacher at the start (the reference loads both from the
+    same weights, `LA_BCP_train.py:220-222`); fresh optimizer, step 0."""
+    model = build_model(cfg, "train", device, seed)
+    teacher = copy.deepcopy(model)
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    return TrainState(model, teacher, build_optimizer(cfg, model.parameters()))
+
+
+def load_weights_only(state: TrainState, state_dict) -> TrainState:
+    """`load_net` semantics (`checkpoints.py:102-114`): student weights and
+    BN statistics from ``state_dict``, the teacher from the same weights;
+    the optimizer and the step stay fresh."""
+    state.model.load_state_dict(state_dict, strict=True)
+    state.teacher.load_state_dict(state_dict, strict=True)
+    return state

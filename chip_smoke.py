@@ -13,21 +13,42 @@ Phases, each of which fails the run (non-zero exit, no final line):
    112x112x80x2 into a 240x200x96x2 score map); the 3^3 conv at the five
    V-Net stage shapes at batch 8, f32 to rtol = atol = 1e-4 and bf16 to
    max|kernel - plain| <= 1e-2 max|plain|; with CUDA-event times (median of
-   >= 10) of the kernel, the plain version and, for the conv, ``F.conv3d``;
+   >= 10) of the kernel, the plain version and, for the conv, ``F.conv3d``.
+   Then the conv's backward at the same five stage shapes at batch 4 (the
+   self-train student's concat batch), bf16 and f32: kernel C (dW) to
+   max|kernel - plain| <= 1e-3 max|plain| (the same exact products summed
+   in f32 in another order) and bit-identical over two runs; kernel B as
+   dx with the forward's limits; ``Conv3x3x3Function``'s (dx, dW) against
+   autograd through the plain conv (f32 1e-3, bf16 1e-2 of max|plain|);
+   CUDA-event times of C, B-as-dx, their plain versions and
+   ``torch.nn.grad.conv3d_weight`` / ``conv3d_input``;
 3. the whole slice in f32 on the card against the same slice on the CPU:
    the full-width V-Net (n_filters 16, seeded weights, saved as a
    reference-layout .pth) through the evaluator on one 112x112x80 volume,
-   score maps to atol 1e-3;
-4. the main path: ``bcp_tpu_torch.cli.test_la``'s core function at full
+   score maps to atol 1e-3. Then one pre-train and one self-train update
+   in f32 (n_filters 16 at 32^3), card against CPU, every updated tensor
+   to atol 1e-4 (``phase_train_step``);
+4. the inference path: ``bcp_tpu_torch.cli.test_la``'s core function at full
    width on two synthetic 240x200x96 LA volumes (270 windows each), stride
    18/4, eval batch 8, bf16, NMS on, from that .pth, with every kernel's
    launch count reset before and read after; two case lines of four finite
    metrics, and class probabilities of the cropped score map summing to
    1 +- 1e-2 per voxel. Then the steady-state time of the same evaluator
    over both volumes, and a ``torch.profiler`` trace of one volume: device
-   time by kernel name, busy time and idle share.
+   time by kernel name, busy time and idle share;
+5. the training path: ``bcp_tpu_torch.cli.train_la``'s core function at
+   full width (V-Net n_filters 16, 112x112x80 patches, batch 8 with
+   labeled_bs 4, bf16, NMS on) on 8 synthetic 140x140x90 train volumes
+   (labelnum 4) and one 240x200x96 validation volume: 4 pre-train
+   iterations and a validation that writes the stage's best .pth, then 4
+   self-train iterations from it. Launch counts reset before and read
+   after, finite losses, both .pth files loading strictly into the eval
+   model; then the steady ms/step and patches/s of both stages, the
+   launches of one step, and a ``torch.profiler`` trace of one self-train
+   step (``phase_training``).
 
-It then prints the kernels' JSON line, the nvidia-smi line, and last
+Each path's launch counts are set to 0 just before it runs and read just
+after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 the f32 comparisons compare f32 arithmetic.
 """
@@ -56,6 +77,19 @@ EVAL_BATCH = 8
 CONV_STAGES = [((32, 56, 56, 40), 4), ((64, 28, 28, 20), 6),
                ((128, 14, 14, 10), 6), ((256, 7, 7, 5), 3),
                ((16, 112, 112, 80), 1)]
+# the self-train student's concat batch (two mixed sub-batches of 2), at
+# which the backward kernels run
+TRAIN_CONCAT = 4
+# the f32 train step compared with the CPU
+STEP_PATCH = (32, 32, 32)
+# the training main path: synthetic LA train volumes, stage lengths, and
+# the steps of the steady-state timing
+TRAIN_VOLUME = (140, 140, 90)
+TRAIN_VOLUMES = 8
+PRE_ITERS = 4
+SELF_ITERS = 4
+WARMUP_STEPS = 3
+STEADY_STEPS = 10
 # NVIDIA data sheets, dense: (bf16 tensor FLOP/s, f32 FLOP/s, HBM bytes/s)
 PEAKS = {"H100 PCIe": (756e12, 51e12, 2.0e12),
          "H100 NVL": (835e12, 60e12, 3.9e12),
@@ -200,6 +234,134 @@ def phase_kernels(torch, rates):
     return [scatter, conv]
 
 
+def phase_backward_kernels(torch, rates):
+    """Kernel B as the conv's dx and kernel C (dW) at the five stage shapes
+    of the self-train student's batch-4 backward, bf16 and f32."""
+    from torch.nn.grad import conv3d_input, conv3d_weight
+    from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
+                                          conv3x3x3_dw_reference,
+                                          conv3x3x3_dx,
+                                          conv3x3x3_same_reference,
+                                          flip_transpose)
+    bf16_peak, f32_peak, hbm = rates
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    B = TRAIN_CONCAT
+    rows = []
+    for (c, X, Y, Z), per_backward in CONV_STAGES:
+        row = {"shape": f"{B}x{c}@{X}x{Y}x{Z}", "per_backward": per_backward}
+        M = B * X * Y * Z
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            def rand(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dt)
+            x = rand(B, c, X, Y, Z).contiguous(
+                memory_format=torch.channels_last_3d)
+            dy = rand(B, c, X, Y, Z).contiguous(
+                memory_format=torch.channels_last_3d)
+            w = (rand(c, c, 3, 3, 3) / (27 * c) ** 0.5).to(dt)
+            # C: f32 sums of exact products in another order than the plain
+            # version's; the same bits on a second run (no float atomics)
+            k = conv3x3x3_dw(x, dy)
+            k2 = conv3x3x3_dw(x, dy)
+            p = conv3x3x3_dw_reference(x, dy)
+            torch.cuda.synchronize()
+            err = float((k - p).abs().max().item())
+            pmax = float(p.abs().max().item())
+            if not torch.equal(k, k2):
+                fail(f"dW kernel {row['shape']} {name}: two runs differ")
+            if err > 1e-3 * pmax:
+                fail(f"dW kernel {row['shape']} {name}: max err {err} > "
+                     f"1e-3 * {pmax}")
+            row[f"{name}_dw_max_abs_err"] = err
+            # B as dx: the forward kernel's limits
+            kx = conv3x3x3_dx(dy, w)
+            px = conv3x3x3_same_reference(dy, flip_transpose(w))
+            torch.cuda.synchronize()
+            xerr = float((kx.float() - px.float()).abs().max().item())
+            xmax = float(px.float().abs().max().item())
+            if (dt == torch.float32 and not torch.allclose(
+                    kx, px, rtol=1e-4, atol=1e-4)) or xerr > 1e-2 * xmax:
+                fail(f"dx kernel {row['shape']} {name}: max err {xerr}")
+            row[f"{name}_dx_max_abs_err"] = xerr
+            del k, k2, p, kx, px
+            # the Function's (dx, dW) against autograd through the plain
+            # conv: f32 within 1e-3 max|plain| (sums in another order),
+            # bf16 within 1e-2 max|plain| (one bf16 rounding of each)
+            xg = x.detach().requires_grad_()
+            wg = w.detach().requires_grad_()
+            got = torch.autograd.grad(Conv3x3x3Function.apply(xg, wg),
+                                      (xg, wg), dy)
+            want = torch.autograd.grad(conv3x3x3_same_reference(xg, wg),
+                                       (xg, wg), dy)
+            torch.cuda.synchronize()
+            tol = 1e-3 if dt == torch.float32 else 1e-2
+            for what, g, q in zip(("dx", "dW"), got, want):
+                e = float((g.float() - q.float()).abs().max().item())
+                if g.dtype != dt or e > tol * q.float().abs().max().item():
+                    fail(f"Conv3x3x3Function {what} {row['shape']} {name}: "
+                         f"max err {e}")
+            del xg, wg, got, want
+            flop = 2 * M * 27 * c * c
+            peak = bf16_peak if dt == torch.bfloat16 else f32_peak
+            es = x.element_size()
+            for kind, nbytes, fn, plain, lib in (
+                    ("dw", 2 * M * c * es + 27 * c * c * 4,
+                     lambda: conv3x3x3_dw(x, dy),
+                     lambda: conv3x3x3_dw_reference(x, dy),
+                     lambda: conv3d_weight(x, w.shape, dy, padding=1)),
+                    ("dx", (2 * M * c + 27 * c * c) * es,
+                     lambda: conv3x3x3_dx(dy, w),
+                     lambda: conv3x3x3_same_reference(dy, flip_transpose(w)),
+                     lambda: conv3d_input(x.shape, w, dy, padding=1))):
+                row[f"{name}_{kind}_ms"] = cuda_ms(torch, fn)
+                row[f"{name}_{kind}_plain_ms"] = cuda_ms(torch, plain)
+                row[f"{name}_{kind}_library_ms"] = cuda_ms(torch, lib)
+                row[f"{name}_{kind}_bound_ms"] = max(flop / peak,
+                                                     nbytes / hbm) * 1e3
+                row[f"{name}_{kind}_bound_by"] = (
+                    "operations" if flop / peak >= nbytes / hbm else "bytes")
+            del x, dy, w
+        rows.append(row)
+        print(f"backward {row['shape']}: C bf16 {row['bf16_dw_ms']:.4f} ms "
+              f"(conv3d_weight {row['bf16_dw_library_ms']:.4f}, plain "
+              f"{row['bf16_dw_plain_ms']:.3f}, bound "
+              f"{row['bf16_dw_bound_ms']:.4f}, err "
+              f"{row['bf16_dw_max_abs_err']:.3g}), f32 "
+              f"{row['f32_dw_ms']:.4f}; B-as-dx bf16 {row['bf16_dx_ms']:.4f} "
+              f"ms (conv3d_input {row['bf16_dx_library_ms']:.4f}, plain "
+              f"{row['bf16_dx_plain_ms']:.3f}, bound "
+              f"{row['bf16_dx_bound_ms']:.4f}), f32 {row['f32_dx_ms']:.4f}",
+              flush=True)
+
+    def entry(kind, name, source, replaces, what):
+        def total(key):
+            return sum(r[f"bf16_{kind}_{key}"] * r["per_backward"]
+                       for r in rows)
+        ops = sum(r["per_backward"] * r[f"bf16_{kind}_bound_ms"]
+                  for r in rows
+                  if r[f"bf16_{kind}_bound_by"] == "operations")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "max_abs_err": max(r[f"bf16_{kind}_max_abs_err"]
+                                   for r in rows),
+                "ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if ops >= total("bound_ms") / 2
+                else "bytes",
+                "library_ms": total("library_ms"),
+                "per": f"the 20 bf16 launches of {what} of one self-train "
+                       f"step (batch {B})",
+                "shapes": [{k: v for k, v in r.items()
+                            if k in ("shape", "per_backward")
+                            or f"_{kind}_" in k} for r in rows]}
+    return [entry("dx", "conv3x3x3_dx",
+                  "bcp_tpu_torch/kernels/csrc/conv3x3x3.cu",
+                  "bcp_tpu/ops/conv3d.py:188", "dx"),
+            entry("dw", "conv3x3x3_dw",
+                  "bcp_tpu_torch/kernels/csrc/conv3x3x3_dw.cu",
+                  "bcp_tpu/ops/conv3d.py:323", "dW")]
+
+
 def seeded_vnet(torch, device, seed: int):
     """Full-width V-Net with torch's default init drawn from a numpy
     generator, and BN statistics calibrated on one window so that the
@@ -257,6 +419,93 @@ def phase_slice(torch, pth: str):
     return err
 
 
+def phase_train_step(torch):
+    """One pre-train and one self-train update in f32 on the card against
+    the same updates on the CPU: V-Net n_filters 16 at a STEP_PATCH patch,
+    the same seeded weights, batch, mask offsets and dropout keep masks.
+    The self-train update runs on the CPU's pseudo-labels on both sides (a
+    voxel at the 0.5 threshold may flip between the two; the count of
+    flipped voxels is printed). Every updated tensor (student and teacher
+    parameters, BN running statistics) must agree to ``atol`` 1e-4: f32
+    sums in other orders; the same updates in f32 against f64 on the CPU
+    differ by at most 2.4e-6."""
+    import copy
+    from bcp_tpu_torch.config import la_config
+    from bcp_tpu_torch.data.synthetic import la_cases
+    from bcp_tpu_torch.ops.masks import cuboid_mask, cuboid_starts
+    from bcp_tpu_torch.train.state import (TrainState, build_model,
+                                           build_optimizer)
+    from bcp_tpu_torch.train.steps import (pretrain_step, pseudo_labels,
+                                           selftrain_update)
+    cfg = la_config(n_filters=16, patch_size=STEP_PATCH,
+                    compute_dtype="float32")
+    cases = la_cases(8, STEP_PATCH, seed=SEED + 6)
+    img = np.stack([c[0] for c in cases])[:, None]
+    lab = np.stack([c[1] for c in cases])
+    host = {"img_a": img[0:2], "img_b": img[2:4], "uimg_a": img[4:6],
+            "uimg_b": img[6:8], "lab_a": lab[0:2], "lab_b": lab[2:4]}
+    rng = np.random.default_rng(SEED + 7)
+    starts = cuboid_starts(rng, STEP_PATCH)
+
+    def keep(n):   # the two channel dropouts: 16 nf and nf channels
+        return [rng.random((n, 256)) < 0.5, rng.random((n, 16)) < 0.5]
+    keeps = {"pre": keep(2), "teacher": keep(4), "student": keep(4)}
+    start = build_model(cfg, "train", "cpu", seed=SEED).state_dict()
+
+    def run(dev, plab=None):
+        def state():
+            m = build_model(cfg, "train", dev)
+            m.load_state_dict(start)
+            t = copy.deepcopy(m)
+            for p in t.parameters():
+                p.requires_grad_(False)
+            return TrainState(m, t, build_optimizer(cfg, m.parameters()))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        mask = cuboid_mask(STEP_PATCH, starts, device=dev)
+        k = {n: [torch.from_numpy(a).to(dev) for a in v]
+             for n, v in keeps.items()}
+        pre = state()
+        m_pre = pretrain_step(pre, batch, mask, cfg, dropout=k["pre"])
+        st = state()
+        own = pseudo_labels(st, batch, cfg, dropout=k["teacher"])
+        plab = own if plab is None else plab.to(dev)
+        m_self = selftrain_update(st, batch, plab, mask, cfg,
+                                  dropout=k["student"])
+        out = {f"pre.{n}": v for n, v in pre.model.state_dict().items()}
+        out.update({f"self.{n}": v for n, v in st.model.state_dict().items()})
+        out.update({f"teacher.{n}": v
+                    for n, v in st.teacher.state_dict().items()})
+        losses = {f"pre.{n}": float(v) for n, v in m_pre.items()}
+        losses.update({f"self.{n}": float(v) for n, v in m_self.items()})
+        return ({n: v.detach().cpu() for n, v in out.items()
+                 if not n.endswith("num_batches_tracked")}, losses,
+                own.cpu())
+
+    t0 = time.perf_counter()
+    want, want_loss, plab = run("cpu")
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, got_loss, card_plab = run(DEVICE, plab)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    flips = int((card_plab != plab).sum().item())
+    worst = max(((got[n] - want[n]).abs().max().item(), n) for n in want)
+    lworst = max((abs(got_loss[n] - want_loss[n]) / max(abs(want_loss[n]),
+                                                        1e-12), n)
+                 for n in want_loss)
+    result = {"patch": list(STEP_PATCH), "tensors": len(want),
+              "max_abs_err": worst[0], "worst_tensor": worst[1],
+              "max_rel_loss_err": lworst[0], "pseudo_label_flips": flips,
+              "pseudo_label_voxels": int(plab.sum().item()),
+              "cpu_s": t_cpu, "card_s": t_card}
+    print("f32 train step card vs cpu: " + json.dumps(result), flush=True)
+    if not all(np.isfinite(v) for v in got_loss.values()):
+        fail(f"f32 train step: non-finite losses {got_loss}")
+    if worst[0] > 1e-4 or lworst[0] > 1e-4:
+        fail(f"f32 train step on the card differs from the CPU: {result}")
+    return result
+
+
 def device_profile(torch, fn, trace_path: str, top: int = 12):
     """Kernel time by name, device busy time and idle share of one call of
     ``fn`` under ``torch.profiler`` (None when the trace holds no device
@@ -294,8 +543,35 @@ def device_profile(torch, fn, trace_path: str, top: int = 12):
     return {"busy_ms": busy, "window_ms": window,
             "idle_share": 1.0 - busy / window,
             "kernel_ms": sum(ms for ms, _ in by_name.values()),
+            "device_ops": len(spans),
             "top": [{"name": n[:90], "ms": ms, "calls": c}
                     for n, (ms, c) in ranked[:top]]}
+
+
+def host_profile(torch, fn, trace_path: str):
+    """What the host spends on one call of ``fn``: CUDA runtime calls
+    traced by ``torch.profiler`` (kernel launches, synchronisations, their
+    summed time) and the span of the traced CPU ops. Host tracing slows
+    the host, so idle shares come from :func:`device_profile` instead."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X"]
+    api = [e for e in events if e.get("cat") == "cuda_runtime"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    if not ops:
+        return None
+    return {"kernel_launches": sum("LaunchKernel" in e["name"] for e in api),
+            "synchronizations": sum("Synchronize" in e["name"]
+                                    for e in api),
+            "runtime_api_ms": sum(e["dur"] for e in api) / 1e3,
+            "cpu_op_span_ms": (max(e["ts"] + e["dur"] for e in ops)
+                               - min(e["ts"] for e in ops)) / 1e3}
 
 
 def phase_main_path(torch, pth: str, workdir: str):
@@ -303,8 +579,6 @@ def phase_main_path(torch, pth: str, workdir: str):
     from bcp_tpu_torch.data.datasets import VolumeList
     from bcp_tpu_torch.data.synthetic import la_cases
     from bcp_tpu_torch.eval.sliding_window import window_starts
-    from bcp_tpu_torch.ops.conv3d import conv3x3x3_same
-    from bcp_tpu_torch.ops.scatter import scatter_add_windows
     cases = la_cases(2, LA_VOLUME, seed=SEED + 2)
     args = test_la.build_parser().parse_args(
         ["--torch_ckpt", pth, "--snapshot_root", workdir, "--root_path",
@@ -314,8 +588,8 @@ def phase_main_path(torch, pth: str, workdir: str):
     n_win = len(window_starts(LA_VOLUME, PATCH, 18, 4))
     chunks = -(-n_win // EVAL_BATCH)
 
-    scatter_add_windows.launches = 0
-    conv3x3x3_same.launches = 0
+    counters = kernel_counters()
+    read_launches(counters, reset=True)
     out = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -323,11 +597,11 @@ def phase_main_path(torch, pth: str, workdir: str):
         avg = test_la.test_calculate_metric(args, dataset=VolumeList(cases))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"scatter_add_windows": scatter_add_windows.launches,
-                "conv3x3x3_same": conv3x3x3_same.launches}
+    launches = read_launches(counters)
     print(out.getvalue(), end="")
     want = {"scatter_add_windows": 2 * chunks,
-            "conv3x3x3_same": 2 * chunks * sum(n for _, n in CONV_STAGES)}
+            "conv3x3x3_same": 2 * chunks * sum(n for _, n in CONV_STAGES),
+            "conv3x3x3_dx": 0, "conv3x3x3_dw": 0}
     print(f"main path launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"main path launches {launches}, expected {want}")
@@ -369,6 +643,161 @@ def phase_main_path(torch, pth: str, workdir: str):
     return launches
 
 
+def kernel_counters():
+    from bcp_tpu_torch.ops.conv3d import (conv3x3x3_dw, conv3x3x3_dx,
+                                          conv3x3x3_same)
+    from bcp_tpu_torch.ops.scatter import scatter_add_windows
+    return {f.__name__: f for f in (scatter_add_windows, conv3x3x3_same,
+                                    conv3x3x3_dx, conv3x3x3_dw)}
+
+
+def read_launches(counters, reset: bool = False):
+    out = {name: f.launches for name, f in counters.items()}
+    if reset:
+        for f in counters.values():
+            f.launches = 0
+    return out
+
+
+def phase_training(torch, workdir: str):
+    """The training main path: ``cli.train_la``'s core at full width on
+    synthetic LA data (TRAIN_VOLUMES train volumes of TRAIN_VOLUME, the
+    first 4 labelled, and one LA_VOLUME validation volume): PRE_ITERS
+    pre-train iterations with one validation, which writes the stage's
+    best .pth, then SELF_ITERS self-train iterations from that file. Then
+    the steady step times of both stages through the same modules, and a
+    ``torch.profiler`` trace of one self-train step."""
+    from bcp_tpu_torch.cli import train_la
+    from bcp_tpu_torch.convert import load_reference_checkpoint
+    from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.data.feed import BCPBatchFeeder
+    from bcp_tpu_torch.data.synthetic import la_cases
+    from bcp_tpu_torch.eval.sliding_window import window_starts
+    from bcp_tpu_torch.models import create_model
+    from bcp_tpu_torch.ops.masks import cuboid_mask, cuboid_starts
+    from bcp_tpu_torch.train.state import init_state, load_weights_only
+    from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
+    train = VolumeList(la_cases(TRAIN_VOLUMES, TRAIN_VOLUME, seed=SEED + 3))
+    val = la_cases(1, LA_VOLUME, seed=SEED + 4)
+    args = train_la.build_parser().parse_args(
+        ["--labelnum", "4", "--pre_max_iteration", str(PRE_ITERS),
+         "--self_max_iteration", str(SELF_ITERS), "--snapshot_root",
+         workdir, "--root_path", workdir, "--device", DEVICE])
+    overrides = {"eval_every": PRE_ITERS, "patch_size": PATCH}
+    counters = kernel_counters()
+
+    read_launches(counters, reset=True)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        trainer, stages = train_la.train(args, train_dataset=train,
+                                         val_cases=val, **overrides)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    cfg = trainer.cfg
+    chunks = -(-len(window_starts(LA_VOLUME, PATCH, cfg.stride_xy,
+                                  cfg.stride_z)) // cfg.eval_batch)
+    convs = sum(n for _, n in CONV_STAGES)
+    v = trainer.validations
+    want = {"scatter_add_windows": v * chunks,
+            "conv3x3x3_same": convs * (PRE_ITERS + 2 * SELF_ITERS
+                                       + v * chunks),
+            "conv3x3x3_dx": convs * (PRE_ITERS + SELF_ITERS),
+            "conv3x3x3_dw": convs * (PRE_ITERS + SELF_ITERS)}
+    print(f"training path launches {launches} (expected {want}: "
+          f"{PRE_ITERS} pre-train and {SELF_ITERS} self-train steps, "
+          f"{v} validations of {chunks} chunks)", flush=True)
+    if launches != want:
+        fail(f"training path launches {launches}, expected {want}")
+    losses = {}
+    for stage in ("pre", "self"):
+        log = open(os.path.join(os.path.dirname(stages[stage][1]),
+                                "log.txt")).read()
+        losses[stage] = [float(x) for x in
+                         re.findall(r"iteration \d+ : loss: (\S+)", log)]
+    n_iters = {"pre": PRE_ITERS, "self": SELF_ITERS}
+    for stage, vals in losses.items():
+        if len(vals) != n_iters[stage] or not np.isfinite(vals).all():
+            fail(f"{stage}-train losses {vals}")
+    for stage, (dice, path) in stages.items():
+        model = create_model("VNet", 2, device=DEVICE)
+        model.load_state_dict(load_reference_checkpoint(path), strict=True)
+        print(f"{stage}-train: best dice {dice}, {path} loads strictly into "
+              f"the eval model", flush=True)
+
+    # steady step times through the trainer's own pieces, from the
+    # self-train stage's best weights
+    def stage_loop(stage):
+        state = init_state(cfg, DEVICE)
+        load_weights_only(state, load_reference_checkpoint(
+            stages["self"][1]))
+        feeder = BCPBatchFeeder(cfg, stage, train, DEVICE)
+        mask_rng = np.random.default_rng(SEED + 8)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+
+        def step():
+            batch = next(feeder)
+            mask = cuboid_mask(cfg.patch_size, cuboid_starts(
+                mask_rng, cfg.patch_size, cfg.mask_ratio), cfg.mask_ratio,
+                DEVICE)
+            if stage == "pre":
+                return pretrain_step(state, batch, mask, cfg, gen)
+            return selftrain_step(state, batch, mask, cfg, gen, gen)
+        return feeder, step
+
+    steady = {}
+    for stage in ("pre", "self"):
+        feeder, step = stage_loop(stage)
+        try:
+            for _ in range(WARMUP_STEPS):
+                step()
+            read_launches(counters, reset=True)
+            step()
+            torch.cuda.synchronize()
+            one = read_launches(counters)
+            per = {"conv3x3x3_same": convs * (2 if stage == "self" else 1),
+                   "conv3x3x3_dx": convs, "conv3x3x3_dw": convs,
+                   "scatter_add_windows": 0}
+            if one != per:
+                fail(f"one {stage}-train step launched {one}, expected {per}")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(STEADY_STEPS):
+                m = step()
+            float(m["loss"])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / STEADY_STEPS
+            patches = cfg.batch_size if stage == "self" else cfg.labeled_bs
+            steady[stage] = {
+                "ms_per_step": dt * 1e3, "patches_per_s": patches / dt,
+                "patches_per_step": patches, "launches_per_step": one,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if stage == "self":
+                steady[stage]["profile"] = device_profile(
+                    torch, step, os.path.join(workdir, "train_trace.json"))
+            steady[stage]["host"] = host_profile(
+                torch, step, os.path.join(workdir, f"host_{stage}.json"))
+        finally:
+            feeder.close()
+        # the host's share: one batch built by the feeder's own code, on
+        # this thread once its worker has stopped
+        t0 = time.perf_counter()
+        for _ in range(3):
+            feeder.build()
+        steady[stage]["host_batch_build_ms"] = (
+            (time.perf_counter() - t0) / 3 * 1e3)
+        print(f"steady {stage}-train step: " + json.dumps(steady[stage]),
+              flush=True)
+    result = {"train_volumes": TRAIN_VOLUMES, "volume": list(TRAIN_VOLUME),
+              "pre_iters": PRE_ITERS, "self_iters": SELF_ITERS,
+              "validations": v, "cli_s": wall, "losses": losses,
+              "best_dice": {s: d for s, (d, _) in stages.items()}}
+    print("training path: " + json.dumps(result), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -392,6 +821,7 @@ def main() -> int:
     print(f"kernels built in {kernels.build_all():.2f} s", flush=True)
 
     entries = phase_kernels(torch, rates)
+    entries += phase_backward_kernels(torch, rates)
     # scratch inside the checkout (git-ignored), removed on the way out
     work_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "_work")
@@ -400,9 +830,14 @@ def main() -> int:
         pth = os.path.join(workdir, "VNet_best_model.pth")
         torch.save(seeded_vnet(torch, DEVICE, SEED).state_dict(), pth)
         phase_slice(torch, pth)
-        launches = phase_main_path(torch, pth, workdir)
+        phase_train_step(torch)
+        launches = {"test_la": phase_main_path(torch, pth, workdir),
+                    "train_la": phase_training(torch, workdir)}
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        by_path = {path: counts[e["name"]]
+                   for path, counts in launches.items()}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

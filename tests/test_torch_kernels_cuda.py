@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from bcp_tpu_torch.ops.conv3d import (conv3x3x3_same,
+from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
+                                      conv3x3x3_dw_reference, conv3x3x3_dx,
+                                      conv3x3x3_same,
                                       conv3x3x3_same_reference)
 from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
                                        scatter_add_windows_reference)
@@ -67,6 +69,58 @@ def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
         conv3x3x3_same(x, w)
     with pytest.raises(TypeError):
         conv3x3x3_same(x.half(), w.half())
+
+
+DW_SHAPES = [(2, 6, 5, 7, 16, 16), (1, 4, 4, 3, 32, 64),
+             (2, 3, 5, 4, 256, 256), (1, 9, 11, 13, 32, 48),
+             (2, 7, 7, 5, 256, 256), (1, 20, 18, 16, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_kernel_matches_plain(cuda_device, shape, dtype):
+    """Kernel C against its plain version: both sum the same exact
+    products in f32, in another order, so max|kernel - plain| <= 1e-3
+    max|plain|; two runs give the same bits (no float atomics)."""
+    x, _ = _conv_case(*shape, seed=5)
+    dy, _ = _conv_case(*shape[:4], shape[5], shape[5], seed=6)
+    x, dy = (t.to(cuda_device, dtype).contiguous(
+        memory_format=torch.channels_last_3d) for t in (x, dy))
+    before = conv3x3x3_dw.launches
+    got = conv3x3x3_dw(x, dy)
+    again = conv3x3x3_dw(x, dy)
+    want = conv3x3x3_dw_reference(x, dy)
+    torch.cuda.synchronize()
+    assert conv3x3x3_dw.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-3 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+def test_function_grads_on_card_match_autograd_of_plain(cuda_device, dtype,
+                                                        tol):
+    """``Conv3x3x3Function``'s (dx, dW) through kernels B and C against
+    autograd through the plain conv, each within tol * max|plain| (bf16:
+    dx and dW are rounded to bf16 once; f32: sums in another order)."""
+    x, w = (t.to(cuda_device, dtype) for t in _conv_case(2, 8, 9, 7, 32, 16,
+                                                         seed=7))
+    dy = torch.randn((2, 16, 8, 9, 7), device=cuda_device).to(dtype)
+    x.requires_grad_()
+    w.requires_grad_()
+    fwd, dx_n, dw_n = (conv3x3x3_same.launches, conv3x3x3_dx.launches,
+                       conv3x3x3_dw.launches)
+    got = torch.autograd.grad(Conv3x3x3Function.apply(x, w), (x, w), dy)
+    assert (conv3x3x3_same.launches, conv3x3x3_dx.launches,
+            conv3x3x3_dw.launches) == (fwd + 1, dx_n + 1, dw_n + 1)
+    want = torch.autograd.grad(conv3x3x3_same_reference(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert g.dtype == dtype and g.shape == p.shape
+        err = (g.float() - p.float()).abs().max().item()
+        assert err <= tol * p.float().abs().max().item()
 
 
 def _scatter_case(seed, X=40, Y=36, Z=28, C=2, B=6, p=(16, 12, 8)):

@@ -11,6 +11,7 @@ from bcp_tpu.convert.torch_ckpt import export_state_dict
 from bcp_tpu_torch.convert import (load_reference_checkpoint,
                                    state_dict_from_flax)
 from bcp_tpu_torch.models import VNet3D, create_model
+from bcp_tpu_torch.models.layers import ChannelDropout
 from torch_port_helpers import flax_vnet_variables, port_vnet
 
 
@@ -82,8 +83,14 @@ def test_bf16_forward_promotes_logits():
 
 
 def test_train_mode_and_missing_card_raise():
-    with pytest.raises(NotImplementedError):
-        create_model("VNet", 2, mode="train", device="cpu")
+    """Train mode builds a training model with its two dropouts; a mode
+    other than train or test raises, and so does a missing card."""
+    net = create_model("VNet", 2, mode="train", device="cpu", n_filters=4)
+    assert net.training
+    assert isinstance(net.enc_dropout, ChannelDropout)
+    assert isinstance(net.decoder.dropout, ChannelDropout)
+    with pytest.raises(ValueError, match="mode"):
+        create_model("VNet", 2, mode="eval", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
