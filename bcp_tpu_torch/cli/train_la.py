@@ -98,15 +98,17 @@ def config_from_args(args, **overrides):
         async_val=False, device_data_cache=False).replace(**overrides)
 
 
-def train(args, train_dataset=None, val_cases=None, device=None,
+def train(args, train_dataset=None, val_cases=None, on_step=None,
           **overrides):
     """Run the stages of ``--stage``; ``train_dataset`` / ``val_cases``
-    replace the h5 reads of ``--root_path`` (see ``BCPTrainer``). Returns
-    (trainer, {stage: (best dice, best .pth path)})."""
+    replace the h5 reads of ``--root_path`` and ``on_step`` is the
+    trainer's per-iteration hook (see ``BCPTrainer``). Returns (trainer,
+    {stage: (best dice, best .pth path)})."""
     _refuse(args)
     cfg = config_from_args(args, **overrides)
-    trainer = BCPTrainer(cfg, device=device or args.device,
-                         train_dataset=train_dataset, val_cases=val_cases)
+    trainer = BCPTrainer(cfg, device=args.device,
+                         train_dataset=train_dataset, val_cases=val_cases,
+                         on_step=on_step)
     print("Starting BCP training.")
     out = {}
     if args.stage in ("both", "pre"):

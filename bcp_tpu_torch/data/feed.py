@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -32,16 +32,14 @@ class BCPBatchFeeder:
     ``cfg.labelnum`` volumes are the labelled ones. One epoch is one pass
     over the labelled indices."""
 
-    def __init__(self, cfg: Config, stage: str, dataset, device=None,
-                 seed: Optional[int] = None, prefetch: int = 2):
+    def __init__(self, cfg: Config, stage: str, dataset, device=None):
         if cfg.variant != "la":
             raise NotImplementedError("the port's feed is the LA host feed")
         self.cfg = cfg
         self.stage = stage
         self.dataset = dataset
         self.device = resolve_device(device)
-        self.seed = cfg.seed if seed is None else seed
-        self.rng = np.random.default_rng(self.seed)
+        self.rng = np.random.default_rng(cfg.seed)
         self.img_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                           else torch.float32)
         n_lab = cfg.labelnum
@@ -49,8 +47,8 @@ class BCPBatchFeeder:
         self.steps_per_epoch = max(n_lab // cfg.labeled_bs, 1)
         self._index_stream = two_stream_batches(
             list(range(n_lab)), list(range(n_lab, total)), cfg.batch_size,
-            cfg.unlabeled_bs, seed=self.seed)
-        self._queue: queue.Queue = queue.Queue(maxsize=prefetch)
+            cfg.unlabeled_bs, seed=cfg.seed)
+        self._queue: queue.Queue = queue.Queue(maxsize=2)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +41,15 @@ from bcp_tpu_torch.utils.logging import MetricWriter, setup_logging
 class BCPTrainer:
     """``train_dataset`` (``len`` + ``sample_train``) and ``val_cases``
     ((image, label) pairs) default to the LA train and test splits under
-    ``cfg.root_path``."""
+    ``cfg.root_path``. ``on_step(stage, iteration)``, when given, is called
+    after each iteration has enqueued its step and read back the step
+    before it, ahead of that iteration's validation; ``chip_smoke.py``
+    times and traces the loop's steps with it."""
 
     def __init__(self, cfg: Config, device=None, train_dataset=None,
                  val_cases: Optional[List[Tuple[np.ndarray, np.ndarray]]]
-                 = None):
+                 = None,
+                 on_step: Optional[Callable[[str, int], None]] = None):
         if cfg.variant != "la":
             raise NotImplementedError("the port's trainer runs LA")
         self.cfg = cfg
@@ -54,6 +58,7 @@ class BCPTrainer:
         self.self_dir = snapshot_dir(cfg, "self_train")
         self.train_dataset = train_dataset
         self._val_cases = val_cases
+        self.on_step = on_step
         self.eval_model = build_model(cfg, "test", self.device)
         self.evaluator = SlidingWindowEvaluator(
             self.eval_model, cfg.patch_size, cfg.num_classes, cfg.stride_xy,
@@ -153,6 +158,8 @@ class BCPTrainer:
                 if pending is not None:
                     emit(*pending)
                 pending = (it, metrics)
+                if self.on_step is not None:
+                    self.on_step(stage, it)
                 if it % cfg.eval_every == 0:
                     emit(*pending)
                     pending = None
@@ -179,14 +186,7 @@ class BCPTrainer:
     def pretrain(self) -> Tuple[float, str]:
         return self._run_stage("pre", self.cfg.pre_iterations)
 
-    def selftrain(self, pretrained: Optional[str] = None
-                  ) -> Tuple[float, str]:
-        init_from = pretrained or best_model_path(self.pre_dir,
-                                                  self.cfg.net_type)
+    def selftrain(self) -> Tuple[float, str]:
         return self._run_stage("self", self.cfg.self_iterations,
-                               init_from=init_from)
-
-    def run(self) -> Dict[str, float]:
-        pre_dice, _ = self.pretrain()
-        self_dice, _ = self.selftrain()
-        return {"pre_best_dice": pre_dice, "self_best_dice": self_dice}
+                               init_from=best_model_path(self.pre_dir,
+                                                         self.cfg.net_type))

@@ -1,6 +1,7 @@
 """The port's train_la CLI core on the CPU at a tiny size: both stages run
-through the trainer, hand off through the pre-train stage's best .pth and
-write reference-layout checkpoints that load strictly into the eval model;
+through the trainer, call its per-iteration hook, hand off through the
+pre-train stage's best .pth and write reference-layout checkpoints that
+load strictly into the eval model;
 the flags the port lacks are refused with the ROADMAP item that brings
 them."""
 
@@ -31,9 +32,12 @@ def _args(tmp_path, *extra):
 def test_two_stages_hand_off_and_write_strict_checkpoints(tmp_path):
     train = VolumeList(la_cases(8, (20, 20, 18), seed=11))
     val = la_cases(1, (24, 22, 20), seed=12)
+    calls = []
     trainer, out = train_la.train(_args(tmp_path), train_dataset=train,
-                                  val_cases=val, **TINY)
+                                  val_cases=val,
+                                  on_step=lambda *a: calls.append(a), **TINY)
     assert set(out) == {"pre", "self"}
+    assert calls == [("pre", 1), ("pre", 2), ("self", 1), ("self", 2)]
     # one validation per stage at eval_every, and another at the end of a
     # stage whose validations never beat a dice of 0 (`trainer.py:570`)
     assert trainer.validations >= 2
