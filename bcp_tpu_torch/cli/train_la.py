@@ -3,10 +3,15 @@
 
     python -m bcp_tpu_torch.cli.train_la --root_path DATA/LA --labelnum 8
 
+As in the JAX CLI the training volumes live on the device
+(``--device_data_cache 1``) and validation runs in the background;
+``--resume`` goes on from each stage's last saved state. ``--fused_bwd 1``
+(the JAX package's ``BCP_FUSED_BWD=1``) computes every eligible 3^3 conv's
+dx and dW in the one fused backward kernel.
+
 Not ported yet, and refused with the ROADMAP item that brings them: more
-than one device (``--num_devices``, ``--sp_devices``), ``--remat 1``, the
-device-resident data store (``--device_data_cache 1``), K-step dispatch
-(``--steps_per_dispatch`` > 1) and ``--resume``.
+than one device (``--num_devices``, ``--sp_devices``), ``--remat 1`` and
+K-step dispatch (``--steps_per_dispatch`` > 1).
 """
 
 from __future__ import annotations
@@ -42,19 +47,24 @@ def build_parser():
     p.add_argument("--stage", type=str, default="both",
                    choices=["both", "pre", "self"])
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP A1: --resume)")
+                   help="resume each stage from its last saved state if "
+                        "present")
     p.add_argument("--num_devices", type=int, default=1,
                    help="the port trains on one device (ROADMAP A4)")
     p.add_argument("--sp_devices", type=int, default=1,
                    help="the port trains on one device (ROADMAP A4)")
     p.add_argument("--remat", type=int, default=0,
                    help="not ported yet (ROADMAP A4: remat)")
-    p.add_argument("--device_data_cache", type=int, default=0,
-                   help="the JAX package's default is 1; the port takes 0 "
-                        "until DeviceVolumeStore is ported (ROADMAP A1)")
+    p.add_argument("--device_data_cache", type=int, default=1,
+                   help="keep the training volumes on the device and crop/"
+                        "augment there (~2-3 GB in bf16); 0 = host feed")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="the port dispatches one step at a time (ROADMAP "
                         "A1: steps_per_dispatch)")
+    p.add_argument("--fused_bwd", type=int, default=0, choices=[0, 1],
+                   help="1: dx and dW of every Ci == Co 3^3 conv from the "
+                        "one fused backward kernel; 0: the conv kernel on dy "
+                        "plus the dW kernel")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -71,11 +81,8 @@ def _refuse(args) -> None:
         (args.sp_devices != 1, "--sp_devices != 1: spatial partitioning is "
          "not ported (ROADMAP A4, multi-GPU)"),
         (bool(args.remat), "--remat 1 is not ported (ROADMAP A4, remat)"),
-        (bool(args.device_data_cache), "--device_data_cache 1 needs "
-         "DeviceVolumeStore, not ported yet (ROADMAP A1, device store)"),
         (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1 is not "
          "ported (ROADMAP A1, steps_per_dispatch)"),
-        (args.resume, "--resume is not ported (ROADMAP A1, resume)"),
     ]
     for bad, why in refused:
         if bad:
@@ -95,27 +102,39 @@ def config_from_args(args, **overrides):
         consistency_rampup=args.consistency_rampup,
         u_weight=args.u_weight, mask_ratio=args.mask_ratio,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        async_val=False, device_data_cache=False).replace(**overrides)
+        device_data_cache=bool(args.device_data_cache),
+        fused_bwd=bool(args.fused_bwd)).replace(**overrides)
+
+
+def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,
+                  **overrides) -> BCPTrainer:
+    """The trainer of the parsed flags; ``train_dataset`` / ``val_cases``
+    replace the h5 reads of ``--root_path`` and ``on_step`` is the
+    trainer's per-iteration hook (see ``BCPTrainer``)."""
+    _refuse(args)
+    cfg = config_from_args(args, **overrides)
+    return BCPTrainer(cfg, device=args.device, train_dataset=train_dataset,
+                      val_cases=val_cases, on_step=on_step)
+
+
+def run_stages(trainer: BCPTrainer, args):
+    """Run the stages of ``--stage``: {stage: (best dice, best .pth)}."""
+    print("Starting BCP training.")
+    out = {}
+    if args.stage in ("both", "pre"):
+        out["pre"] = trainer.pretrain(resume=args.resume)
+    if args.stage in ("both", "self"):
+        out["self"] = trainer.selftrain(resume=args.resume)
+    return out
 
 
 def train(args, train_dataset=None, val_cases=None, on_step=None,
           **overrides):
-    """Run the stages of ``--stage``; ``train_dataset`` / ``val_cases``
-    replace the h5 reads of ``--root_path`` and ``on_step`` is the
-    trainer's per-iteration hook (see ``BCPTrainer``). Returns (trainer,
+    """:func:`build_trainer`, then :func:`run_stages`. Returns (trainer,
     {stage: (best dice, best .pth path)})."""
-    _refuse(args)
-    cfg = config_from_args(args, **overrides)
-    trainer = BCPTrainer(cfg, device=args.device,
-                         train_dataset=train_dataset, val_cases=val_cases,
-                         on_step=on_step)
-    print("Starting BCP training.")
-    out = {}
-    if args.stage in ("both", "pre"):
-        out["pre"] = trainer.pretrain()
-    if args.stage in ("both", "self"):
-        out["self"] = trainer.selftrain()
-    return trainer, out
+    trainer = build_trainer(args, train_dataset, val_cases, on_step,
+                            **overrides)
+    return trainer, run_stages(trainer, args)
 
 
 def main(argv=None):

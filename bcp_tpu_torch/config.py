@@ -1,4 +1,5 @@
-"""Experiment configuration tree + the three reference presets.
+"""Experiment configuration tree + the three reference presets: the JAX
+package's ``bcp_tpu/config.py`` field for field, plus ``fused_bwd``.
 
 Replaces the reference's per-script argparse blobs and module globals
 (`LA_BCP_train.py:32-55`, `ACDC_BCP_train.py:33-56`,
@@ -82,6 +83,12 @@ class Config:
     # activation HBM for ~1 extra forward of FLOPs — for patches/batches
     # that otherwise OOM one chip. 3-D V-Net pipelines only.
     remat: bool = False
+    # The port's only field of its own. Compute every eligible (Ci == Co)
+    # 3^3 conv's dx and dW in the one fused backward kernel instead of the
+    # conv kernel on dy plus the dW kernel: the JAX package's
+    # BCP_FUSED_BWD=1 (an environment variable there, `layers.py:135-144`,
+    # off by default), here an explicit flag that travels to the layers.
+    fused_bwd: bool = False
 
     # ---- optimisation
     optimizer: str = "sgd"              # 'sgd' | 'adam'

@@ -1,20 +1,32 @@
-"""The LA batch feed: ``bcp_tpu/data/feed.py``'s host path for the port.
+"""The LA batch feed: ``bcp_tpu/data/feed.py`` for the port.
 
-A background thread builds the next batches with numpy (two-stream
-indices, rot/flip, random crop; `feed.py:116-127,258-301`) while the card
-runs the current step; the main thread copies a built batch to the card
-from pinned memory without waiting. The same seed gives the JAX package's
-batches bit for bit (:meth:`BCPBatchFeeder.build`), images as (N, 1, *S)
-in the compute dtype, labels (N, *S) uint8. The JAX package's
-device-resident volume store (``device_data_cache``) and K-step stacking
-(``steps_per_dispatch``) are not ported yet.
+Host path (``cfg.device_data_cache`` off): a background thread builds the
+next batches with numpy (two-stream indices, rot/flip, random crop;
+`feed.py:116-127,258-301`) while the card runs the current step; the main
+thread copies a built batch to the card from pinned memory without
+waiting.
+
+Device-store path (``cfg.device_data_cache`` on, `feed.py:164-223`): the
+training volumes live on the card (``data.device_store``) and a batch is a
+handful of host draws plus crops cut on the device. There is no
+background thread on this path: the crops are issued by the thread that
+asks for the batch, on its current CUDA stream, so the step that reads a
+batch is ordered after the batch's crops by the stream itself and needs
+no event. (A worker thread would only add launches that contend for the
+interpreter with the training thread's own.) Both stages of a run share
+one store through ``store_cache``.
+
+On either path the same seed gives the JAX package's batches bit for bit,
+images as (N, 1, *S) in the compute dtype, labels (N, *S) uint8. K-step
+stacking (``steps_per_dispatch``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -30,11 +42,15 @@ class BCPBatchFeeder:
     unlabelled sub-batches (``uimg_a``, ``uimg_b``). ``dataset`` is
     anything with ``len`` and ``sample_train(i, patch, rng)``; its first
     ``cfg.labelnum`` volumes are the labelled ones. One epoch is one pass
-    over the labelled indices."""
+    over the labelled indices. With ``cfg.device_data_cache`` the dataset
+    also needs ``load(i)``; ``store_cache`` is a dict shared by the feeders
+    of one run, so the second stage reuses the first stage's store instead
+    of uploading it again (`feed.py:71-76`)."""
 
-    def __init__(self, cfg: Config, stage: str, dataset, device=None):
+    def __init__(self, cfg: Config, stage: str, dataset, device=None,
+                 store_cache: Optional[dict] = None):
         if cfg.variant != "la":
-            raise NotImplementedError("the port's feed is the LA host feed")
+            raise NotImplementedError("the port's feed is the LA feed")
         self.cfg = cfg
         self.stage = stage
         self.dataset = dataset
@@ -48,10 +64,46 @@ class BCPBatchFeeder:
         self._index_stream = two_stream_batches(
             list(range(n_lab)), list(range(n_lab, total)), cfg.batch_size,
             cfg.unlabeled_bs, seed=cfg.seed)
+        self._store = None
+        self.store_init_s = 0.0
+        self._thread = None
+        if cfg.device_data_cache:
+            self._init_device_store(
+                store_cache if store_cache is not None else {})
+            return
         self._queue: queue.Queue = queue.Queue(maxsize=2)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
+
+    def _init_device_store(self, cache: dict) -> None:
+        from bcp_tpu_torch.data.device_store import DeviceVolumeStore
+        t0 = time.time()
+        store = cache.get("store")
+        if store is None:
+            store = DeviceVolumeStore.from_dataset(
+                self.dataset, range(len(self.dataset)), self.cfg.patch_size,
+                pad_extra=3, img_dtype=self.img_dtype, device=self.device)
+            cache["store"] = store
+        self._store = store
+        self.store_init_s = time.time() - t0
+
+    def build_device(self) -> Dict[str, torch.Tensor]:
+        """The next batch cut from the device store (`feed.py:209-223`):
+        the labelled samples' draws first, then the unlabelled ones', as
+        the host path consumes its generator."""
+        cfg = self.cfg
+        lab_idx, unlab_idx = next(self._index_stream)
+        sub = cfg.labeled_sub_bs
+        img, lab = self._store.sample_batch(lab_idx, self.rng, rotflip=True)
+        batch = {"img_a": img[:sub], "img_b": img[sub:],
+                 "lab_a": lab[:sub], "lab_b": lab[sub:]}
+        if self.stage == "self":
+            uimg, _ = self._store.sample_batch(unlab_idx, self.rng,
+                                               rotflip=True)
+            usub = cfg.unlabeled_sub_bs
+            batch["uimg_a"], batch["uimg_b"] = uimg[:usub], uimg[usub:]
+        return batch
 
     def build(self) -> Dict[str, np.ndarray]:
         """The next batch on the host, f32 images (`feed.py:258-301`)."""
@@ -94,6 +146,8 @@ class BCPBatchFeeder:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
+        if self._store is not None:
+            return self.build_device()
         item = self._queue.get()
         if isinstance(item, Exception):
             raise item
@@ -101,6 +155,8 @@ class BCPBatchFeeder:
                 for k, v in item.items()}
 
     def close(self) -> None:
+        if self._thread is None:
+            return
         self._stop.set()
         try:
             while True:

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -47,6 +48,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                               _I, _I, _I, _I, _P),
         "conv3x3x3_dw_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _P),
+    },
+    "conv3x3x3_dxdw": {
+        "conv3x3x3_dxdw_bf16": (_P,) * 7 + (_I,) * 10 + (_P,),
+        "conv3x3x3_dxdw_f32": (_P,) * 7 + (_I,) * 10 + (_P,),
     },
 }
 
@@ -102,12 +107,18 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
-    st = _start_build(name)
-    if st is not None:
-        _finish_build(name, st)
+    """The loaded kernel library ``name``, built first if needed (one
+    thread at a time: the validation worker may ask while the training
+    thread builds)."""
+    with _BUILD_LOCK:
+        st = _start_build(name)
+        if st is not None:
+            _finish_build(name, st)
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
@@ -121,6 +132,17 @@ def check(code: int, what: str) -> None:
     runs, and a later synchronize would not report it)."""
     if code != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {code}")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. The training thread and the
+    background validation thread launch the same kernels, so the
+    read-add-write is taken under a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def stream_handle(device) -> int:

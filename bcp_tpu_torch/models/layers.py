@@ -29,22 +29,26 @@ class Conv3x3x3(nn.Conv3d):
 
     Channel counts the CUDA kernels take go through
     ``Conv3x3x3Function``: kernel B forward and for dx, kernel C for dW on
-    the card, their plain versions on the CPU; the rest
+    the card, their plain versions on the CPU; with ``fused_bwd`` (the JAX
+    package's ``BCP_FUSED_BWD=1``, `layers.py:135-144`) a Ci == Co conv's
+    dx and dW come from kernel D instead. The rest
     (the V-Net's Ci = 1 first conv) use ``F.conv3d``, as the JAX package
     leaves those to XLA. The bias is added after the conv, in the compute
     dtype (`layers.py:249`)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 fused_bwd: bool = False):
         super().__init__(in_channels, out_channels, kernel_size=3,
                          padding=1)
         self.compute_dtype = dtype
+        self.fused_bwd = fused_bwd
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
         w = self.weight.to(x.dtype)
         if kernel_takes(self.in_channels, self.out_channels):
-            y = Conv3x3x3Function.apply(x, w)
+            y = Conv3x3x3Function.apply(x, w, self.fused_bwd)
         else:
             y = F.conv3d(x, w, None, padding=1)
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)

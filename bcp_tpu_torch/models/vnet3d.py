@@ -30,11 +30,13 @@ class ConvBlock(nn.Module):
     """`ConvBlock` (`networks/VNet.py:6-32`): n x (3^3 conv, norm, relu)."""
 
     def __init__(self, n_stages: int, n_in: int, n_out: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 fused_bwd: bool = False):
         super().__init__()
         ops = []
         for i in range(n_stages):
-            ops += [Conv3x3x3(n_in if i == 0 else n_out, n_out, dtype=dtype),
+            ops += [Conv3x3x3(n_in if i == 0 else n_out, n_out, dtype=dtype,
+                              fused_bwd=fused_bwd),
                     TorchBatchNorm(n_out, dtype=dtype), nn.ReLU()]
         self.conv = nn.Sequential(*ops)
 
@@ -71,17 +73,19 @@ class UpBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, n_channels: int, nf: int, dtype):
+    def __init__(self, n_channels: int, nf: int, dtype,
+                 fused_bwd: bool = False):
         super().__init__()
-        self.block_one = ConvBlock(1, n_channels, nf, dtype)
+        f = fused_bwd
+        self.block_one = ConvBlock(1, n_channels, nf, dtype, f)
         self.block_one_dw = DownBlock(nf, 2 * nf, dtype)
-        self.block_two = ConvBlock(2, 2 * nf, 2 * nf, dtype)
+        self.block_two = ConvBlock(2, 2 * nf, 2 * nf, dtype, f)
         self.block_two_dw = DownBlock(2 * nf, 4 * nf, dtype)
-        self.block_three = ConvBlock(3, 4 * nf, 4 * nf, dtype)
+        self.block_three = ConvBlock(3, 4 * nf, 4 * nf, dtype, f)
         self.block_three_dw = DownBlock(4 * nf, 8 * nf, dtype)
-        self.block_four = ConvBlock(3, 8 * nf, 8 * nf, dtype)
+        self.block_four = ConvBlock(3, 8 * nf, 8 * nf, dtype, f)
         self.block_four_dw = DownBlock(8 * nf, 16 * nf, dtype)
-        self.block_five = ConvBlock(3, 16 * nf, 16 * nf, dtype)
+        self.block_five = ConvBlock(3, 16 * nf, 16 * nf, dtype, f)
 
     def forward(self, x):
         x1 = self.block_one(x)
@@ -94,16 +98,17 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, n_classes: int, nf: int, dtype,
-                 has_dropout: bool = False):
+                 has_dropout: bool = False, fused_bwd: bool = False):
         super().__init__()
+        f = fused_bwd
         self.block_five_up = UpBlock(16 * nf, 8 * nf, dtype)
-        self.block_six = ConvBlock(3, 8 * nf, 8 * nf, dtype)
+        self.block_six = ConvBlock(3, 8 * nf, 8 * nf, dtype, f)
         self.block_six_up = UpBlock(8 * nf, 4 * nf, dtype)
-        self.block_seven = ConvBlock(3, 4 * nf, 4 * nf, dtype)
+        self.block_seven = ConvBlock(3, 4 * nf, 4 * nf, dtype, f)
         self.block_seven_up = UpBlock(4 * nf, 2 * nf, dtype)
-        self.block_eight = ConvBlock(2, 2 * nf, 2 * nf, dtype)
+        self.block_eight = ConvBlock(2, 2 * nf, 2 * nf, dtype, f)
         self.block_eight_up = UpBlock(2 * nf, nf, dtype)
-        self.block_nine = ConvBlock(1, nf, nf, dtype)
+        self.block_nine = ConvBlock(1, nf, nf, dtype, f)
         self.out_conv = Conv3d(nf, n_classes, 1, dtype=dtype)
         self.dropout = ChannelDropout() if has_dropout else nn.Identity()
 
@@ -124,16 +129,19 @@ class VNet3D(nn.Module):
     ``(logits, x8_up)`` with the logits promoted to at least f32
     (`vnet3d.py:221-226`). ``dtype`` is the compute dtype; parameters stay
     f32. :func:`~bcp_tpu_torch.models.layers.bn_groups` sets the
-    BatchNorms' number of sub-batches in train mode (`vnet3d.py:170-172`)."""
+    BatchNorms' number of sub-batches in train mode (`vnet3d.py:170-172`).
+    ``fused_bwd`` hands every 3^3 conv's backward to the fused dx + dW
+    kernel where it is eligible; the forward is the same."""
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,
-                 has_dropout: bool = False):
+                 has_dropout: bool = False, fused_bwd: bool = False):
         super().__init__()
         self.compute_dtype = dtype
-        self.encoder = Encoder(n_channels, n_filters, dtype)
+        self.encoder = Encoder(n_channels, n_filters, dtype, fused_bwd)
         self.enc_dropout = ChannelDropout() if has_dropout else nn.Identity()
-        self.decoder = Decoder(n_classes, n_filters, dtype, has_dropout)
+        self.decoder = Decoder(n_classes, n_filters, dtype, has_dropout,
+                               fused_bwd)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.compute_dtype is not None:

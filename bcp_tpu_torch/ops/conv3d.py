@@ -16,14 +16,19 @@ On a CUDA tensor:
   is channels_last_3d too;
 - :func:`conv3x3x3_dw` launches ``kernels/csrc/conv3x3x3_dw.cu`` (kernel
   C), whose voxel reduction is split over CTAs and summed in a fixed
-  order (:func:`dw_splits`).
+  order (:func:`dw_splits`);
+- :func:`conv3x3x3_dxdw` launches ``kernels/csrc/conv3x3x3_dxdw.cu``
+  (kernel D, the counterpart of ``_conv3x3x3_dxdw_pallas``): dx and dW of
+  a Ci == Co conv from one staging of each dy tile
+  (:func:`fused_bwd_eligible`).
 
 On a CPU tensor each runs its plain version: 27 shifted tap matmuls with
 f32 accumulation (:func:`conv3x3x3_same_reference`,
-:func:`conv3x3x3_dw_reference`). Shapes the kernels do not take
+:func:`conv3x3x3_dw_reference`, and the two composed,
+:func:`conv3x3x3_dxdw_reference`). Shapes the kernels do not take
 (:func:`kernel_takes`) are the caller's to route to ``F.conv3d``.
 :class:`Conv3x3x3Function` ties forward and backward together for
-autograd.
+autograd; its ``fused`` flag picks kernel D for the backward.
 """
 
 from __future__ import annotations
@@ -160,7 +165,7 @@ def conv3x3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3x3_same_reference(x, w)
     y = _launch_conv(x, w, "conv3x3x3_same")
-    conv3x3x3_same.launches += 1
+    kernels.count_launch(conv3x3x3_same)
     return y
 
 
@@ -177,7 +182,7 @@ def conv3x3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if dy.device.type == "cpu":
         return conv3x3x3_same_reference(dy, wt)
     dx = _launch_conv(dy, wt, "conv3x3x3_dx")
-    conv3x3x3_dx.launches += 1
+    kernels.count_launch(conv3x3x3_dx)
     return dx
 
 
@@ -245,19 +250,94 @@ def conv3x3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                   B, X, Y, Z, Ci, Co, tx, ty, tz, bn, splits,
                   kernels.stream_handle(x.device))
     kernels.check(code, "conv3x3x3_dw")
-    conv3x3x3_dw.launches += 1
+    kernels.count_launch(conv3x3x3_dw)
     return out.view(3, 3, 3, Ci, Co).permute(4, 3, 0, 1, 2).contiguous()
 
 
+def fused_bwd_eligible(ci: int, co: int) -> bool:
+    """Whether kernel D takes the conv's backward: Ci == Co (dx's and dW's
+    tiles then share one geometry, `conv3d.py:506-512`) on top of the
+    channel counts every kernel takes."""
+    return ci == co and kernel_takes(ci, co)
+
+
+def conv3x3x3_dxdw_reference(x: torch.Tensor, dy: torch.Tensor,
+                             w: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain fused backward: the two plain versions composed, dx in x's
+    dtype and dW (Co, Ci, 3, 3, 3) in the accumulation dtype."""
+    dy = dy.to(x.dtype)
+    return (conv3x3x3_same_reference(dy, flip_transpose(w).to(x.dtype)),
+            conv3x3x3_dw_reference(x, dy))
+
+
+def conv3x3x3_dxdw(x: torch.Tensor, dy: torch.Tensor,
+                   w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dW) of the SAME conv with Ci == Co from x, dy (B,C,X,Y,Z) and
+    w (C,C,3,3,3) of one dtype, in one launch of kernel D (plus its
+    fixed-order second pass): exactly ``(conv3x3x3_dx(dy, w),
+    conv3x3x3_dw(x, dy))``, dx channels_last_3d in x's dtype, dW f32."""
+    if x.device.type == "cpu" and dy.device.type == "cpu" \
+            and w.device.type == "cpu":
+        return conv3x3x3_dxdw_reference(x, dy, w)
+    what = "conv3x3x3_dxdw"
+    if x.device.type != "cuda" or dy.device != x.device \
+            or w.device != x.device:
+        raise ValueError(f"{what}: x on {x.device}, dy on {dy.device}, w on "
+                         f"{w.device}")
+    B, C, X, Y, Z = x.shape
+    if dy.shape != x.shape or tuple(w.shape) != (C, C, 3, 3, 3):
+        raise ValueError(f"{what}: takes x and dy of one shape and w "
+                         f"(C, C, 3, 3, 3), got x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)}, w {tuple(w.shape)}")
+    if x.dtype not in _KERNEL_DTYPES or dy.dtype != x.dtype \
+            or w.dtype != x.dtype:
+        raise TypeError(f"{what}: kernel takes bf16 or f32 x, dy and w of "
+                        f"one dtype, got {x.dtype}, {dy.dtype}, {w.dtype}")
+    if not fused_bwd_eligible(C, C):
+        raise ValueError(f"{what}: kernel does not take C={C}")
+    x = _channels_last(x, what)
+    dy = _channels_last(dy, what)
+    # (Ci, Co, 3, 3, 3) -> (27, Co, Ci): rows of dx's K = (tap, co), N = ci
+    wk = flip_transpose(w).permute(2, 3, 4, 1, 0).contiguous()
+    tx, ty, tz = halo_box(X, Y, Z)
+    boxes = B * math.ceil(X / tx) * math.ceil(Y / ty) * math.ceil(Z / tz)
+    cg = 32 if C % 32 == 0 else 16      # output channels of one CTA
+    splits = dw_splits(C, C, cg, boxes, _sm_count(x.device.index or 0))
+    dev = x.device
+    dx = torch.empty_like(x)    # channels_last_3d, as x
+    dw = torch.empty((27, C, C), dtype=torch.float32, device=dev)
+    dw_ws = (torch.empty((splits, 27, C, C), dtype=torch.float32, device=dev)
+             if splits > 1 else dw)
+    # dx's partial sums per channel group (the kernel reads neither
+    # workspace when it has one split or one group)
+    dx_ws = (torch.empty((C // cg, B, X, Y, Z, C), dtype=torch.float32,
+                         device=dev) if C > cg else dw)
+    lib = kernels.library("conv3x3x3_dxdw")
+    launch = (lib.conv3x3x3_dxdw_bf16 if x.dtype == torch.bfloat16
+              else lib.conv3x3x3_dxdw_f32)
+    code = launch(x.data_ptr(), dy.data_ptr(), wk.data_ptr(), dx.data_ptr(),
+                  dx_ws.data_ptr(), dw_ws.data_ptr(), dw.data_ptr(),
+                  B, X, Y, Z, C, tx, ty, tz, cg, splits,
+                  kernels.stream_handle(dev))
+    kernels.check(code, what)
+    kernels.count_launch(conv3x3x3_dxdw)
+    return dx, dw.view(3, 3, 3, C, C).permute(4, 3, 0, 1, 2).contiguous()
+
+
 class Conv3x3x3Function(torch.autograd.Function):
-    """The SAME conv with the JAX package's backward (`_merged_bwd`,
+    """The SAME conv with the JAX package's backward. Unfused (`_merged_bwd`,
     `conv3d.py:570-586`): dx by kernel B on dy cast to x's dtype with the
     flipped, io-transposed weights; dW by kernel C in f32, cast to w's
-    dtype."""
+    dtype. With ``fused``, when both gradients are needed and
+    :func:`fused_bwd_eligible` (the gate of `layers.py:135-144`): both by
+    kernel D."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                fused: bool = False) -> torch.Tensor:
         ctx.save_for_backward(x, w)
+        ctx.fused = fused
         return conv3x3x3_same(x, w)
 
     @staticmethod
@@ -266,13 +346,18 @@ class Conv3x3x3Function(torch.autograd.Function):
         dy = dy.to(x.dtype)
         if dy.is_cuda:     # one layout copy, shared by dx and dW
             dy = dy.contiguous(memory_format=torch.channels_last_3d)
+        if ctx.fused and all(ctx.needs_input_grad[:2]) \
+                and fused_bwd_eligible(x.shape[1], w.shape[0]):
+            dx, dw = conv3x3x3_dxdw(x, dy, w)
+            return dx, dw.to(w.dtype), None
         dx = conv3x3x3_dx(dy, w) if ctx.needs_input_grad[0] else None
         dw = (conv3x3x3_dw(x, dy).to(w.dtype) if ctx.needs_input_grad[1]
               else None)
-        return dx, dw
+        return dx, dw, None
 
 
 #: kernel launches; a caller sets them to 0 before the run it counts
 conv3x3x3_same.launches = 0
 conv3x3x3_dx.launches = 0
 conv3x3x3_dw.launches = 0
+conv3x3x3_dxdw.launches = 0

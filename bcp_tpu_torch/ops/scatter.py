@@ -77,7 +77,7 @@ def scatter_add_windows(score: torch.Tensor, probs: torch.Tensor,
         score.data_ptr(), probs.data_ptr(), st.ctypes.data, b, X, Y, Z, C,
         px, py, pz, kernels.stream_handle(score.device))
     kernels.check(code, "scatter_add_windows")
-    scatter_add_windows.launches += 1
+    kernels.count_launch(scatter_add_windows)
     return score
 
 

@@ -5,20 +5,27 @@ The reference saves the student's state_dict (`LA_BCP_train.py:79-93,
 written here loads strictly into the eval model of slice 1 and into the
 reference's own V-Net. Per stage directory: ``iter_{i}_dice_{d}.pth`` at a
 new best validation, ``{model}_best_model.pth`` (the stage hand-off,
-`checkpoints.py:102-114`) and ``last.pth``. The JAX package's orbax state
-(optimizer, teacher, step: its ``--resume``) is not ported yet.
+`checkpoints.py:102-114`) and ``last.pth``.
+
+Beside them, ``last_state.pt`` holds the stage's full train state at its
+last validation (student, teacher, optimizer with its momentum buffers,
+step): what ``--resume`` restores, the counterpart of the JAX package's
+orbax ``last`` and ``CheckpointIO.restore`` (`checkpoints.py:96-100`).
+States are saved from a :func:`snapshot`, a copy that the training loop
+cannot change any more, so a background worker can write them.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Sequence
+from typing import Any, Dict, Sequence
 
 import torch
-from torch import nn
 
 from bcp_tpu_torch.config import Config
+
+STATE_FILE = "last_state.pt"
 
 
 def snapshot_dir(cfg: Config, stage_name: str) -> str:
@@ -32,20 +39,79 @@ def best_model_path(snapshot: str, model_name: str) -> str:
     return os.path.join(snapshot, f"{model_name}_best_model.pth")
 
 
-def save_model(path: str, model: nn.Module) -> None:
-    """The module's state_dict on the host, written whole or not at all."""
-    host = {k: v.detach().to("cpu", copy=True)
-            for k, v in model.state_dict().items()}
+def _map(fn, tree: Any) -> Any:
+    """``fn`` over every tensor of a state_dict-like tree."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree.detach())
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return tree
+
+
+def snapshot(state) -> Dict[str, Any]:
+    """A copy of the whole train state on its device, made on the calling
+    thread's stream: the next step updates the student, the teacher and
+    the momentum buffers in place, and a validation or checkpoint job must
+    not see that (the JAX loop copies for the same reason: its step
+    donates the buffers, `trainer.py:386-391`)."""
+    return _map(torch.clone, {"model": state.model.state_dict(),
+                              "teacher": state.teacher.state_dict(),
+                              "optimizer": state.optimizer.state_dict(),
+                              "step": int(state.step)})
+
+
+def _write(obj: Any, path: str) -> None:
+    """Written whole or not at all."""
     tmp = f"{path}.tmp"
-    torch.save(host, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
 
 
-def save_many(paths: Sequence[str], model: nn.Module) -> None:
-    """One device-to-host fetch and one serialisation for several names
-    (the tagged, best and last files of a validation)."""
-    save_model(paths[0], model)
+def save_many(paths: Sequence[str], snap: Dict[str, Any]) -> None:
+    """The student's state_dict of a :func:`snapshot` under several names
+    (the tagged, best and last files of a validation: one device-to-host
+    fetch and one serialisation), and the full state beside the last of
+    them as ``last_state.pt``."""
+    host = _map(lambda t: t.to("cpu"), snap)
+    _write(host["model"], paths[0])
     for path in paths[1:]:
         tmp = f"{path}.tmp"
         shutil.copyfile(paths[0], tmp)
         os.replace(tmp, path)
+    _write(host, os.path.join(os.path.dirname(paths[-1]), STATE_FILE))
+
+
+def restore_state(path: str, state):
+    """Full resume (`CheckpointIO.restore`, `checkpoints.py:96-100`): the
+    student, the teacher, the optimizer with its momentum buffers and the
+    step of a ``last_state.pt``, loaded in place into ``state``."""
+    saved = torch.load(path, map_location="cpu")
+    state.model.load_state_dict(saved["model"], strict=True)
+    state.teacher.load_state_dict(saved["teacher"], strict=True)
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    return state
+
+
+def scan_best_dice(snapshot_dir: str) -> float:
+    """Best validation dice already achieved in a stage directory, parsed
+    from the ``iter_{i}_dice_{d}[.pth]`` snapshot names
+    (`checkpoints.py:136-155`). Used when resuming, so that a restarted
+    stage cannot save ``{model}_best_model.pth`` over a better historical
+    checkpoint."""
+    best = 0.0
+    if not os.path.isdir(snapshot_dir):
+        return best
+    for name in os.listdir(snapshot_dir):
+        if not name.startswith("iter_") or "_dice_" not in name:
+            continue
+        value = name.rsplit("_dice_", 1)[1]
+        if value.endswith(".pth"):
+            value = value[:-len(".pth")]
+        try:
+            best = max(best, float(value))
+        except ValueError:
+            continue
+    return best

@@ -57,6 +57,8 @@ def build_model(cfg: Config, mode: str = "train", device=None,
     host from ``seed`` (torch's default initialisation, the reference's)
     without touching the global generator's state."""
     extra = {"n_filters": cfg.n_filters} if cfg.n_filters else {}
+    if mode == "train" and cfg.fused_bwd:   # an eval model has no backward
+        extra["fused_bwd"] = True
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed if seed is None else seed)
         model = create_model(cfg.net_type, cfg.num_classes, mode=mode,

@@ -21,14 +21,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
    dx with the forward's limits; ``Conv3x3x3Function``'s (dx, dW) against
    autograd through the plain conv (f32 1e-3, bf16 1e-2 of max|plain|);
    CUDA-event times of C, B-as-dx, their plain versions and
-   ``torch.nn.grad.conv3d_weight`` / ``conv3d_input``;
+   ``torch.nn.grad.conv3d_weight`` / ``conv3d_input``. At the same shapes
+   kernel D (dx and dW in one launch): dx to B's limits, dW to C's,
+   bit-identical over two runs, timed beside B-as-dx followed by C,
+   beside its plain version and beside the two library calls
+   ``conv3d_input`` + ``conv3d_weight`` together;
 3. the whole slice in f32 on the card against the same slice on the CPU:
    the full-width V-Net (n_filters 16, seeded weights, saved as a
    reference-layout .pth) through the evaluator on one 112x112x80 volume,
    score maps to atol 1e-3. Then one pre-train and one self-train update
    in f32 (n_filters 16 at 32^3), card against CPU: the update of every
    student and teacher tensor and every momentum buffer within 0.15 of
-   its module's largest update (``phase_train_step``);
+   its module's largest update, once with the unfused backward and once
+   with ``fused_bwd=True`` on the card (``phase_train_step``);
 4. the inference path: ``bcp_tpu_torch.cli.test_la``'s core function at full
    width on two synthetic 240x200x96 LA volumes (270 windows each), stride
    18/4, eval batch 8, bf16, NMS on, from that .pth, with every kernel's
@@ -40,14 +45,23 @@ Phases, each of which fails the run (non-zero exit, no final line):
 5. the training path: ``bcp_tpu_torch.cli.train_la``'s core function at
    full width (V-Net n_filters 16, 112x112x80 patches, batch 8 with
    labeled_bs 4, bf16, NMS on) on 8 synthetic 140x140x90 train volumes
-   (labelnum 4) and one 240x200x96 validation volume: 15 pre-train
-   iterations and a validation that writes the stage's best .pth, then 15
-   self-train iterations from it. Launch counts reset before and read
-   after, finite losses, both .pth files loading strictly into the eval
-   model. Inside the trainer's own loop (its ``on_step`` hook): the steady
-   ms/step and patches/s of both stages over iterations 4-13, their
-   launches, and ``torch.profiler`` traces of step 14 on the device and
-   step 15 on the host (``phase_training``).
+   (labelnum 4) and one 240x200x96 validation volume, with the CLI's
+   defaults (training volumes in the device store, validation on the
+   background workers, ``fused_bwd`` off): 15 pre-train iterations and a
+   validation that writes the stage's best .pth, then 15 self-train
+   iterations from it. Launch counts reset before and read after, finite
+   losses, both .pth files loading strictly into the eval model. Inside
+   the trainer's own loop (its ``on_step`` hook): the steady ms/step and
+   patches/s of both stages over iterations 4-13, their launches, and
+   ``torch.profiler`` traces of step 14 on the device and step 15 on the
+   host (``phase_training``). Then the fused-backward path
+   (``phase_training_fused``): a second self-train stage from the same
+   pre-train checkpoint with ``--fused_bwd 1`` in a snapshot root of its
+   own, timed and traced the same way (20 launches of kernel D a step, none
+   of B-as-dx or C), ``--resume --self_max_iteration 18`` on that
+   stage, which must go on from step 15 to step 18, and the unfused
+   self-train stage once more (unfused, fused, unfused in one process:
+   the spread of the host beside the difference).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
@@ -245,7 +259,8 @@ def phase_backward_kernels(torch, rates):
     from torch.nn.grad import conv3d_input, conv3d_weight
     from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
                                           conv3x3x3_dw_reference,
-                                          conv3x3x3_dx,
+                                          conv3x3x3_dx, conv3x3x3_dxdw,
+                                          conv3x3x3_dxdw_reference,
                                           conv3x3x3_same_reference,
                                           flip_transpose)
     bf16_peak, f32_peak, hbm = rates
@@ -288,7 +303,25 @@ def phase_backward_kernels(torch, rates):
                     kx, px, rtol=1e-4, atol=1e-4)) or xerr > 1e-2 * xmax:
                 fail(f"dx kernel {row['shape']} {name}: max err {xerr}")
             row[f"{name}_dx_max_abs_err"] = xerr
-            del k, k2, p, kx, px
+            # D: dx to B's limits, dW to C's, the same bits on a second run
+            ddx, ddw = conv3x3x3_dxdw(x, dy, w)
+            ddx2, ddw2 = conv3x3x3_dxdw(x, dy, w)
+            torch.cuda.synchronize()
+            if not (torch.equal(ddx, ddx2) and torch.equal(ddw, ddw2)):
+                fail(f"dxdw kernel {row['shape']} {name}: two runs differ")
+            dxerr = float((ddx.float() - px.float()).abs().max().item())
+            dwerr = float((ddw - p).abs().max().item())
+            if ddx.dtype != dt or (dt == torch.float32 and not torch.allclose(
+                    ddx, px, rtol=1e-4, atol=1e-4)) or dxerr > 1e-2 * xmax:
+                fail(f"dxdw kernel {row['shape']} {name}: dx max err "
+                     f"{dxerr}")
+            if ddw.dtype != torch.float32 or dwerr > 1e-3 * pmax:
+                fail(f"dxdw kernel {row['shape']} {name}: dW max err "
+                     f"{dwerr} > 1e-3 * {pmax}")
+            row[f"{name}_dxdw_dx_max_abs_err"] = dxerr
+            row[f"{name}_dxdw_dw_max_abs_err"] = dwerr
+            row[f"{name}_dxdw_max_abs_err"] = max(dxerr, dwerr)
+            del k, k2, p, kx, px, ddx, ddx2, ddw, ddw2
             # the Function's (dx, dW) against autograd through the plain
             # conv: f32 within 1e-3 max|plain| (sums in another order),
             # bf16 within 1e-2 max|plain| (one bf16 rounding of each)
@@ -306,7 +339,6 @@ def phase_backward_kernels(torch, rates):
                     fail(f"Conv3x3x3Function {what} {row['shape']} {name}: "
                          f"max err {e}")
             del xg, wg, got, want
-            flop = 2 * M * 27 * c * c
             peak = bf16_peak if dt == torch.bfloat16 else f32_peak
             es = x.element_size()
             for kind, nbytes, fn, plain, lib in (
@@ -317,7 +349,15 @@ def phase_backward_kernels(torch, rates):
                     ("dx", (2 * M * c + 27 * c * c) * es,
                      lambda: conv3x3x3_dx(dy, w),
                      lambda: conv3x3x3_same_reference(dy, flip_transpose(w)),
-                     lambda: conv3d_input(x.shape, w, dy, padding=1))):
+                     lambda: conv3d_input(x.shape, w, dy, padding=1)),
+                    # D does both halves' operations and moves x, dy, w in
+                    # and dx, dW out; its library time is the two calls
+                    ("dxdw", (3 * M * c + 27 * c * c) * es + 27 * c * c * 4,
+                     lambda: conv3x3x3_dxdw(x, dy, w),
+                     lambda: conv3x3x3_dxdw_reference(x, dy, w),
+                     lambda: (conv3d_input(x.shape, w, dy, padding=1),
+                              conv3d_weight(x, w.shape, dy, padding=1)))):
+                flop = (2 if kind == "dxdw" else 1) * 2 * M * 27 * c * c
                 row[f"{name}_{kind}_ms"] = cuda_ms(torch, fn)
                 row[f"{name}_{kind}_plain_ms"] = cuda_ms(torch, plain)
                 row[f"{name}_{kind}_library_ms"] = cuda_ms(torch, lib)
@@ -325,6 +365,9 @@ def phase_backward_kernels(torch, rates):
                                                      nbytes / hbm) * 1e3
                 row[f"{name}_{kind}_bound_by"] = (
                     "operations" if flop / peak >= nbytes / hbm else "bytes")
+            # what D replaces, back to back in this same process
+            row[f"{name}_dx_then_dw_ms"] = cuda_ms(
+                torch, lambda: (conv3x3x3_dx(dy, w), conv3x3x3_dw(x, dy)))
             del x, dy, w
         rows.append(row)
         print(f"backward {row['shape']}: C bf16 {row['bf16_dw_ms']:.4f} ms "
@@ -335,8 +378,16 @@ def phase_backward_kernels(torch, rates):
               f"{row['f32_dw_ms']:.4f}; B-as-dx bf16 {row['bf16_dx_ms']:.4f} "
               f"ms (conv3d_input {row['bf16_dx_library_ms']:.4f}, plain "
               f"{row['bf16_dx_plain_ms']:.3f}, bound "
-              f"{row['bf16_dx_bound_ms']:.4f}), f32 {row['f32_dx_ms']:.4f}",
-              flush=True)
+              f"{row['bf16_dx_bound_ms']:.4f}), f32 {row['f32_dx_ms']:.4f}"
+              f"; D bf16 {row['bf16_dxdw_ms']:.4f} ms (B-as-dx then C "
+              f"{row['bf16_dx_then_dw_ms']:.4f}, conv3d_input + "
+              f"conv3d_weight {row['bf16_dxdw_library_ms']:.4f}, plain "
+              f"{row['bf16_dxdw_plain_ms']:.3f}, bound "
+              f"{row['bf16_dxdw_bound_ms']:.4f}, err dx "
+              f"{row['bf16_dxdw_dx_max_abs_err']:.3g} dW "
+              f"{row['bf16_dxdw_dw_max_abs_err']:.3g}), f32 "
+              f"{row['f32_dxdw_ms']:.4f} (B-as-dx then C "
+              f"{row['f32_dx_then_dw_ms']:.4f})", flush=True)
 
     def entry(kind, name, source, replaces, what):
         def total(key):
@@ -359,12 +410,22 @@ def phase_backward_kernels(torch, rates):
                 "shapes": [{k: v for k, v in r.items()
                             if k in ("shape", "per_backward")
                             or f"_{kind}_" in k} for r in rows]}
+    fused = entry("dxdw", "conv3x3x3_dxdw",
+                  "bcp_tpu_torch/kernels/csrc/conv3x3x3_dxdw.cu",
+                  "bcp_tpu/ops/conv3d.py:448", "dx and dW together")
+    fused["library"] = "conv3d_input + conv3d_weight, two calls"
+    fused["dx_then_dw_ms"] = sum(r["bf16_dx_then_dw_ms"] * r["per_backward"]
+                                 for r in rows)
+    for r, out in zip(rows, fused["shapes"]):
+        for name in ("bf16", "f32"):
+            out[f"{name}_dx_then_dw_ms"] = r[f"{name}_dx_then_dw_ms"]
     return [entry("dx", "conv3x3x3_dx",
                   "bcp_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "bcp_tpu/ops/conv3d.py:188", "dx"),
             entry("dw", "conv3x3x3_dw",
                   "bcp_tpu_torch/kernels/csrc/conv3x3x3_dw.cu",
-                  "bcp_tpu/ops/conv3d.py:323", "dW")]
+                  "bcp_tpu/ops/conv3d.py:323", "dW"),
+            fused]
 
 
 def seeded_vnet(torch, device, seed: int):
@@ -446,7 +507,11 @@ def phase_train_step(torch):
     in the self-train update). A zero or missing update of a module's
     weight, or a skipped EMA, is off by 100 % of that scale. An
     update that the CPU leaves exactly 0 (the teacher's BN statistics)
-    must be 0 on the card too. Losses to 1e-4 relative."""
+    must be 0 on the card too. Losses to 1e-4 relative.
+
+    The card runs the two updates twice: with the unfused backward
+    (kernel B as dx, kernel C) and with ``fused_bwd=True`` (kernel D),
+    each held to the same limits against the one CPU run."""
     import copy
     from bcp_tpu_torch.config import la_config
     from bcp_tpu_torch.data.synthetic import la_cases
@@ -470,9 +535,9 @@ def phase_train_step(torch):
     keeps = {"pre": keep(2), "teacher": keep(4), "student": keep(4)}
     start = build_model(cfg, "train", "cpu", seed=SEED).state_dict()
 
-    def run(dev, plab=None):
+    def run(dev, plab=None, fused=False):
         def state():
-            m = build_model(cfg, "train", dev)
+            m = build_model(cfg.replace(fused_bwd=fused), "train", dev)
             m.load_state_dict(start)
             t = copy.deepcopy(m)
             for p in t.parameters():
@@ -506,11 +571,6 @@ def phase_train_step(torch):
     t0 = time.perf_counter()
     want, want_loss, plab = run("cpu")
     t_cpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    got, got_loss, card_plab = run(DEVICE, plab)
-    torch.cuda.synchronize()
-    t_card = time.perf_counter() - t0
-    flips = int((card_plab != plab).sum().item())
 
     def group(n):   # (module, running statistics?)
         head, last = n.rsplit(".", 1)
@@ -520,6 +580,32 @@ def phase_train_step(torch):
         g = group(n)
         scale[g] = max(scale.get(g, 0.0), d.abs().max().item())
     ulp = float(np.finfo(np.float32).eps)
+    from bcp_tpu_torch.ops.conv3d import conv3x3x3_dxdw
+    results = {}
+    for fused in (False, True):
+        before = conv3x3x3_dxdw.launches
+        t0 = time.perf_counter()
+        got, got_loss, card_plab = run(DEVICE, plab, fused)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        # the pre-train and the self-train backward: 20 convs each
+        d_launches = conv3x3x3_dxdw.launches - before
+        if d_launches != (40 if fused else 0):
+            fail(f"f32 train step fused_bwd={fused}: {d_launches} launches "
+                 f"of the fused backward kernel")
+        results[fused] = _compare_step(
+            torch, want, want_loss, got, got_loss, start, scale, ulp, group,
+            {"fused_bwd": fused, "fused_kernel_launches": d_launches,
+             "pseudo_label_flips": int((card_plab != plab).sum().item()),
+             "pseudo_label_voxels": int(plab.sum().item()),
+             "cpu_s": t_cpu, "card_s": t_card})
+    return results
+
+
+def _compare_step(torch, want, want_loss, got, got_loss, start, scale, ulp,
+                  group, extra):
+    """The card's updates ``got`` held against the CPU's ``want`` (see
+    :func:`phase_train_step`)."""
     ratios, checked, zeroes = [], {}, {}
     for n, d in want.items():
         s = scale[group(n)]
@@ -548,9 +634,7 @@ def phase_train_step(torch):
               "largest_module_update": max(moved),
               "zero_update_would_fail": {k: f"{checked[k]} of {zeroes[k]}"
                                          for k in zeroes},
-              "max_rel_loss_err": lworst[0], "pseudo_label_flips": flips,
-              "pseudo_label_voxels": int(plab.sum().item()),
-              "cpu_s": t_cpu, "card_s": t_card}
+              "max_rel_loss_err": lworst[0], **extra}
     print("f32 train step card vs cpu: " + json.dumps(result), flush=True)
     if not all(np.isfinite(v) for v in got_loss.values()):
         fail(f"f32 train step: non-finite losses {got_loss}")
@@ -654,7 +738,7 @@ def phase_main_path(torch, pth: str, workdir: str):
     print(out.getvalue(), end="")
     want = {"scatter_add_windows": 2 * chunks,
             "conv3x3x3_same": 2 * chunks * sum(n for _, n in CONV_STAGES),
-            "conv3x3x3_dx": 0, "conv3x3x3_dw": 0}
+            "conv3x3x3_dx": 0, "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0}
     print(f"main path launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"main path launches {launches}, expected {want}")
@@ -698,10 +782,11 @@ def phase_main_path(torch, pth: str, workdir: str):
 
 def kernel_counters():
     from bcp_tpu_torch.ops.conv3d import (conv3x3x3_dw, conv3x3x3_dx,
-                                          conv3x3x3_same)
+                                          conv3x3x3_dxdw, conv3x3x3_same)
     from bcp_tpu_torch.ops.scatter import scatter_add_windows
     return {f.__name__: f for f in (scatter_add_windows, conv3x3x3_same,
-                                    conv3x3x3_dx, conv3x3x3_dw)}
+                                    conv3x3x3_dx, conv3x3x3_dw,
+                                    conv3x3x3_dxdw)}
 
 
 def read_launches(counters, reset: bool = False):
@@ -718,10 +803,15 @@ class StepClock:
     after the WARMUP_STEPS first, the kernel launches and the peak device
     memory; then it traces the next iteration's device activity and the
     one after it on the host (CPU ops and CUDA runtime calls), each
-    between two synchronisations, so each trace holds one whole step."""
+    between two synchronisations, so each trace holds one whole step.
+    One iteration before the timed ones it waits for the trainer's
+    background jobs (the evaluator warm-up that each stage submits after
+    its first step), so that the timed and traced steps, and their launch
+    counts, hold the training loop alone."""
 
-    def __init__(self, torch, counters, workdir: str):
+    def __init__(self, torch, counters, workdir: str, trainer):
         self.torch, self.counters, self.workdir = torch, counters, workdir
+        self.trainer = trainer
         self.times, self.launches, self.peak_gib = {}, {}, {}
         self.traces = {}
         self._prof = None
@@ -730,7 +820,9 @@ class StepClock:
         torch = self.torch
         self.times.setdefault(stage, []).append(time.perf_counter())
         timed_end = WARMUP_STEPS + STEADY_STEPS
-        if it == WARMUP_STEPS:
+        if it == WARMUP_STEPS - 1:
+            self.trainer.wait_for_validations()
+        elif it == WARMUP_STEPS:
             self.launches[stage] = read_launches(self.counters)
             torch.cuda.reset_peak_memory_stats()
         elif it == timed_end:
@@ -774,101 +866,254 @@ def phase_training(torch, workdir: str):
     first 4 labelled, and one LA_VOLUME validation volume), STAGE_ITERS
     iterations a stage with a validation at the last, which writes the
     pre-train stage's best .pth that the self-train stage starts from.
-    Timed and traced inside the trainer's own loop by ``StepClock``."""
+    Timed and traced inside the trainer's own loop by ``StepClock``. The
+    flags are the CLI's defaults: the training volumes in the device
+    store, validation on the background workers (each stage's evaluator
+    warm-up counts as a validation), ``fused_bwd`` off. Returns the
+    path's launches and what the fused-backward path reuses."""
     from bcp_tpu_torch.cli import train_la
-    from bcp_tpu_torch.convert import load_reference_checkpoint
     from bcp_tpu_torch.data.datasets import VolumeList
     from bcp_tpu_torch.data.feed import BCPBatchFeeder
     from bcp_tpu_torch.data.synthetic import la_cases
-    from bcp_tpu_torch.eval.sliding_window import window_starts
-    from bcp_tpu_torch.models import create_model
     train = VolumeList(la_cases(TRAIN_VOLUMES, TRAIN_VOLUME, seed=SEED + 3))
     val = la_cases(1, LA_VOLUME, seed=SEED + 4)
-    args = train_la.build_parser().parse_args(
-        ["--labelnum", "4", "--pre_max_iteration", str(STAGE_ITERS),
-         "--self_max_iteration", str(STAGE_ITERS), "--snapshot_root",
-         workdir, "--root_path", workdir, "--device", DEVICE])
-    overrides = {"eval_every": STAGE_ITERS, "patch_size": PATCH}
-    counters = kernel_counters()
-    clock = StepClock(torch, counters, workdir)
-
-    read_launches(counters, reset=True)
-    out = io.StringIO()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        trainer, stages = train_la.train(args, train_dataset=train,
-                                         val_cases=val, on_step=clock,
-                                         **overrides)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches(counters)
+    run = run_train_cli(
+        torch, ["--pre_max_iteration", str(STAGE_ITERS),
+                "--self_max_iteration", str(STAGE_ITERS), "--snapshot_root",
+                workdir], train, val, workdir)
+    trainer, stages, clock, launches = (run["trainer"], run["stages"],
+                                        run["clock"], run["launches"])
     cfg = trainer.cfg
-    chunks = -(-len(window_starts(LA_VOLUME, PATCH, cfg.stride_xy,
-                                  cfg.stride_z)) // cfg.eval_batch)
-    convs = sum(n for _, n in CONV_STAGES)
+    if not (cfg.device_data_cache and cfg.async_val) or cfg.fused_bwd:
+        fail(f"the CLI's defaults changed: {cfg}")
+    chunks, convs = val_chunks(cfg), sum(n for _, n in CONV_STAGES)
     v = trainer.validations
     want = {"scatter_add_windows": v * chunks,
             "conv3x3x3_same": convs * (3 * STAGE_ITERS + v * chunks),
             "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
-            "conv3x3x3_dw": convs * 2 * STAGE_ITERS}
+            "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
+            "conv3x3x3_dxdw": 0}
     print(f"training path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} pre-train and {STAGE_ITERS} self-train steps, "
-          f"{v} validations of {chunks} chunks)", flush=True)
-    if launches != want:
-        fail(f"training path launches {launches}, expected {want}")
-    losses = {}
+          f"{v} validations of {chunks} chunks, warm-ups included)",
+          flush=True)
+    if launches != want or v < 4:
+        fail(f"training path launches {launches}, expected {want} with at "
+             f"least 4 validations (a warm-up and one at the last step, per "
+             f"stage)")
+    losses = {stage: stage_losses(stages[stage][1], clock, stage,
+                                  range(1, STAGE_ITERS + 1))
+              for stage in ("pre", "self")}
+    check_checkpoints(stages)
+
     for stage in ("pre", "self"):
-        log = open(os.path.join(os.path.dirname(stages[stage][1]),
-                                "log.txt")).read()
-        losses[stage] = [float(x) for x in
-                         re.findall(r"iteration \d+ : loss: (\S+)", log)]
-        if len(losses[stage]) != STAGE_ITERS \
-                or not np.isfinite(losses[stage]).all():
-            fail(f"{stage}-train losses {losses[stage]}")
-        if len(clock.times.get(stage, ())) != STAGE_ITERS:
-            fail(f"{stage}-train: the trainer's hook ran "
-                 f"{len(clock.times.get(stage, ()))} times")
+        steady = steady_step(clock, cfg, stage, fused=False)
+        # the host's share of a batch. Store: the draws and the crops'
+        # launches on this thread (then with the crops' device time);
+        # host feed: numpy crops built by the feeder's own code, on this
+        # thread once its worker has stopped
+        feeder = BCPBatchFeeder(cfg, stage, train, DEVICE,
+                                store_cache=trainer.feed_store_cache)
+        next(feeder)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            next(feeder)
+        steady["store_batch_build_host_ms"] = (
+            (time.perf_counter() - t0) / 3 * 1e3)
+        torch.cuda.synchronize()
+        steady["store_batch_build_synced_ms"] = (
+            (time.perf_counter() - t0) / 3 * 1e3)
+        feeder = BCPBatchFeeder(cfg.replace(device_data_cache=False), stage,
+                                train, DEVICE)
+        feeder.close()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            feeder.build()
+        steady["host_feed_batch_build_ms"] = (
+            (time.perf_counter() - t0) / 3 * 1e3)
+        print(f"steady {stage}-train step: " + json.dumps(steady),
+              flush=True)
+    result = {"train_volumes": TRAIN_VOLUMES, "volume": list(TRAIN_VOLUME),
+              "iterations_per_stage": STAGE_ITERS, "validations": v,
+              "device_data_cache": cfg.device_data_cache,
+              "async_val": cfg.async_val, "fused_bwd": cfg.fused_bwd,
+              "cli_s": run["wall"], "losses": losses,
+              "best_dice": {s: d for s, (d, _) in stages.items()}}
+    print("training path: " + json.dumps(result), flush=True)
+    return launches, {"train": train, "val": val,
+                      "pre_best": stages["pre"][1]}
+
+
+def run_train_cli(torch, flags, train, val, workdir, clock=True):
+    """``cli.train_la``'s core on the in-memory volumes: the trainer of
+    the flags (``build_trainer``), then its stages (``run_stages``), which
+    is what ``train_la.train`` does; in two calls here because the step
+    hook wants the trainer. Launch counts are set to 0 just before the
+    stages run and read just after."""
+    from bcp_tpu_torch.cli import train_la
+    args = train_la.build_parser().parse_args(
+        ["--labelnum", "4", "--root_path", workdir, "--device", DEVICE,
+         *flags])
+    out = io.StringIO()
+    counters = kernel_counters()
+    with contextlib.redirect_stdout(out):
+        trainer = train_la.build_trainer(
+            args, train_dataset=train, val_cases=val,
+            eval_every=STAGE_ITERS, patch_size=PATCH)
+        if clock:
+            trainer.on_step = StepClock(torch, counters, workdir, trainer)
+        else:
+            seen = []
+            trainer.on_step = lambda stage, it: seen.append((stage, it))
+        read_launches(counters, reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stages = train_la.run_stages(trainer, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(counters)
+    return {"trainer": trainer, "stages": stages, "launches": launches,
+            "clock": trainer.on_step if clock else seen, "wall": wall,
+            "stdout": out.getvalue()}
+
+
+def val_chunks(cfg) -> int:
+    """Evaluator chunks of one validation of the one LA_VOLUME volume."""
+    from bcp_tpu_torch.eval.sliding_window import window_starts
+    return -(-len(window_starts(LA_VOLUME, PATCH, cfg.stride_xy,
+                                cfg.stride_z)) // cfg.eval_batch)
+
+
+def stage_losses(best_path: str, clock, stage: str, iterations):
+    """The losses a stage logged, one per iteration of ``iterations`` and
+    all finite; the hook must have run as often."""
+    log = open(os.path.join(os.path.dirname(best_path), "log.txt")).read()
+    found = re.findall(r"iteration (\d+) : loss: (\S+)", log)
+    want = list(iterations)
+    losses = [float(x) for _, x in found[-len(want):]]
+    if [int(i) for i, _ in found[-len(want):]] != want \
+            or not np.isfinite(losses).all():
+        fail(f"{stage}-train losses {found}")
+    hook = clock.times.get(stage, ()) if isinstance(clock, StepClock) \
+        else [c for c in clock if c[0] == stage]
+    if len(hook) != len(want):
+        fail(f"{stage}-train: the trainer's hook ran {len(hook)} times")
+    return losses
+
+
+def check_checkpoints(stages) -> None:
+    from bcp_tpu_torch.convert import load_reference_checkpoint
+    from bcp_tpu_torch.models import create_model
     for stage, (dice, path) in stages.items():
         model = create_model("VNet", 2, device=DEVICE)
         model.load_state_dict(load_reference_checkpoint(path), strict=True)
         print(f"{stage}-train: best dice {dice}, {path} loads strictly into "
               f"the eval model", flush=True)
 
-    steady = {}
-    for stage in ("pre", "self"):
-        per = {"conv3x3x3_same": convs * (2 if stage == "self" else 1),
-               "conv3x3x3_dx": convs, "conv3x3x3_dw": convs,
-               "scatter_add_windows": 0}
-        timed = clock.launches[stage]
-        if timed != {k: n * STEADY_STEPS for k, n in per.items()}:
-            fail(f"{STEADY_STEPS} {stage}-train steps launched {timed}, "
-                 f"expected {per} each")
-        ms = clock.steady(stage)
-        patches = cfg.batch_size if stage == "self" else cfg.labeled_bs
-        steady[stage] = {
-            "ms_per_step": ms, "patches_per_s": patches / ms * 1e3,
+
+def steady_step(clock, cfg, stage: str, fused: bool):
+    """The timed iterations of one stage: launches per step as expected,
+    ms/step, patches/s, peak memory and the two one-step traces."""
+    convs = sum(n for _, n in CONV_STAGES)
+    per = {"conv3x3x3_same": convs * (2 if stage == "self" else 1),
+           "conv3x3x3_dx": 0 if fused else convs,
+           "conv3x3x3_dw": 0 if fused else convs,
+           "conv3x3x3_dxdw": convs if fused else 0,
+           "scatter_add_windows": 0}
+    timed = clock.launches[stage]
+    if timed != {k: n * STEADY_STEPS for k, n in per.items()}:
+        fail(f"{STEADY_STEPS} {stage}-train steps (fused_bwd={fused}) "
+             f"launched {timed}, expected {per} each")
+    ms = clock.steady(stage)
+    patches = cfg.batch_size if stage == "self" else cfg.labeled_bs
+    return {"fused_bwd": fused, "ms_per_step": ms,
+            "patches_per_s": patches / ms * 1e3,
             "patches_per_step": patches, "launches_per_step": per,
             "peak_mem_gib": clock.peak_gib[stage],
             "profile": device_summary(clock.traces[(stage, "device")]),
             "host": host_summary(clock.traces[(stage, "host")])}
-        # the host's share: batches built by the feeder's own code, on this
-        # thread once its worker has stopped
-        feeder = BCPBatchFeeder(cfg, stage, train, DEVICE)
-        feeder.close()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            feeder.build()
-        steady[stage]["host_batch_build_ms"] = (
-            (time.perf_counter() - t0) / 3 * 1e3)
-        print(f"steady {stage}-train step: " + json.dumps(steady[stage]),
-              flush=True)
-    result = {"train_volumes": TRAIN_VOLUMES, "volume": list(TRAIN_VOLUME),
-              "iterations_per_stage": STAGE_ITERS, "validations": v,
-              "cli_s": wall, "losses": losses,
-              "best_dice": {s: d for s, (d, _) in stages.items()}}
-    print("training path: " + json.dumps(result), flush=True)
-    return launches
+
+
+def phase_training_fused(torch, workdir: str, shared):
+    """The fused-backward path: the self-train stage once more, from the
+    main run's pre-train checkpoint, with ``--fused_bwd 1`` in a snapshot
+    root of its own, timed and traced like the main run's (same process,
+    same card: the two ms/step can be compared); then ``--resume`` with
+    ``--self_max_iteration`` raised by 3 on that stage; then the unfused
+    self-train stage once more in a third root, so that the run reads
+    unfused, fused, unfused and shows how far two runs of one
+    configuration lie apart on this host. Returns the launches of the
+    fused runs and of the last run."""
+    import shutil
+    root = os.path.join(workdir, "fused")
+    pre_dir = os.path.join(root, "LA_BCP_4_labeled", "pre_train")
+    os.makedirs(pre_dir)
+    shutil.copy(shared["pre_best"], pre_dir)
+    flags = ["--stage", "self", "--fused_bwd", "1", "--snapshot_root", root]
+    run = run_train_cli(
+        torch, flags + ["--self_max_iteration", str(STAGE_ITERS)],
+        shared["train"], shared["val"], workdir)
+    trainer, launches = run["trainer"], run["launches"]
+    cfg = trainer.cfg
+    chunks, convs = val_chunks(cfg), sum(n for _, n in CONV_STAGES)
+    v = trainer.validations
+    want = {"scatter_add_windows": v * chunks,
+            "conv3x3x3_same": convs * (2 * STAGE_ITERS + v * chunks),
+            "conv3x3x3_dx": 0, "conv3x3x3_dw": 0,
+            "conv3x3x3_dxdw": convs * STAGE_ITERS}
+    print(f"fused-backward path launches {launches} (expected {want}: "
+          f"{STAGE_ITERS} self-train steps, {v} validations)", flush=True)
+    if launches != want or not cfg.fused_bwd:
+        fail(f"fused-backward path launches {launches}, expected {want}")
+    losses = stage_losses(run["stages"]["self"][1], run["clock"], "self",
+                          range(1, STAGE_ITERS + 1))
+    check_checkpoints(run["stages"])
+    steady = steady_step(run["clock"], cfg, "self", fused=True)
+    print("steady self-train step, fused backward: " + json.dumps(steady),
+          flush=True)
+
+    # resume: 3 more steps of the same stage
+    last = STAGE_ITERS + 3
+    again = run_train_cli(
+        torch, flags + ["--resume", "--self_max_iteration", str(last)],
+        shared["train"], shared["val"], workdir, clock=False)
+    log = open(os.path.join(os.path.dirname(again["stages"]["self"][1]),
+                            "log.txt")).read()
+    resumed = re.findall(r"resumed from \S+ at step (\d+)", log)
+    steps = [it for _, it in again["clock"]]
+    print(f"resume: logged 'resumed ... at step {resumed}', hook saw "
+          f"iterations {steps}, launches {again['launches']}", flush=True)
+    if resumed != [str(STAGE_ITERS)] \
+            or steps != list(range(STAGE_ITERS + 1, last + 1)) \
+            or again["launches"]["conv3x3x3_dxdw"] != convs * 3 \
+            or again["launches"]["conv3x3x3_dx"] != 0:
+        fail(f"resume went wrong: resumed at {resumed}, iterations {steps}, "
+             f"launches {again['launches']}")
+    more = stage_losses(again["stages"]["self"][1], again["clock"], "self",
+                        range(STAGE_ITERS + 1, last + 1))
+    result = {"iterations": STAGE_ITERS, "validations": v,
+              "cli_s": run["wall"], "losses": losses,
+              "best_dice": run["stages"]["self"][0],
+              "resumed_at": int(resumed[0]), "resumed_to": steps[-1],
+              "resumed_losses": more, "resume_cli_s": again["wall"]}
+    print("fused-backward path: " + json.dumps(result), flush=True)
+
+    root = os.path.join(workdir, "unfused_again")
+    pre_dir = os.path.join(root, "LA_BCP_4_labeled", "pre_train")
+    os.makedirs(pre_dir)
+    shutil.copy(shared["pre_best"], pre_dir)
+    third = run_train_cli(
+        torch, ["--stage", "self", "--snapshot_root", root,
+                "--self_max_iteration", str(STAGE_ITERS)],
+        shared["train"], shared["val"], workdir)
+    stage_losses(third["stages"]["self"][1], third["clock"], "self",
+                 range(1, STAGE_ITERS + 1))
+    print("steady self-train step, unfused again: " + json.dumps(
+        steady_step(third["clock"], third["trainer"].cfg, "self",
+                    fused=False)), flush=True)
+    return ({k: launches[k] + again["launches"][k] for k in launches},
+            third["launches"])
 
 
 def main() -> int:
@@ -904,13 +1149,18 @@ def main() -> int:
         torch.save(seeded_vnet(torch, DEVICE, SEED).state_dict(), pth)
         phase_slice(torch, pth)
         phase_train_step(torch)
-        launches = {"test_la": phase_main_path(torch, pth, workdir),
-                    "train_la": phase_training(torch, workdir)}
+        launches = {"test_la": phase_main_path(torch, pth, workdir)}
+        launches["train_la"], shared = phase_training(torch, workdir)
+        (launches["train_la_fused_bwd"],
+         launches["train_la_unfused_again"]) = phase_training_fused(
+            torch, workdir, shared)
     for e in entries:
         by_path = {path: counts[e["name"]]
                    for path, counts in launches.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
+        if e["launches"] == 0:
+            fail(f"no path launched {e['name']}")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

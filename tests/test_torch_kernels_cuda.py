@@ -14,6 +14,8 @@ import torch
 
 from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
                                       conv3x3x3_dw_reference, conv3x3x3_dx,
+                                      conv3x3x3_dxdw,
+                                      conv3x3x3_dxdw_reference,
                                       conv3x3x3_same,
                                       conv3x3x3_same_reference)
 from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
@@ -115,6 +117,93 @@ def test_function_grads_on_card_match_autograd_of_plain(cuda_device, dtype,
     got = torch.autograd.grad(Conv3x3x3Function.apply(x, w), (x, w), dy)
     assert (conv3x3x3_same.launches, conv3x3x3_dx.launches,
             conv3x3x3_dw.launches) == (fwd + 1, dx_n + 1, dw_n + 1)
+    want = torch.autograd.grad(conv3x3x3_same_reference(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert g.dtype == dtype and g.shape == p.shape
+        err = (g.float() - p.float()).abs().max().item()
+        assert err <= tol * p.float().abs().max().item()
+
+
+DXDW_SHAPES = [(2, 6, 5, 7, 16), (1, 4, 4, 3, 32), (2, 3, 5, 4, 256),
+               (1, 9, 11, 13, 48), (2, 7, 7, 5, 128), (1, 20, 18, 16, 16),
+               (1, 5, 6, 9, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DXDW_SHAPES)
+def test_dxdw_kernel_matches_plain(cuda_device, shape, dtype):
+    """Kernel D against its plain version at odd, ragged shapes: dx to
+    kernel B's limits (f32 rtol = atol = 1e-4; bf16 max|k - p| <= 1e-2
+    max|p|), dW to kernel C's (<= 1e-3 max|p|); one launch a call; two
+    runs give the same bits (no float atomics)."""
+    B, X, Y, Z, C = shape
+    x, w = _conv_case(B, X, Y, Z, C, C, seed=8)
+    dy, _ = _conv_case(B, X, Y, Z, C, C, seed=9)
+    x, dy = (t.to(cuda_device, dtype).contiguous(
+        memory_format=torch.channels_last_3d) for t in (x, dy))
+    w = w.to(cuda_device, dtype)
+    before = conv3x3x3_dxdw.launches
+    others = (conv3x3x3_dx.launches, conv3x3x3_dw.launches)
+    dx, dw = conv3x3x3_dxdw(x, dy, w)
+    dx2, dw2 = conv3x3x3_dxdw(x, dy, w)
+    torch.cuda.synchronize()
+    assert conv3x3x3_dxdw.launches == before + 2
+    assert (conv3x3x3_dx.launches, conv3x3x3_dw.launches) == others
+    want_dx, want_dw = conv3x3x3_dxdw_reference(x, dy, w)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dx.is_contiguous(memory_format=torch.channels_last_3d)
+    assert dw.dtype == torch.float32 and dw.shape == (C, C, 3, 3, 3)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, want_dx, rtol=1e-4, atol=1e-4)
+    else:
+        err = (dx.float() - want_dx.float()).abs().max().item()
+        assert err <= 1e-2 * want_dx.float().abs().max().item()
+    err = (dw - want_dw).abs().max().item()
+    assert err <= 1e-3 * want_dw.abs().max().item()
+
+
+def test_dxdw_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, w = _conv_case(1, 4, 4, 4, 16, 32, seed=0)     # Ci != Co
+    dy, _ = _conv_case(1, 4, 4, 4, 32, 32, seed=1)
+    with pytest.raises(ValueError):
+        conv3x3x3_dxdw(x.to(cuda_device), dy.to(cuda_device),
+                       w.to(cuda_device))
+    x, w = _conv_case(1, 4, 4, 4, 16, 16, seed=2)
+    dy = x.clone()
+    before = conv3x3x3_dxdw.launches
+    with pytest.raises(ValueError, match="on cpu"):      # CPU / GPU mixes
+        conv3x3x3_dxdw(x.to(cuda_device), dy, w.to(cuda_device))
+    with pytest.raises(ValueError, match="on cpu"):
+        conv3x3x3_dxdw(x, dy.to(cuda_device), w)
+    with pytest.raises(TypeError):
+        conv3x3x3_dxdw(x.to(cuda_device).half(), dy.to(cuda_device).half(),
+                       w.to(cuda_device).half())
+    x8, w8 = _conv_case(1, 4, 4, 4, 8, 8, seed=3)
+    with pytest.raises(ValueError, match="does not take"):
+        conv3x3x3_dxdw(x8.to(cuda_device), x8.to(cuda_device),
+                       w8.to(cuda_device))
+    assert conv3x3x3_dxdw.launches == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_function_grads_on_card(cuda_device, dtype, tol):
+    """``Conv3x3x3Function`` with ``fused=True``: one launch of kernel D
+    and none of B-as-dx or C, its (dx, dW) within tol * max|plain| of
+    autograd through the plain conv."""
+    x, w = (t.to(cuda_device, dtype) for t in _conv_case(2, 8, 9, 7, 32, 32,
+                                                         seed=7))
+    dy = torch.randn((2, 32, 8, 9, 7), device=cuda_device).to(dtype)
+    x.requires_grad_()
+    w.requires_grad_()
+    counts = (conv3x3x3_dx.launches, conv3x3x3_dw.launches,
+              conv3x3x3_dxdw.launches)
+    got = torch.autograd.grad(Conv3x3x3Function.apply(x, w, True), (x, w),
+                              dy)
+    assert (conv3x3x3_dx.launches, conv3x3x3_dw.launches,
+            conv3x3x3_dxdw.launches) == (counts[0], counts[1], counts[2] + 1)
     want = torch.autograd.grad(conv3x3x3_same_reference(x, w), (x, w), dy)
     torch.cuda.synchronize()
     for g, p in zip(got, want):

@@ -4,7 +4,9 @@ from the same converted weights and batch, with the JAX step's own mask
 draws handed to the port and dropout off on both sides. Compared per
 tensor: parameters, BN running statistics, the teacher and the SGD
 momentum buffers. V-Net n_filters 16 at a 16^3 patch, so the 20 3^3 convs
-run through ``Conv3x3x3Function``.
+run through ``Conv3x3x3Function``; the self-train update runs a second
+time with ``fused_bwd=True`` (every conv's backward through the fused
+wrapper), against the same JAX step.
 
 Both sides run in float64, as the JAX package's own one-step fidelity
 gates do (`tests/test_train_fidelity.py:35-37`): in f32 the V-Net's
@@ -90,15 +92,15 @@ def _close(got: torch.Tensor, want: torch.Tensor, what: str,
     assert err <= max(rel * scale, 1e-9), f"{what}: err {err} scale {scale}"
 
 
-def _run(stage):
+def _run(stage, fused=False):
     jax.config.update("jax_enable_x64", True)
     try:
-        return _run_x64(stage)
+        return _run_x64(stage, fused)
     finally:
         jax.config.update("jax_enable_x64", False)
 
 
-def _run_x64(stage):
+def _run_x64(stage, fused):
     jcfg = jax_la_config(n_filters=NF, patch_size=PATCH, labelnum=4,
                          compute_dtype="float32")
     cfg = la_config(n_filters=NF, patch_size=PATCH, labelnum=4,
@@ -126,7 +128,7 @@ def _run_x64(stage):
     new, jmetrics = step(st, jbatch, key)
     new = _np(new)
 
-    model = VNet3D(n_classes=2, n_filters=NF).double()
+    model = VNet3D(n_classes=2, n_filters=NF, fused_bwd=fused).double()
     model.load_state_dict(start, strict=True)
     model.train()
     teacher = copy.deepcopy(model)
@@ -141,9 +143,10 @@ def _run_x64(stage):
     return start, new, jmetrics, state, metrics
 
 
-@pytest.fixture(scope="module", params=["pre", "self"])
+@pytest.fixture(scope="module", params=["pre", "self", "self_fused"])
 def stepped(request):
-    return request.param, _run(request.param)
+    stage = request.param.split("_")[0]
+    return stage, _run(stage, fused=request.param.endswith("fused"))
 
 
 def test_losses_match(stepped):

@@ -1,9 +1,9 @@
 """The port's train_la CLI core on the CPU at a tiny size: both stages run
-through the trainer, call its per-iteration hook, hand off through the
-pre-train stage's best .pth and write reference-layout checkpoints that
-load strictly into the eval model;
-the flags the port lacks are refused with the ROADMAP item that brings
-them."""
+through the trainer with the CLI's defaults (device store, background
+validation), call its per-iteration hook, hand off through the pre-train
+stage's best .pth and write reference-layout checkpoints that load
+strictly into the eval model; the flags the port lacks are refused with
+the ROADMAP item that brings them, the ported ones reach the config."""
 
 import os
 import re
@@ -46,6 +46,7 @@ def test_two_stages_hand_off_and_write_strict_checkpoints(tmp_path):
         assert 0.0 <= dice <= 1.0
         assert path == str(run / f"{stage}_train" / "VNet_best_model.pth")
         assert os.path.exists(run / f"{stage}_train" / "last.pth")
+        assert os.path.exists(run / f"{stage}_train" / "last_state.pt")
         model = create_model("VNet", 2, device="cpu", n_filters=4)
         model.load_state_dict(torch.load(path), strict=True)
     log = (run / "self_train" / "log.txt").read_text()
@@ -57,24 +58,50 @@ def test_two_stages_hand_off_and_write_strict_checkpoints(tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--num_devices", "2"], "multi-GPU"), (["--sp_devices", "2"],
                                            "multi-GPU"),
-    (["--remat", "1"], "remat"), (["--device_data_cache", "1"],
-                                  "device store"),
-    (["--steps_per_dispatch", "2"], "steps_per_dispatch"),
-    (["--resume"], "resume")])
+    (["--remat", "1"], "remat"),
+    (["--steps_per_dispatch", "2"], "steps_per_dispatch")])
 def test_refuses_what_the_port_lacks(tmp_path, flag, item):
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP.*{item}"):
         train_la.train(_args(tmp_path, *flag))
 
 
+@pytest.mark.parametrize("flag,field,want", [
+    ([], "device_data_cache", True), (["--device_data_cache", "0"],
+                                      "device_data_cache", False),
+    ([], "async_val", True), ([], "async_val_depth", 2),
+    ([], "fused_bwd", False), (["--fused_bwd", "1"], "fused_bwd", True)])
+def test_ported_flags_reach_the_config(tmp_path, flag, field, want):
+    """The JAX CLI's defaults: device store and background validation on;
+    the fused backward off unless asked for."""
+    args = _args(tmp_path, *flag)
+    train_la._refuse(args)
+    assert getattr(train_la.config_from_args(args), field) is want \
+        or getattr(train_la.config_from_args(args), field) == want
+
+
+def test_fused_bwd_flag_reaches_the_train_model_only(tmp_path):
+    trainer = train_la.build_trainer(
+        _args(tmp_path, "--fused_bwd", "1"),
+        train_dataset=VolumeList(la_cases(8, (20, 20, 18), seed=11)),
+        val_cases=[], **TINY)
+    from bcp_tpu_torch.models.layers import Conv3x3x3
+    from bcp_tpu_torch.train.state import build_model
+    train_model = build_model(trainer.cfg, "train", "cpu")
+    convs = [m for m in train_model.modules() if isinstance(m, Conv3x3x3)]
+    assert len(convs) == 21 and all(m.fused_bwd for m in convs)
+    assert not any(m.fused_bwd for m in trainer.eval_model.modules()
+                   if isinstance(m, Conv3x3x3))
+
+
 def test_flags_are_the_jax_clis():
-    """Same flags and defaults as the JAX CLI, but the device store off
-    until it is ported."""
+    """Same flags and defaults as the JAX CLI (the device store on), plus
+    the port's own ``--device`` and ``--fused_bwd``."""
     def flags(parser):
         return {a.dest: a.default for a in parser._actions
                 if a.dest != "help"}
     port = flags(train_la.build_parser())
     ref = flags(jax_train_la.build_parser())
-    assert ref["device_data_cache"] == 1 and port["device_data_cache"] == 0
+    assert ref["device_data_cache"] == 1 and port["device_data_cache"] == 1
     assert port.pop("device") == "cuda"
-    ref.pop("device_data_cache"), port.pop("device_data_cache")
+    assert port.pop("fused_bwd") == 0
     assert port == ref
