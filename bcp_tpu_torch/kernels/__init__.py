@@ -39,8 +39,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                     _I, _P),
     },
     "conv3x3x3": {
-        "conv3x3x3_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P),
+        "conv3x3x3_bf16": (_P,) * 7,
         "conv3x3x3_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "conv3x3x3_dw": {
@@ -146,6 +145,12 @@ def count_launch(wrapper) -> None:
 
 
 def stream_handle(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a raw pointer."""
+    """PyTorch's current CUDA stream on ``device``, as a raw pointer (read
+    straight from the C extension where it offers that: no Stream object is
+    built on the launch path)."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        index = device.index
+        return raw(torch.cuda.current_device() if index is None else index)
     return torch.cuda.current_stream(device).cuda_stream

@@ -9,11 +9,24 @@ NCDHW: x (B, Ci, X, Y, Z), w (Co, Ci, 3, 3, 3) as in ``nn.Conv3d``.
 On a CUDA tensor:
 
 - :func:`conv3x3x3_same` and :func:`conv3x3x3_dx` launch the hand-written
-  implicit GEMM ``kernels/csrc/conv3x3x3.cu`` (kernel B: bf16 on tensor
-  cores from a halo tile in shared memory, boxed by :func:`halo_box`, or
-  f32 on CUDA cores) on the channels_last_3d layout, which keeps each
-  voxel's channels contiguous as the JAX package's NDHWC does; the result
-  is channels_last_3d too;
+  implicit GEMM ``kernels/csrc/conv3x3x3.cu`` (kernel B) on the
+  channels_last_3d layout, which keeps each voxel's channels contiguous as
+  the JAX package's NDHWC does; the result is channels_last_3d too. In
+  bf16 it is a persistent ``wgmma`` kernel whose two operands are read from
+  shared memory by descriptor: an m64 tile is 8 x 8 voxels of one z plane,
+  laid out so that a tap is a shift of the descriptor's address; a ring of
+  stages carries the halo tiles (``cp.async``) and, where they do not fit
+  for good, the weight chunks (bulk copies on ``mbarrier``s) ahead of the
+  tensor cores; the weights, packed by the launcher into the core-matrix
+  order ``wgmma`` reads, are staged once per CTA where they fit and else
+  shared by up to four warpgroups; small volumes split the input channels
+  over CTAs whose f32 partial sums a second pass adds in a fixed order.
+  What bounds it is the fetch of the A operand from shared memory (27 taps
+  re-read every voxel), which four resident warpgroups per SM saturate:
+  :func:`conv_variant` picks tiles per box, N tile, warpgroups, stages, K
+  split and grid from the shape and the SM count alone. dx is the same
+  kernel on dy with the io-transposed weights, read in reversed tap order
+  (the spatial flip). f32 runs on CUDA cores;
 - :func:`conv3x3x3_dw` launches ``kernels/csrc/conv3x3x3_dw.cu`` (kernel
   C), whose voxel reduction is split over CTAs and summed in a fixed
   order (:func:`dw_splits`);
@@ -33,9 +46,10 @@ autograd; its ``fused`` flag picks kernel D for the backward.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +57,8 @@ import torch.nn.functional as F
 from bcp_tpu_torch import kernels
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: the bf16 kernel's limits: output voxels of one CTA, and their halo
+#: kernels C and D's box: the output voxels of one CTA, and the limit on
+#: its halo
 BOX_VOXELS = 128
 MAX_HALO = 640
 #: kernel C: CTAs to aim for (about two resident per SM) and the most bytes
@@ -60,7 +75,7 @@ def kernel_takes(ci: int, co: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def halo_box(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
-    """Output box (tx, ty, tz) of one CTA of the bf16 kernel: at most
+    """Output box (tx, ty, tz) of one CTA of kernels C and D: at most
     ``BOX_VOXELS`` voxels with a halo of at most ``MAX_HALO``; the fewest
     boxes over the volume, then the smallest halo (the input voxels staged
     per box)."""
@@ -85,15 +100,145 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def n_tile(co: int, ctas: int, sms: int) -> int:
-    """Output channels of one CTA: the widest of 64, 32, 16 dividing
-    ``co`` that still gives one CTA per SM (``ctas`` = CTAs per channel
-    tile)."""
-    fits = [bn for bn in (64, 32, 16) if co % bn == 0]
-    for bn in fits:
-        if ctas * (co // bn) >= sms:
-            return bn
-    return fits[-1]
+#: kernel B (``conv3x3x3.cu``): an m64 tile is 8 x 8 voxels of one z
+#: plane; the ring's depth; a CTA's dynamic shared memory; an H100 SM's
+#: shared memory and what each resident CTA reserves of it
+CONV_TILE = (8, 8)
+CONV_MAX_STAGES = 4
+CONV_SMEM_LIMIT = 232448
+CONV_SM_SMEM = 233472
+CONV_BAR_BYTES = 128        # the mbarriers' share of a CTA's shared memory
+CONV_CTA_RESERVED = 1024
+
+
+def halo_bytes(tiles: int) -> int:
+    """Bytes of one box's halo (16 channels) in kernel B's shared memory
+    (`Halo` in the source): two k halves of (tiles + 2) z planes of 10 x 10
+    entries of 16 bytes, planes and halves padded against bank conflicts
+    of the copies."""
+    plane = 10 * 10 + 6                           # 16-byte units
+    half = (tiles + 2) * plane
+    half += (1 - half) % 8
+    return 2 * half * 16
+
+
+class ConvVariant(NamedTuple):
+    """How kernel B runs one shape: the m64 tiles (z planes of 8 x 8
+    voxels) of one warpgroup's box; the output channels of one CTA; its
+    warpgroups (2 or 4 boxes that share a weight tile); the ring's stages;
+    whether the weights are staged once per CTA; the split of the Ci chunks
+    over CTAs; the CTAs per (co tile, split)."""
+    tiles: int
+    bn: int
+    warpgroups: int
+    stages: int
+    persist_w: bool
+    ksplit: int
+    grid_x: int
+
+    @property
+    def box(self) -> Tuple[int, int, int]:
+        """Output voxels of one warpgroup."""
+        return (*CONV_TILE, self.tiles)
+
+    def smem_bytes(self, ci: int) -> int:
+        """Dynamic shared memory of one CTA (`launch_bf16` in the source)."""
+        chunk = 27 * 16 * self.bn * 2
+        slab = chunk * (ci // 16 // self.ksplit) if self.persist_w else 0
+        stage = (self.warpgroups * halo_bytes(self.tiles)
+                 + (0 if self.persist_w else chunk))
+        return CONV_BAR_BYTES + slab + self.stages * stage
+
+    def ctas(self, co: int) -> int:
+        return self.grid_x * (co // self.bn) * self.ksplit
+
+
+def _conv_ctas_per_sm(v: ConvVariant, ci: int) -> int:
+    """CTAs of variant ``v`` that one SM holds: by shared memory (each CTA
+    reserves ``CONV_CTA_RESERVED`` bytes more) and by the registers the
+    kernel is compiled to (`__launch_bounds__` in the source). 0 when not
+    even one fits."""
+    by_regs = 2 if v.warpgroups == 2 and v.bn * v.tiles <= 64 else 1
+    by_smem = CONV_SM_SMEM // (v.smem_bytes(ci) + CONV_CTA_RESERVED)
+    return min(by_regs, by_smem)
+
+
+def conv_tiles(Z: int) -> Tuple[int, ...]:
+    """The m64 tiles (z planes) one warpgroup's box may have: those of 4
+    and 2 that cover Z with the fewest planes."""
+    planes = {t: math.ceil(Z / t) * t for t in (4, 2)}
+    return tuple(t for t in (4, 2) if planes[t] == min(planes.values()))
+
+
+def _conv_candidate(tiles: int, B: int, X: int, Y: int, Z: int, ci: int,
+                    co: int, sms: int):
+    """The best variant with boxes of ``tiles`` planes, and its resident
+    warpgroups per SM."""
+    boxes = B * math.prod(math.ceil(v / t) for v, t in zip(
+        (X, Y, Z), (*CONV_TILE, tiles)))
+    chunks = ci // 16
+    bn = next(n for n in (64, 32, 16) if co % n == 0)
+    cols = co // bn
+
+    def slab_fits(ksplit: int) -> bool:
+        v = ConvVariant(tiles, bn, 2, 2, True, ksplit, 1)
+        return v.smem_bytes(ci) <= CONV_SMEM_LIMIT
+
+    splits = [k for k in range(1, chunks + 1) if chunks % k == 0]
+    ksplit = 1
+    if not slab_fits(1) and math.ceil(boxes / 2) * cols < 2 * sms:
+        ksplit = next(k for k in splits if slab_fits(k))
+    for k in splits:
+        if k > ksplit and boxes * cols * ksplit < sms:
+            ksplit = k
+
+    found = []
+    for wg in (2, 4):
+        if wg > 2 and boxes * cols * ksplit < wg * sms:
+            continue        # not the boxes to give every SM such a CTA
+        if wg == 4 and bn * tiles > 128:
+            continue        # four warpgroups have 128 registers a thread
+        groups = math.ceil(boxes / wg)
+        for persist_w in (True, False):
+            v = ConvVariant(tiles, bn, wg, 2, persist_w, ksplit, 1)
+            per_sm = _conv_ctas_per_sm(v, ci)
+            grid_x = min(groups, max(1, per_sm * sms // (cols * ksplit)))
+            if per_sm and (groups > grid_x or not persist_w):
+                found.append((min(wg * per_sm, 4), -wg,
+                              v._replace(grid_x=grid_x), per_sm))
+                break
+    if not found:
+        raise ValueError(f"conv_variant: {tiles} tiles with {bn} output "
+                         f"channels do not fit in shared memory")
+    resident, _, v, per_sm = max(found, key=lambda f: f[:2])
+    room = CONV_SM_SMEM // per_sm - CONV_CTA_RESERVED
+    stages = max(s for s in range(2, CONV_MAX_STAGES + 1)
+                 if s == 2
+                 or v._replace(stages=s).smem_bytes(ci) <= min(
+                     room, CONV_SMEM_LIMIT))
+    return resident, v._replace(stages=stages)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_variant(B: int, X: int, Y: int, Z: int, ci: int, co: int,
+                 sms: int) -> ConvVariant:
+    """Kernel B's variant for one shape, from the shape and the SM count
+    alone (the rules follow ``scripts/torch_conv_variants.py --sweep``).
+
+    The N tile is the widest of 64, 32, 16 dividing ``co``. The Ci chunks
+    stay whole when all their weights fit in shared memory beside a ring
+    of two stages, or when the (two-box group, co tile) units already give
+    every SM two; otherwise they are split until a split's weights fit,
+    and further while the CTAs are fewer than the SMs. A CTA stages its
+    weights once where they fit and it walks more than one group of boxes,
+    else it streams them through the ring. Tiles per box, warpgroups per
+    CTA (boxes sharing a weight tile) and CTAs per SM are chosen for the
+    most resident warpgroups, up to the four that saturate the tensor
+    cores' operand fetch; then for the larger box, then for the smaller
+    CTA. The ring takes the stages that still fit."""
+    found = [_conv_candidate(t, B, X, Y, Z, ci, co, sms)
+             for t in conv_tiles(Z)]
+    return max(found, key=lambda f: (f[0], f[1].tiles))[1]
 
 
 def conv3x3x3_same_reference(x: torch.Tensor,
@@ -135,25 +280,61 @@ def _channels_last(t: torch.Tensor, what: str) -> torch.Tensor:
     return t
 
 
-def _launch_conv(x: torch.Tensor, w: torch.Tensor, what: str) -> torch.Tensor:
-    """One launch of kernel B: y = conv(x, w), channels_last_3d."""
+class _ConvArgs(ctypes.Structure):
+    """`ConvArgs` of ``conv3x3x3.cu``: one bf16 launch's shape, weight
+    strides and variant."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "X", "Y", "Z", "Ci", "Co")]
+                + [("sco", ctypes.c_longlong), ("sci", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in (
+                    "mt", "bn", "wg", "stages", "persist_w", "ksplit",
+                    "flip", "gx")])
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_args(shape: Tuple[int, ...], strides: Tuple[int, int],
+               v: ConvVariant, flip: bool) -> Tuple[_ConvArgs, int]:
+    """The launch's arguments and their address, built once per shape (the
+    launch path is the host's, and a launch is short)."""
+    args = _ConvArgs(*shape, *strides, v.tiles, v.bn, v.warpgroups, v.stages,
+                     int(v.persist_w), v.ksplit, int(flip), v.grid_x)
+    return args, ctypes.addressof(args)
+
+
+def _launch_conv(x: torch.Tensor, w: torch.Tensor, what: str,
+                 flip: bool = False,
+                 variant: Optional[ConvVariant] = None) -> torch.Tensor:
+    """One launch of kernel B: y = conv(x, w), channels_last_3d; with
+    ``flip``, conv(x, w flipped along its three spatial axes). ``variant``
+    overrides :func:`conv_variant` (the tuning script's sweep); the launcher
+    refuses one that does not fit in shared memory."""
     _check_kernel_args(x, w, what)
     B, Ci, X, Y, Z = x.shape
     Co = w.shape[0]
     x = _channels_last(x, what)
-    # (Co, Ci, 3, 3, 3) -> (27, Ci, Co): rows of K = (tap, ci), N = co
-    wk = w.permute(2, 3, 4, 1, 0).contiguous()
     y = torch.empty((B, Co, X, Y, Z), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last_3d)
     lib = kernels.library("conv3x3x3")
     stream = kernels.stream_handle(x.device)
     if x.dtype == torch.bfloat16:
-        tx, ty, tz = halo_box(X, Y, Z)
-        boxes = B * math.ceil(X / tx) * math.ceil(Y / ty) * math.ceil(Z / tz)
-        bn = n_tile(Co, boxes, _sm_count(x.device.index or 0))
-        code = lib.conv3x3x3_bf16(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                                  B, X, Y, Z, Ci, Co, tx, ty, tz, bn, stream)
+        v = variant or conv_variant(B, X, Y, Z, Ci, Co,
+                                    _sm_count(x.device.index or 0))
+        # the launcher packs w, read through its strides (dx passes a
+        # transposed view), into the order wgmma reads it
+        if w.stride()[2:] != (9, 3, 1):
+            w = w.contiguous()
+        wk = torch.empty(27 * Ci * Co, dtype=x.dtype, device=x.device)
+        # f32 partial sums of the K splits, added in order by a second pass
+        ws = (torch.empty((v.ksplit, B, X, Y, Z, Co), dtype=torch.float32,
+                          device=x.device) if v.ksplit > 1 else None)
+        _, args = _conv_args((B, X, Y, Z, Ci, Co), w.stride()[:2], v, flip)
+        code = lib.conv3x3x3_bf16(
+            x.data_ptr(), w.data_ptr(), wk.data_ptr(), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None, args, stream)
     else:
+        if flip:
+            w = w.flip((2, 3, 4))
+        # (Co, Ci, 3, 3, 3) -> (27, Ci, Co): rows of K = (tap, ci), N = co
+        wk = w.permute(2, 3, 4, 1, 0).contiguous()
         code = lib.conv3x3x3_f32(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
                                  B, X, Y, Z, Ci, Co, stream)
     kernels.check(code, what)
@@ -177,11 +358,11 @@ def flip_transpose(w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of the SAME conv: kernel B on dy (B,Co,X,Y,Z) with the flipped,
-    io-transposed weights (`_merged_bwd`, `conv3d.py:574-583`)."""
-    wt = flip_transpose(w)
+    io-transposed weights (`_merged_bwd`, `conv3d.py:574-583`); the kernel
+    takes the flip as a reversed tap order."""
     if dy.device.type == "cpu":
-        return conv3x3x3_same_reference(dy, wt)
-    dx = _launch_conv(dy, wt, "conv3x3x3_dx")
+        return conv3x3x3_same_reference(dy, flip_transpose(w))
+    dx = _launch_conv(dy, w.transpose(0, 1), "conv3x3x3_dx", flip=True)
     kernels.count_launch(conv3x3x3_dx)
     return dx
 

@@ -11,15 +11,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
 2. each kernel against its plain PyTorch version on the card at the main
    path's shapes: the overlap-add bit for bit on one LA chunk (8 windows of
    112x112x80x2 into a 240x200x96x2 score map); the 3^3 conv at the five
-   V-Net stage shapes at batch 8, f32 to rtol = atol = 1e-4 and bf16 to
-   max|kernel - plain| <= 1e-2 max|plain|; with CUDA-event times (median of
-   >= 10) of the kernel, the plain version and, for the conv, ``F.conv3d``.
+   V-Net stage shapes at batch 8 and batch 4, f32 to rtol = atol = 1e-4 and
+   bf16 to max|kernel - plain| <= 1e-2 max|plain|, bit-identical over two
+   runs, with the variant (box, N tile, warpgroups, stages, weights staged
+   once or streamed, K split, grid) its wrapper picks for the shape; with
+   CUDA-event times (median of >= 10) of the kernel, the plain version and,
+   for the conv, ``F.conv3d``.
    Then the conv's backward at the same five stage shapes at batch 4 (the
    self-train student's concat batch), bf16 and f32: kernel C (dW) to
    max|kernel - plain| <= 1e-3 max|plain| (the same exact products summed
    in f32 in another order) and bit-identical over two runs; kernel B as
-   dx with the forward's limits; ``Conv3x3x3Function``'s (dx, dW) against
-   autograd through the plain conv (f32 1e-3, bf16 1e-2 of max|plain|);
+   dx with the forward's limits and bit-identical over two runs;
+   ``Conv3x3x3Function``'s (dx, dW) against autograd through the plain
+   conv (f32 1e-3, bf16 1e-2 of max|plain|);
    CUDA-event times of C, B-as-dx, their plain versions and
    ``torch.nn.grad.conv3d_weight`` / ``conv3d_input``. At the same shapes
    kernel D (dx and dW in one launch): dx to B's limits, dW to C's,
@@ -145,7 +149,7 @@ def cuda_ms(torch, fn, n: int = 10) -> float:
 def phase_kernels(torch, rates):
     import torch.nn.functional as F
     from bcp_tpu_torch.eval.sliding_window import window_starts
-    from bcp_tpu_torch.ops.conv3d import (conv3x3x3_same,
+    from bcp_tpu_torch.ops.conv3d import (conv_variant, conv3x3x3_same,
                                           conv3x3x3_same_reference)
     from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
                                            scatter_add_windows_reference)
@@ -188,49 +192,80 @@ def phase_kernels(torch, rates):
           f"{scatter['bound_ms']:.4f} ms)", flush=True)
     del score, probs, got, want, work
 
-    # -- B: 3^3 conv at the five stage shapes, batch 8, bf16 and f32
-    shapes = []
-    for (c, X, Y, Z), per_forward in CONV_STAGES:
-        row = {"shape": f"{EVAL_BATCH}x{c}@{X}x{Y}x{Z}",
-               "per_forward": per_forward}
-        M = EVAL_BATCH * X * Y * Z
-        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            x = torch.randn((EVAL_BATCH, c, X, Y, Z), generator=gen,
-                            device=dev).to(dt).contiguous(
-                memory_format=torch.channels_last_3d)
-            w = (torch.randn((c, c, 3, 3, 3), generator=gen, device=dev)
-                 / (27 * c) ** 0.5).to(dt)
-            k = conv3x3x3_same(x, w)
-            p = conv3x3x3_same_reference(x, w)
-            torch.cuda.synchronize()
-            err = float((k.float() - p.float()).abs().max().item())
-            pmax = float(p.float().abs().max().item())
-            if dt == torch.float32:
-                if not torch.allclose(k, p, rtol=1e-4, atol=1e-4):
-                    fail(f"conv f32 {row['shape']}: max err {err}")
-            elif err > 1e-2 * pmax:
-                fail(f"conv bf16 {row['shape']}: max err {err} > 1e-2 * "
-                     f"{pmax}")
-            flop = 2 * M * 27 * c * c
-            nbytes = (2 * M * c + 27 * c * c) * x.element_size()
-            peak = bf16_peak if dt == torch.bfloat16 else f32_peak
-            row[f"{name}_max_abs_err"] = err
-            row[f"{name}_ms"] = cuda_ms(torch, lambda: conv3x3x3_same(x, w))
-            row[f"{name}_plain_ms"] = cuda_ms(
-                torch, lambda: conv3x3x3_same_reference(x, w))
-            row[f"{name}_library_ms"] = cuda_ms(
-                torch, lambda: F.conv3d(x, w, padding=1))
-            row[f"{name}_bound_ms"] = max(flop / peak, nbytes / hbm) * 1e3
-            row[f"{name}_bound_by"] = ("operations" if flop / peak
-                                       >= nbytes / hbm else "bytes")
-            del x, w, k, p
-        shapes.append(row)
-        print(f"kernel B conv3x3x3 {row['shape']}: bf16 "
-              f"{row['bf16_ms']:.4f} ms (F.conv3d {row['bf16_library_ms']:.4f}"
-              f", plain {row['bf16_plain_ms']:.3f}, bound "
-              f"{row['bf16_bound_ms']:.4f}, err {row['bf16_max_abs_err']:.3g})"
-              f"; f32 {row['f32_ms']:.4f} ms (err "
-              f"{row['f32_max_abs_err']:.3g})", flush=True)
+    # -- B: 3^3 conv at the five stage shapes, bf16 and f32, at batch 8 (the
+    # evaluator's chunk and the student's forward) and batch 4 (the
+    # teacher's forward and the pre-train step)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def conv_rows(batch):
+        rows = []
+        for (c, X, Y, Z), per_forward in CONV_STAGES:
+            row = {"shape": f"{batch}x{c}@{X}x{Y}x{Z}",
+                   "per_forward": per_forward,
+                   "variant": conv_variant(batch, X, Y, Z, c, c,
+                                           sms)._asdict()}
+            M = batch * X * Y * Z
+            for dt, name in ((torch.float32, "f32"),
+                             (torch.bfloat16, "bf16")):
+                x = torch.randn((batch, c, X, Y, Z), generator=gen,
+                                device=dev).to(dt).contiguous(
+                    memory_format=torch.channels_last_3d)
+                w = (torch.randn((c, c, 3, 3, 3), generator=gen, device=dev)
+                     / (27 * c) ** 0.5).to(dt)
+                k = conv3x3x3_same(x, w)
+                k2 = conv3x3x3_same(x, w)
+                p = conv3x3x3_same_reference(x, w)
+                torch.cuda.synchronize()
+                if not torch.equal(k, k2):
+                    fail(f"conv {name} {row['shape']}: two runs differ")
+                err = float((k.float() - p.float()).abs().max().item())
+                pmax = float(p.float().abs().max().item())
+                if dt == torch.float32:
+                    if not torch.allclose(k, p, rtol=1e-4, atol=1e-4):
+                        fail(f"conv f32 {row['shape']}: max err {err}")
+                elif err > 1e-2 * pmax:
+                    fail(f"conv bf16 {row['shape']}: max err {err} > 1e-2 * "
+                         f"{pmax}")
+                flop = 2 * M * 27 * c * c
+                nbytes = (2 * M * c + 27 * c * c) * x.element_size()
+                peak = bf16_peak if dt == torch.bfloat16 else f32_peak
+                row[f"{name}_max_abs_err"] = err
+                row[f"{name}_ms"] = cuda_ms(torch,
+                                            lambda: conv3x3x3_same(x, w))
+                row[f"{name}_plain_ms"] = cuda_ms(
+                    torch, lambda: conv3x3x3_same_reference(x, w))
+                row[f"{name}_library_ms"] = cuda_ms(
+                    torch, lambda: F.conv3d(x, w, padding=1))
+                row[f"{name}_bound_ms"] = max(flop / peak,
+                                              nbytes / hbm) * 1e3
+                row[f"{name}_bound_by"] = ("operations" if flop / peak
+                                           >= nbytes / hbm else "bytes")
+                del x, w, k, k2, p
+            rows.append(row)
+            v = row["variant"]
+            print(f"kernel B conv3x3x3 {row['shape']}: bf16 "
+                  f"{row['bf16_ms']:.4f} ms (F.conv3d "
+                  f"{row['bf16_library_ms']:.4f}, plain "
+                  f"{row['bf16_plain_ms']:.3f}, bound "
+                  f"{row['bf16_bound_ms']:.4f}, err "
+                  f"{row['bf16_max_abs_err']:.3g}); f32 {row['f32_ms']:.4f} "
+                  f"ms (err {row['f32_max_abs_err']:.3g}); variant box "
+                  f"8x8x{v['tiles']}, N tile {v['bn']}, "
+                  f"{v['warpgroups']} warpgroup(s), {v['stages']} stages, "
+                  f"weights {'once per CTA' if v['persist_w'] else 'streamed'}"
+                  f", K split {v['ksplit']}, grid {v['grid_x']} x "
+                  f"{c // v['bn'] * v['ksplit']}", flush=True)
+        return rows
+
+    shapes = conv_rows(EVAL_BATCH)
+    shapes_batch4 = conv_rows(TRAIN_CONCAT)
+    for what, rows in (("8", shapes), ("4", shapes_batch4)):
+        ms, lib, bound = (sum(r[key] * r["per_forward"] for r in rows)
+                          for key in ("bf16_ms", "bf16_library_ms",
+                                      "bf16_bound_ms"))
+        print(f"kernel B over the 20 bf16 launches of a batch-{what} forward: "
+              f"{ms:.4f} ms (F.conv3d {lib:.4f}, bound {bound:.4f})",
+              flush=True)
 
     def total(key):
         return sum(r[key] * r["per_forward"] for r in shapes)
@@ -249,6 +284,7 @@ def phase_kernels(torch, rates):
         "library_ms": total("bf16_library_ms"),
         "per": "the 20 bf16 launches of one batch-8 V-Net forward",
         "shapes": shapes,
+        "shapes_batch4": shapes_batch4,
     }
     return [scatter, conv]
 
@@ -295,8 +331,11 @@ def phase_backward_kernels(torch, rates):
             row[f"{name}_dw_max_abs_err"] = err
             # B as dx: the forward kernel's limits
             kx = conv3x3x3_dx(dy, w)
+            kx2 = conv3x3x3_dx(dy, w)
             px = conv3x3x3_same_reference(dy, flip_transpose(w))
             torch.cuda.synchronize()
+            if not torch.equal(kx, kx2):
+                fail(f"dx kernel {row['shape']} {name}: two runs differ")
             xerr = float((kx.float() - px.float()).abs().max().item())
             xmax = float(px.float().abs().max().item())
             if (dt == torch.float32 and not torch.allclose(
@@ -321,7 +360,7 @@ def phase_backward_kernels(torch, rates):
             row[f"{name}_dxdw_dx_max_abs_err"] = dxerr
             row[f"{name}_dxdw_dw_max_abs_err"] = dwerr
             row[f"{name}_dxdw_max_abs_err"] = max(dxerr, dwerr)
-            del k, k2, p, kx, px, ddx, ddx2, ddw, ddw2
+            del k, k2, p, kx, kx2, px, ddx, ddx2, ddw, ddw2
             # the Function's (dx, dW) against autograd through the plain
             # conv: f32 within 1e-3 max|plain| (sums in another order),
             # bf16 within 1e-2 max|plain| (one bf16 rounding of each)

@@ -1,0 +1,249 @@
+#!/usr/bin/env python3
+"""Check and time the variants of the port's bf16 3x3x3 conv kernel
+(``bcp_tpu_torch/kernels/csrc/conv3x3x3.cu``) on one NVIDIA GPU.
+
+    PYTHONPATH=. python3 scripts/torch_conv_variants.py --check
+    PYTHONPATH=. python3 scripts/torch_conv_variants.py --sweep [--out F.json]
+    PYTHONPATH=. python3 scripts/torch_conv_variants.py --profile
+
+``--check`` holds the kernel against the plain version
+(``conv3x3x3_same_reference``; bf16 max|k - p| <= 1e-2 max|p|) with the
+variant :func:`bcp_tpu_torch.ops.conv3d.conv_variant` picks and with forced
+variants (two and four tiles per box, streamed and persistent weights, two
+and four warpgroups, every ring depth, K splits, every N tile, the
+flipped taps of dx) at the V-Net's stage shapes and at ragged ones, and
+checks that two runs give the same bits. ``--sweep`` times every variant
+that fits in shared memory at the five stage shapes at batch 8 and 4 (device
+time of the whole wrapper call, weight packing included: 20 calls in a CUDA
+graph, median of 7 replays) beside ``F.conv3d`` in the same process, prints
+the fastest few, what ``conv_variant`` picks and the sums over the 20
+launches of a V-Net forward, and writes all of them as JSON. The picker's
+rules were set from this sweep. ``--profile`` prints the device time of
+each kernel a wrapper call launches (weight packing, the conv, the K
+splits' second pass) and of ``F.conv3d``'s.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import math
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from bcp_tpu_torch.ops import conv3d as C
+
+STAGES = [(16, 112, 112, 80), (32, 56, 56, 40), (64, 28, 28, 20),
+          (128, 14, 14, 10), (256, 7, 7, 5)]
+
+
+def cuda_ms(fn, n: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time of one call: ``n`` calls captured in a CUDA graph and
+    replayed, so that a slow host does not show in the time of a short
+    kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 7) / n
+
+
+def case(B, ci, co, X, Y, Z, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, ci, X, Y, Z), generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    w = (torch.randn((co, ci, 3, 3, 3), generator=gen, device="cuda")
+         / (27 * ci) ** 0.5).to(torch.bfloat16)
+    return x, w
+
+
+def variants(B, X, Y, Z, ci, co, sms):
+    """Every variant of the shape that fits: tiles per warpgroup, N tile,
+    warpgroups, K split, weights streamed or persistent, ring depth, one to
+    four CTAs per SM."""
+    chunks = ci // 16
+    out = []
+    for tiles, bn, wg, ksplit, persist, stages, per_sm in itertools.product(
+            (4, 2), (64, 32, 16), (2, 4), (1, 2, 4, 8, 16), (False, True),
+            (2, 3, 4), (1, 2, 3, 4)):
+        if co % bn or chunks % ksplit:
+            continue
+        if wg == 4 and bn * tiles > 128:
+            continue      # four warpgroups have 128 registers a thread
+        if math.ceil(Z / tiles) * tiles >= Z + 2 * tiles:
+            continue      # taller than the volume twice over
+        boxes = B * math.prod(math.ceil(v / t) for v, t in zip(
+            (X, Y, Z), (*C.CONV_TILE, tiles)))
+        groups = math.ceil(boxes / wg)
+        gy = (co // bn) * ksplit
+        gx = min(groups, max(1, per_sm * sms // gy))
+        v = C.ConvVariant(tiles, bn, wg, stages, persist, ksplit, gx)
+        if per_sm * (v.smem_bytes(ci) + 1024) > C.CONV_SMEM_LIMIT + 1024:
+            continue
+        if ksplit > 1 and groups * (co // bn) >= 4 * sms:
+            continue      # no use for a K split: plenty of units
+        if v not in out:
+            out.append(v)
+    return out
+
+
+def close(k, p, tol=1e-2):
+    err = float((k.float() - p.float()).abs().max())
+    return err, err <= tol * float(p.float().abs().max())
+
+
+def check() -> int:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bad = 0
+    shapes = [(B, c, c, X, Y, Z) for B in (8, 4) for c, X, Y, Z in STAGES[1:]]
+    shapes += [(2, 16, 16, 112, 112, 80), (2, 16, 16, 6, 5, 7),
+               (1, 32, 64, 4, 4, 3), (2, 256, 256, 3, 5, 4),
+               (1, 32, 48, 9, 11, 13), (1, 48, 16, 23, 19, 21),
+               (1, 16, 16, 1, 1, 1), (1, 64, 32, 200, 3, 2),
+               (3, 128, 64, 7, 7, 5)]
+    for B, ci, co, X, Y, Z in shapes:
+        x, w = case(B, ci, co, X, Y, Z)
+        want = C.conv3x3x3_same_reference(x, w)
+        want_dx = C.conv3x3x3_same_reference(x, w.flip((2, 3, 4)))
+        picked = C.conv_variant(B, X, Y, Z, ci, co, sms)
+        todo = [picked]
+        if X * Y * Z <= 28 * 28 * 20:     # forced variants at modest sizes
+            todo += [v for v in variants(B, X, Y, Z, ci, co, sms)
+                     if v != picked]
+        worst = 0.0
+        for v in todo:
+            got = C._launch_conv(x, w, "check", variant=v)
+            again = C._launch_conv(x, w, "check", variant=v)
+            got_dx = C._launch_conv(x, w, "check", flip=True, variant=v)
+            torch.cuda.synchronize()
+            err, ok = close(got, want)
+            err_dx, ok_dx = close(got_dx, want_dx)
+            worst = max(worst, err, err_dx)
+            if not (ok and ok_dx and torch.equal(got, again)):
+                bad += 1
+                print(f"FAILED {B}x{ci}->{co}@{X}x{Y}x{Z} {v}: err {err:.3g} "
+                      f"dx err {err_dx:.3g} same bits "
+                      f"{torch.equal(got, again)}", flush=True)
+        print(f"checked {B}x{ci}->{co}@{X}x{Y}x{Z}: {len(todo)} variants, "
+              f"worst err {worst:.3g} (max|plain| "
+              f"{float(want.float().abs().max()):.3g}), picked {picked}",
+              flush=True)
+    print(f"check: {bad} failures", flush=True)
+    return 1 if bad else 0
+
+
+def sweep(out_path: str) -> int:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for B in (8, 4):
+        for c, X, Y, Z in STAGES:
+            x, w = case(B, c, c, X, Y, Z)
+            lib = device_ms(lambda: F.conv3d(x, w, padding=1))
+            picked = C.conv_variant(B, X, Y, Z, c, c, sms)
+            timed = []
+            for v in variants(B, X, Y, Z, c, c, sms):
+                ms = device_ms(
+                    lambda: C._launch_conv(x, w, "sweep", variant=v))
+                timed.append((ms, v))
+            timed.sort(key=lambda t: t[0])
+            pick_ms = device_ms(lambda: C._launch_conv(x, w, "sweep"))
+            print(f"{B}x{c}@{X}x{Y}x{Z}: F.conv3d {lib:.4f} ms; picked "
+                  f"{pick_ms:.4f} ms {picked}", flush=True)
+            for ms, v in timed[:8]:
+                print(f"    {ms:.4f} ms {v} smem {v.smem_bytes(c)}",
+                      flush=True)
+            rows.append({"shape": f"{B}x{c}@{X}x{Y}x{Z}", "library_ms": lib,
+                         "picked_ms": pick_ms, "picked": picked._asdict(),
+                         "variants": [dict(v._asdict(), ms=ms)
+                                      for ms, v in timed]})
+    per_forward = {16: 1, 32: 4, 64: 6, 128: 6, 256: 3}
+    for B in (8, 4):
+        mine = [r for r in rows if r["shape"].startswith(f"{B}x")]
+        count = [per_forward[int(r["shape"].split("x")[1].split("@")[0])]
+                 for r in mine]
+        for key in ("picked_ms", "library_ms"):
+            total = sum(n * r[key] for n, r in zip(count, mine))
+            print(f"batch {B}, the 20 launches of a V-Net forward, {key}: "
+                  f"{total:.4f}", flush=True)
+        best = sum(n * min(v["ms"] for v in r["variants"])
+                   for n, r in zip(count, mine))
+        print(f"batch {B}, the 20 launches of a V-Net forward, best variant "
+              f"of each shape: {best:.4f}", flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(card)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"card": card, "rows": rows}, f, indent=1)
+    return 0
+
+
+def profile() -> int:
+    """Device time by kernel name of the wrapper call with the picked
+    variant and of ``F.conv3d``, 10 calls each under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for B in (8, 4):
+        for c, X, Y, Z in STAGES:
+            x, w = case(B, c, c, X, Y, Z)
+            for name, fn in (("kernel", lambda: C._launch_conv(x, w, "p")),
+                             ("F.conv3d", lambda: F.conv3d(x, w, padding=1))):
+                fn()
+                torch.cuda.synchronize()
+                with tprofile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        fn()
+                    torch.cuda.synchronize()
+                for e in prof.key_averages():
+                    if e.device_time_total > 0:
+                        print(f"{B}x{c}@{X}x{Y}x{Z} {name}: "
+                              f"{e.device_time_total / e.count:9.1f} us x "
+                              f"{e.count // 10}  {e.key[:90]}", flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    rc = 0
+    if args.check:
+        rc |= check()
+    if args.sweep:
+        rc |= sweep(args.out)
+    if args.profile:
+        rc |= profile()
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 """The port's 3^3 SAME conv against the JAX package: its Pallas kernel in
 interpret mode and the numpy oracle ``reference_conv3x3x3``."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -10,9 +12,12 @@ import jax.numpy as jnp
 
 from bcp_tpu.ops import conv3d as jax_conv3d
 from bcp_tpu_torch.device import resolve_device
-from bcp_tpu_torch.ops.conv3d import (BOX_VOXELS, MAX_HALO, conv3x3x3_same,
-                                      conv3x3x3_same_reference, halo_box,
-                                      kernel_takes, n_tile)
+from bcp_tpu_torch.ops.conv3d import (BOX_VOXELS, CONV_MAX_STAGES,
+                                      CONV_SMEM_LIMIT, MAX_HALO,
+                                      conv3x3x3_same,
+                                      conv3x3x3_same_reference, conv_tiles,
+                                      conv_variant, halo_box, halo_bytes,
+                                      kernel_takes)
 
 
 def _case(B, X, Y, Z, Ci, Co, seed=0):
@@ -103,8 +108,83 @@ def test_halo_box_fills_the_vnet_stages():
         assert all(v % t == 0 for v, t in zip(vol, (tx, ty, tz)))
 
 
-@pytest.mark.parametrize("co,ctas,want", [(256, 24, 32), (256, 8, 16),
-                                          (128, 144, 64), (16, 62720, 16),
-                                          (48, 1000, 16), (32, 7840, 32)])
-def test_n_tile(co, ctas, want):
-    assert n_tile(co, ctas, 132) == want
+STAGE_SHAPES = [(b, c, c, *vol) for b in (8, 4) for c, vol in (
+    (16, (112, 112, 80)), (32, (56, 56, 40)), (64, (28, 28, 20)),
+    (128, (14, 14, 10)), (256, (7, 7, 5)))]
+ODD_SHAPES = [(2, 16, 16, 6, 5, 7), (1, 32, 64, 4, 4, 3),
+              (2, 256, 256, 3, 5, 4), (1, 32, 48, 9, 11, 13),
+              (1, 48, 16, 23, 19, 21), (1, 16, 16, 1, 1, 1),
+              (1, 64, 32, 200, 3, 2), (3, 128, 64, 7, 7, 5),
+              (8, 64, 32, 7, 7, 5), (1, 16, 256, 112, 112, 80)]
+
+
+@pytest.mark.parametrize("sms", [132, 108])
+@pytest.mark.parametrize("shape", STAGE_SHAPES + ODD_SHAPES)
+def test_conv_variant_fits_covers_and_fills(shape, sms):
+    """Kernel B's variant is a pure function of shape and SM count; it fits
+    the kernel's limits, its boxes cover the volume, its K split divides the
+    Ci chunks, and it gives every SM a CTA where the work allows."""
+    B, ci, co, X, Y, Z = shape
+    v = conv_variant(B, X, Y, Z, ci, co, sms)
+    assert v == conv_variant(B, X, Y, Z, ci, co, sms)
+    assert v.tiles in conv_tiles(Z) and v.box == (8, 8, v.tiles)
+    assert v.smem_bytes(ci) <= CONV_SMEM_LIMIT == 232448
+    assert v.bn in (16, 32, 64) and co % v.bn == 0
+    assert v.warpgroups in (2, 4) and 2 <= v.stages <= CONV_MAX_STAGES
+    # four warpgroups of a CTA have 128 registers a thread: 64 accumulators
+    assert v.warpgroups < 4 or v.bn * v.tiles <= 128
+    chunks = ci // 16
+    assert chunks % v.ksplit == 0
+    boxes = B * math.prod(math.ceil(n / t) for n, t in zip((X, Y, Z), v.box))
+    groups = math.ceil(boxes / v.warpgroups)
+    row = co // v.bn * v.ksplit          # CTAs that one more of grid_x adds
+    assert 1 <= v.grid_x <= groups
+    assert v.ctas(co) == v.grid_x * row
+    # all the groups at once, or within one row of a CTA per SM
+    assert v.ctas(co) >= min(groups * row, sms - row + 1)
+    # fewer units than SMs: all the parallelism K has is taken
+    assert boxes * row >= sms or v.ksplit == chunks
+    # weights stay for good only where a CTA walks on to more boxes
+    assert not v.persist_w or groups > v.grid_x
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 16, 16, 112, 112, 80), (4, 16, 2, 2, True, 1, 264)),
+    ((8, 32, 32, 56, 56, 40), (4, 32, 4, 2, True, 1, 132)),
+    ((8, 64, 64, 28, 28, 20), (2, 64, 4, 2, False, 1, 132)),
+    ((8, 128, 128, 14, 14, 10), (2, 64, 4, 2, True, 4, 16)),
+    ((8, 256, 256, 7, 7, 5), (2, 64, 4, 2, True, 8, 4)),
+    ((4, 256, 256, 7, 7, 5), (2, 64, 2, 4, True, 8, 4)),
+])
+def test_conv_variant_of_the_vnet_stages(shape, want):
+    """The variants the H100 sweep (scripts/torch_conv_variants.py) found
+    best at the V-Net's stages: four resident warpgroups per SM, weights
+    once per CTA where they fit (two CTAs per SM at 16 channels), streamed
+    weights at 64, a K split that makes the weights fit at 128 and 256."""
+    B, ci, co, X, Y, Z = shape
+    assert tuple(conv_variant(B, X, Y, Z, ci, co, 132)) == want
+
+
+@pytest.mark.parametrize("Z,want", [(80, (4, 2)), (40, (4, 2)), (20, (4, 2)),
+                                    (10, (2,)), (5, (2,)), (1, (2,)),
+                                    (7, (4, 2)), (13, (2,)), (96, (4, 2))])
+def test_conv_tiles_cover_z_with_the_fewest_planes(Z, want):
+    assert conv_tiles(Z) == want
+    for t in want:
+        assert math.ceil(Z / t) * t == min(math.ceil(Z / u) * u
+                                           for u in (4, 2))
+
+
+@pytest.mark.parametrize("tiles", [2, 4])
+def test_conv_halo_layout(tiles):
+    """The halo of a box in kernel B's shared memory: two k halves of
+    (tiles + 2) padded planes of 10 x 10 entries of 16 bytes; 8 voxels along
+    y are one 128-byte core matrix, 8 lines along x lie 160 bytes apart, and
+    the copies of a warp (z fastest, then the halves) spread over the bank
+    groups: planes 2 and halves 1 (mod 8) units apart."""
+    half = halo_bytes(tiles) // 2
+    plane = (10 * 10 + 6) * 16
+    assert half >= (tiles + 2) * plane and half % 16 == 0
+    assert (plane // 16) % 8 == 2 and (half // 16) % 8 == 1
+    # a warp's quarter of it holds the epilogue's 16 staging rows
+    assert (halo_bytes(tiles) // 4) // 16 * 16 >= 16 * (64 * 2 + 16)

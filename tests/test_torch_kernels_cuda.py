@@ -17,7 +17,8 @@ from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
                                       conv3x3x3_dxdw,
                                       conv3x3x3_dxdw_reference,
                                       conv3x3x3_same,
-                                      conv3x3x3_same_reference)
+                                      conv3x3x3_same_reference,
+                                      flip_transpose)
 from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
                                        scatter_add_windows_reference)
 
@@ -42,15 +43,27 @@ def _conv_case(B, X, Y, Z, Ci, Co, seed):
     return torch.from_numpy(x), torch.from_numpy(w)
 
 
+# (B, X, Y, Z, Ci, Co): small and odd shapes with streamed weights and K
+# splits, Ci != Co, then the V-Net's kinds of stage: weights staged once per
+# CTA with two CTAs per SM (16 channels) or four warpgroups per CTA (32),
+# streamed weights shared by four warpgroups (64), a K split with
+# persistent weights (128; 256 at a ragged 7x7x5, batch 1 too)
+CONV_SHAPES = [(2, 6, 5, 7, 16, 16), (1, 4, 4, 3, 32, 64),
+               (2, 3, 5, 4, 256, 256), (1, 9, 11, 13, 32, 48),
+               (2, 7, 7, 5, 256, 256), (1, 40, 36, 48, 16, 16),
+               (2, 56, 56, 40, 32, 32), (4, 28, 28, 20, 64, 64),
+               (8, 14, 14, 10, 128, 128), (8, 7, 7, 5, 256, 256),
+               (1, 7, 7, 5, 256, 256), (3, 7, 7, 5, 128, 64),
+               (1, 23, 19, 21, 48, 16)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shape", [(2, 6, 5, 7, 16, 16), (1, 4, 4, 3, 32, 64),
-                                   (2, 3, 5, 4, 256, 256),
-                                   (1, 9, 11, 13, 32, 48),
-                                   (2, 7, 7, 5, 256, 256)])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_kernel_matches_plain(cuda_device, shape, dtype, tol):
     """f32 to rtol = atol = 1e-4; bf16 (f32 sums in another order, one
-    rounding) to max|kernel - plain| <= 1e-2 max|plain|."""
+    rounding) to max|kernel - plain| <= 1e-2 max|plain|. The shapes take
+    every kind of variant the bf16 kernel's picker returns."""
     x, w = (t.to(cuda_device, dtype) for t in _conv_case(*shape, seed=4))
     before = conv3x3x3_same.launches
     got = conv3x3x3_same(x, w)
@@ -63,6 +76,25 @@ def test_conv_kernel_matches_plain(cuda_device, shape, dtype, tol):
     else:
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernel_same_bits_twice(cuda_device, shape, dtype):
+    """Forward and dx give the same bits on a second run: the K splits'
+    partial sums are added in a fixed order, not with atomics. dx equals
+    the forward kernel on the flipped, io-transposed weights made by
+    torch."""
+    x, w = (t.to(cuda_device, dtype) for t in _conv_case(*shape, seed=7))
+    dy, _ = _conv_case(*shape[:4], shape[5], shape[5], seed=8)
+    dy = dy.to(cuda_device, dtype)
+    got, again = conv3x3x3_same(x, w), conv3x3x3_same(x, w)
+    dx, dx_again = conv3x3x3_dx(dy, w), conv3x3x3_dx(dy, w)
+    by_forward = conv3x3x3_same(dy, flip_transpose(w).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(dx, dx_again)
+    assert torch.equal(dx, by_forward)
 
 
 def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
