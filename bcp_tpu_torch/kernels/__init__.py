@@ -8,8 +8,9 @@ raw device pointers and PyTorch's current CUDA stream, launch, and return
 exception. Nothing here runs when the module is imported: the CPU tests
 import every module and have neither ``nvcc`` nor a card.
 
-The library name carries a hash of its source and the flags, so an edited
-kernel is rebuilt and a stale library is never loaded.
+The library name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt
+and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                              _I, _I, _I, _I, _P),
     },
     "conv3x3x3_dxdw": {
-        "conv3x3x3_dxdw_bf16": (_P,) * 7 + (_I,) * 10 + (_P,),
+        "conv3x3x3_dxdw_bf16": (_P,) * 10,
+        "conv3x3x3_dxdw_pack": (_P, _P, _I, _I, _P),
         "conv3x3x3_dxdw_f32": (_P,) * 7 + (_I,) * 10 + (_P,),
     },
 }
@@ -67,8 +69,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``csrc/<name>.cu``, tagged with a hash of that source,
+    every header under ``csrc/`` (an edited header rebuilds each library)
+    and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 

@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_common.cuh"
+
 namespace {
 
 struct Geom {
@@ -108,34 +110,7 @@ __device__ __forceinline__ long long src_offset(const Geom& g, int b, int sx,
 }
 
 // ---------------------------------------------------------------- bf16 --
-constexpr int KC = 16;      // input channels per chunk = one wgmma k step
-constexpr int TX = 8;       // an m64 tile: 8 x 8 voxels of one z plane
-constexpr int TY = 8;
-constexpr int HX = TX + 2;  // the tile's halo
-constexpr int HY = TY + 2;
-constexpr int TAPS = 27;
-constexpr int MAX_STAGES = 4;
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
-constexpr int BAR_BYTES = 128;      // of it, the mbarriers' share
-
-// The halo of one box (TX x TY x MT output voxels) in shared memory, for one
-// chunk of 16 channels: [k half][hz][hx][hy] entries of 16 bytes (8
-// channels). 8 voxels along y are then 128 contiguous bytes, a wgmma core
-// matrix, and the 8 lines along x of a tile lie HY * 16 bytes apart: an m64
-// tile at any tap is one shared-memory descriptor, and a tap is a shift of
-// its start address. Planes and halves are padded so that the 16-byte
-// copies of a warp (along z, then the two halves) spread over the banks.
-template <int MT>
-struct Halo {
-  static constexpr int HZ = MT + 2;
-  static constexpr int PLANE = (HX * HY + 6) * 16;  // 106 units = 2 (mod 8)
-  static constexpr int HALF =
-      HZ * PLANE + ((1 + 8 - (HZ * (PLANE / 16)) % 8) % 8) * 16;
-  static constexpr int BYTES = 2 * HALF;
-  static constexpr int VECS = 2 * HX * HY * HZ;  // 16-byte vectors
-  static constexpr int PER_THREAD = (VECS + 127) / 128;
-};
-
+// (the tile, its halo, the copy and wgmma helpers: conv_common.cuh)
 struct Plan {
   int nbx, nby, nbz;  // boxes along each axis
   int nboxes;         // B * nbx * nby * nbz
@@ -143,154 +118,6 @@ struct Plan {
   int persist_w;      // weights staged once per CTA, not per item
   int ksplit;         // splits of the Ci chunks over blockIdx.y
   int flip;           // read the weights of tap 26 - t at tap t (dx)
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; `bytes` = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// mbarrier of one ring stage's weights (and of the persistent slab)
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE_%=;\n"
-      "bra WAIT_%=;\n"
-      "DONE_%=:\n}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) global -> shared by the bulk copy engine; the
-// bytes count on `bar` as they land
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// make this thread's shared-memory writes visible to wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// barrier of one warpgroup's 128 threads (named barrier 1 + its number)
-__device__ __forceinline__ void warpgroup_sync(int wgid) {
-  asm volatile("bar.sync %0, 128;" ::"r"(wgid + 1) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand without swizzle:
-// 8 x 16-byte core matrices of 128 contiguous bytes; `lbo` bytes between
-// the core matrices of the two k halves, `sbo` bytes between groups of 8
-// rows (voxels of A, output channels of B).
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t lbo,
-                                                uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-// d (64 x N, f32, registers) = a (64 x 16, bf16, shared) * b (16 x N, bf16,
-// shared) + (scale_d ? d : 0)
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  __device__ static __forceinline__ void run(float (&d)[8], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0,%1,%2,%3,%4,%5,%6,%7}, %8, %9, p, 1, 1, 0, 0;\n}"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  __device__ static __forceinline__ void run(float (&d)[16], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ static __forceinline__ void run(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-        "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
 };
 
 // Origin (b, x0, y0, z0) of box number `box` = ((b*nbx + ix)*nby + iy)*nbz

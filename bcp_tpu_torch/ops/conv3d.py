@@ -32,8 +32,15 @@ On a CUDA tensor:
   order (:func:`dw_splits`);
 - :func:`conv3x3x3_dxdw` launches ``kernels/csrc/conv3x3x3_dxdw.cu``
   (kernel D, the counterpart of ``_conv3x3x3_dxdw_pallas``): dx and dW of
-  a Ci == Co conv from one staging of each dy tile
-  (:func:`fused_bwd_eligible`).
+  a Ci == Co conv from one staging of each dy box (:func:`fused_bwd_eligible`).
+  In bf16 both products are ``wgmma`` from shared memory: dx as kernel B
+  computes it, dW with the staged x box shifted by the tap and dy's centre
+  as transposed operands (the dW engine of ``conv_common.cuh``, which B
+  shares); a ring of stages carries the boxes, the weights are packed by a
+  kernel and staged once per CTA, and dx's partial sums over output
+  channel groups and dW's over box splits are added in a fixed order by a
+  second pass. :func:`dxdw_variant` picks its tiles, stages and splits
+  from the shape and the SM count alone.
 
 On a CPU tensor each runs its plain version: 27 shifted tap matmuls with
 f32 accumulation (:func:`conv3x3x3_same_reference`,
@@ -452,12 +459,132 @@ def conv3x3x3_dxdw_reference(x: torch.Tensor, dy: torch.Tensor,
             conv3x3x3_dw_reference(x, dy))
 
 
-def conv3x3x3_dxdw(x: torch.Tensor, dy: torch.Tensor,
-                   w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+#: kernel D (``conv3x3x3_dxdw.cu``): a box is DXDW_TILES z planes of 8 x 8
+#: voxels, one per warpgroup; the (ci tile, co group) pairs it is built for;
+#: one (plane, 8-channel group) of its slabs in shared memory (`Slab`)
+DXDW_TILES = 3
+DXDW_PAIRS = ((16, 16), (32, 32), (16, 64))
+SLAB_PLANE = (10 * 10 + 6) * 16
+
+
+class DxdwVariant(NamedTuple):
+    """How kernel D's bf16 kernel runs one shape: the input channels of one
+    CTA (dx's columns, dW's rows), its group of output channels (dx's
+    reduction slice, dW's columns), the ring's stages, and the CTAs that
+    share the boxes of one (ci tile, co group)."""
+    ci_tile: int
+    co_group: int
+    stages: int
+    splits: int
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA (`DxdwShape` in the source):
+        its weights and ``stages`` x (x slab of DXDW_TILES + 3 planes, dy
+        slab of DXDW_TILES + 2)."""
+        x = (DXDW_TILES + 3) * (self.ci_tile // 8) * SLAB_PLANE
+        d = (DXDW_TILES + 2) * (self.co_group // 8) * SLAB_PLANE
+        w = 27 * self.ci_tile * self.co_group * 2
+        return CONV_BAR_BYTES + w + self.stages * (x + d)
+
+    def ctas_per_sm(self) -> int:
+        """By registers (`__launch_bounds__`: two CTAs only for (16, 16))
+        and shared memory."""
+        by_regs = 2 if (self.ci_tile, self.co_group) == (16, 16) else 1
+        return min(by_regs, CONV_SM_SMEM // (self.smem_bytes()
+                                             + CONV_CTA_RESERVED))
+
+
+def dxdw_boxes(B: int, X: int, Y: int, Z: int) -> int:
+    """Kernel D's boxes (8 x 8 x DXDW_TILES voxels) over the volumes."""
+    return (B * math.ceil(X / CONV_TILE[0]) * math.ceil(Y / CONV_TILE[1])
+            * math.ceil(Z / DXDW_TILES))
+
+
+def dxdw_candidates(B: int, X: int, Y: int, Z: int, C: int,
+                    sms: int) -> Tuple[DxdwVariant, ...]:
+    """Every (ci tile, co group) pair that divides C, each with the most
+    stages that fit and the splits that fill the card: about one wave of
+    resident CTAs, at most one split per box, and the splits' dW partials
+    (27*C*C f32 each) within ``DW_WORKSPACE_BYTES``."""
+    boxes = dxdw_boxes(B, X, Y, Z)
+    room = max(DW_WORKSPACE_BYTES // (27 * C * C * 4), 1)
+    found = []
+    for ci, cg in DXDW_PAIRS:
+        if C % ci or C % cg:
+            continue
+        v = DxdwVariant(ci, cg, 2, 1)
+        per_sm = v.ctas_per_sm()
+        if not per_sm:
+            continue
+        limit = min(CONV_SM_SMEM // per_sm - CONV_CTA_RESERVED,
+                    CONV_SMEM_LIMIT)
+        stages = max(s for s in range(2, CONV_MAX_STAGES + 1)
+                     if s == 2 or v._replace(stages=s).smem_bytes() <= limit)
+        tiles = (C // ci) * (C // cg)
+        splits = max(1, min(boxes, round(per_sm * sms / tiles), room))
+        found.append(DxdwVariant(ci, cg, stages, splits))
+    return tuple(found)
+
+
+#: kernel D: the most bytes of f32 dx partial sums (C / 32 copies of dx) a
+#: (32, 32) variant may cross CTAs with before (16, 64), which writes half
+#: as many, is taken instead
+DXDW_DX_PARTIALS_BYTES = 16 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def dxdw_variant(B: int, X: int, Y: int, Z: int, C: int,
+                 sms: int) -> DxdwVariant:
+    """Kernel D's variant for one shape, from the shape and the SM count
+    alone (the rules follow ``scripts/torch_conv_variants.py --dxdw``):
+    (32, 32), N = 32 on both products, where 32 divides C, unless its f32
+    dx partial sums (C / 32 copies of dx when C > 32) pass
+    ``DXDW_DX_PARTIALS_BYTES`` and 64 divides C: then (16, 64), half the
+    copies; (16, 16) where 32 does not divide C. Stages and splits as
+    :func:`dxdw_candidates` gives them."""
+    found = {(v.ci_tile, v.co_group): v
+             for v in dxdw_candidates(B, X, Y, Z, C, sms)}
+    if not found:
+        raise ValueError(f"dxdw_variant: no variant takes C={C}")
+    partials = 4 * B * X * Y * Z * C * (C // 32 if C > 32 else 0)
+    if (16, 64) in found and partials > DXDW_DX_PARTIALS_BYTES:
+        return found[(16, 64)]
+    return found.get((32, 32), found[(16, 16)])
+
+
+def dxdw_pack_reference(w: torch.Tensor, ci_tile: int) -> torch.Tensor:
+    """Plain statement of the order kernel D's ``pack_weights`` writes the
+    (C, C, 3, 3, 3) weights in: flat
+    ``[ci tile][co chunk of 16][tap][half][ci of the tile][8 co]`` =
+    ``w[16*chunk + 8*half + e, ci_tile*CI + n, 26 - tap]``."""
+    C = w.shape[0]
+    t = w.reshape(C // 16, 2, 8, C // ci_tile, ci_tile, 27).flip(5)
+    return t.permute(3, 0, 5, 1, 4, 2).reshape(-1)
+
+
+class _DxdwArgs(ctypes.Structure):
+    """`DxdwArgs` of ``conv3x3x3_dxdw.cu``: one bf16 launch's shape and
+    variant."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "B", "X", "Y", "Z", "C", "ci_tile", "co_group", "stages", "splits")]
+
+
+@functools.lru_cache(maxsize=None)
+def _dxdw_args(shape: Tuple[int, ...],
+               v: DxdwVariant) -> Tuple[_DxdwArgs, int]:
+    args = _DxdwArgs(*shape, v.ci_tile, v.co_group, v.stages, v.splits)
+    return args, ctypes.addressof(args)
+
+
+def conv3x3x3_dxdw(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                   variant: Optional[DxdwVariant] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx, dW) of the SAME conv with Ci == Co from x, dy (B,C,X,Y,Z) and
-    w (C,C,3,3,3) of one dtype, in one launch of kernel D (plus its
-    fixed-order second pass): exactly ``(conv3x3x3_dx(dy, w),
-    conv3x3x3_dw(x, dy))``, dx channels_last_3d in x's dtype, dW f32."""
+    w (C,C,3,3,3) of one dtype, in one launch of kernel D (after the launch
+    that packs w, and before its fixed-order second pass when sums cross
+    CTAs): exactly ``(conv3x3x3_dx(dy, w), conv3x3x3_dw(x, dy))``, dx
+    channels_last_3d in x's dtype, dW f32. ``variant`` overrides
+    :func:`dxdw_variant` (the tuning script's sweep)."""
     if x.device.type == "cpu" and dy.device.type == "cpu" \
             and w.device.type == "cpu":
         return conv3x3x3_dxdw_reference(x, dy, w)
@@ -479,28 +606,39 @@ def conv3x3x3_dxdw(x: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"{what}: kernel does not take C={C}")
     x = _channels_last(x, what)
     dy = _channels_last(dy, what)
-    # (Ci, Co, 3, 3, 3) -> (27, Co, Ci): rows of dx's K = (tap, co), N = ci
-    wk = flip_transpose(w).permute(2, 3, 4, 1, 0).contiguous()
-    tx, ty, tz = halo_box(X, Y, Z)
-    boxes = B * math.ceil(X / tx) * math.ceil(Y / ty) * math.ceil(Z / tz)
-    cg = 32 if C % 32 == 0 else 16      # output channels of one CTA
-    splits = dw_splits(C, C, cg, boxes, _sm_count(x.device.index or 0))
+    w = w.contiguous()          # (C, C, 27) as the kernels read it
     dev = x.device
+    sms = _sm_count(dev.index or 0)
     dx = torch.empty_like(x)    # channels_last_3d, as x
     dw = torch.empty((27, C, C), dtype=torch.float32, device=dev)
-    dw_ws = (torch.empty((splits, 27, C, C), dtype=torch.float32, device=dev)
-             if splits > 1 else dw)
-    # dx's partial sums per channel group (the kernel reads neither
-    # workspace when it has one split or one group)
-    dx_ws = (torch.empty((C // cg, B, X, Y, Z, C), dtype=torch.float32,
-                         device=dev) if C > cg else dw)
     lib = kernels.library("conv3x3x3_dxdw")
-    launch = (lib.conv3x3x3_dxdw_bf16 if x.dtype == torch.bfloat16
-              else lib.conv3x3x3_dxdw_f32)
-    code = launch(x.data_ptr(), dy.data_ptr(), wk.data_ptr(), dx.data_ptr(),
-                  dx_ws.data_ptr(), dw_ws.data_ptr(), dw.data_ptr(),
-                  B, X, Y, Z, C, tx, ty, tz, cg, splits,
-                  kernels.stream_handle(dev))
+    stream = kernels.stream_handle(dev)
+    if x.dtype == torch.bfloat16:
+        v = variant or dxdw_variant(B, X, Y, Z, C, sms)
+        cg, splits = v.co_group, v.splits
+        wpk = torch.empty(27 * C * C, dtype=x.dtype, device=dev)
+        _, args = _dxdw_args((B, X, Y, Z, C), v)
+        ptrs = [x, dy, w, wpk, dx]
+    else:
+        tx, ty, tz = halo_box(X, Y, Z)
+        boxes = B * math.ceil(X / tx) * math.ceil(Y / ty) * math.ceil(Z / tz)
+        cg = 32 if C % 32 == 0 else 16      # output channels of one CTA
+        splits = dw_splits(C, C, cg, boxes, sms)
+        ptrs = [x, dy, w, dx]
+    # f32 workspaces of what crosses CTAs, added in order by a second pass:
+    # dx's partial sums per channel group, dW's per split
+    dx_ws = (torch.empty((C // cg, B, X, Y, Z, C), dtype=torch.float32,
+                         device=dev) if C > cg else None)
+    dw_ws = (torch.empty((splits, 27, C, C), dtype=torch.float32, device=dev)
+             if splits > 1 else None)
+    ptrs = [t.data_ptr() for t in ptrs] + [
+        t.data_ptr() if t is not None else None for t in (dx_ws, dw_ws)] + [
+        dw.data_ptr()]
+    if x.dtype == torch.bfloat16:
+        code = lib.conv3x3x3_dxdw_bf16(*ptrs, args, stream)
+    else:
+        code = lib.conv3x3x3_dxdw_f32(*ptrs, B, X, Y, Z, C, tx, ty, tz, cg,
+                                      splits, stream)
     kernels.check(code, what)
     kernels.count_launch(conv3x3x3_dxdw)
     return dx, dw.view(3, 3, 3, C, C).permute(4, 3, 0, 1, 2).contiguous()

@@ -21,11 +21,15 @@ that copy's event. ``cfg.async_val=False`` keeps the inline loop.
 ``resume`` restores a stage's ``last_state.pt`` (student, teacher,
 optimizer, step), recovers the best Dice so far from the snapshot names
 and goes on from step + 1 (`trainer.py:293-302,454-457`). As in the JAX
-package the feed's index stream restarts from its seed. The copy-paste
-mask generator and the dropout generator restart from their seeds too: a
-resumed stage repeats the mask offsets and keep masks that steps 1, 2, ...
-drew, where the JAX package, which folds the step number into its key,
-goes on with those of the step it resumes at.
+package the feed's index stream restarts from its seed. The random draws
+of an iteration (the copy-paste mask's offsets and the dropouts' keep
+masks) depend on (seed, stage, iteration) alone, as the JAX package's
+``fold_in(base_key, it)`` does (:func:`iteration_draws`): a stage resumed
+at step s draws at s + 1, s + 2, ... what the uninterrupted stage draws
+there. The numbers are numpy's and torch's, not ``jax.random``'s.
+
+``cfg.debug_nans`` and ``cfg.profile_dir`` are not honoured yet (ROADMAP
+A1): the trainer refuses them rather than ignore them.
 """
 
 from __future__ import annotations
@@ -57,6 +61,18 @@ from bcp_tpu_torch.train.state import (TrainState, build_model, init_state,
                                        load_weights_only)
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
 from bcp_tpu_torch.utils.logging import MetricWriter, setup_logging
+
+
+def iteration_draws(stage_seed: int, it: int,
+                    dropout_gen: torch.Generator) -> np.random.Generator:
+    """The draws of iteration ``it`` from (stage seed, it) alone, the
+    port's counterpart of ``jax.random.fold_in(base_key, it)``
+    (`trainer.py:483-495`): seeds ``dropout_gen`` for the iteration and
+    returns the numpy generator of its mask offsets."""
+    seed = np.random.SeedSequence([stage_seed, it, 1]).generate_state(
+        1, np.uint64)[0]
+    dropout_gen.manual_seed(int(seed >> 1))
+    return np.random.default_rng([stage_seed, it, 0])
 
 
 class _ValWorker:
@@ -136,6 +152,10 @@ class BCPTrainer:
                  on_step: Optional[Callable[[str, int], None]] = None):
         if cfg.variant != "la":
             raise NotImplementedError("the port's trainer runs LA")
+        if cfg.debug_nans or cfg.profile_dir is not None:
+            raise NotImplementedError(
+                "debug_nans and profile_dir (with profile_steps) are not "
+                "honoured by the port's trainer yet (ROADMAP A1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pre_dir = snapshot_dir(cfg, "pre_train")
@@ -223,10 +243,8 @@ class BCPTrainer:
                                 store_cache=self.feed_store_cache)
         logger.info("%d iterations per epoch (device-store init %.1fs)",
                     feeder.steps_per_epoch, feeder.store_init_s)
-        offset = 0 if stage == "pre" else 1
-        mask_rng = np.random.default_rng(cfg.seed + offset)
-        dropout_gen = torch.Generator(device=self.device).manual_seed(
-            cfg.seed + offset)
+        stage_seed = cfg.seed + (0 if stage == "pre" else 1)
+        dropout_gen = torch.Generator(device=self.device)
         best = resumed_best     # written by validation jobs, in order
         best_path = best_model_path(out_dir, cfg.net_type)
         last_path = os.path.join(out_dir, "last.pth")
@@ -297,6 +315,7 @@ class BCPTrainer:
         try:
             for it in range(start + 1, max_iterations + 1):
                 batch = next(feeder)
+                mask_rng = iteration_draws(stage_seed, it, dropout_gen)
                 mask = cuboid_mask(cfg.patch_size,
                                    cuboid_starts(mask_rng, cfg.patch_size,
                                                  cfg.mask_ratio),

@@ -29,7 +29,8 @@ Phases, each of which fails the run (non-zero exit, no final line):
    kernel D (dx and dW in one launch): dx to B's limits, dW to C's,
    bit-identical over two runs, timed beside B-as-dx followed by C,
    beside its plain version and beside the two library calls
-   ``conv3d_input`` + ``conv3d_weight`` together;
+   ``conv3d_input`` + ``conv3d_weight`` together, and D and B-as-dx then C
+   on the device alone (CUDA graphs), with the variant D's wrapper picks;
 3. the whole slice in f32 on the card against the same slice on the CPU:
    the full-width V-Net (n_filters 16, seeded weights, saved as a
    reference-layout .pth) through the evaluator on one 112x112x80 volume,
@@ -144,6 +145,21 @@ def cuda_ms(torch, fn, n: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(torch, fn, n: int = 20) -> float:
+    """Device time of one call of ``fn``: ``n`` calls captured in a CUDA
+    graph, replayed (median of 7), so that the host's launch path does not
+    show."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = cuda_ms(torch, graph.replay, 7) / n
+    del graph
+    return ms
 
 
 def phase_kernels(torch, rates):
@@ -298,8 +314,9 @@ def phase_backward_kernels(torch, rates):
                                           conv3x3x3_dx, conv3x3x3_dxdw,
                                           conv3x3x3_dxdw_reference,
                                           conv3x3x3_same_reference,
-                                          flip_transpose)
+                                          dxdw_variant, flip_transpose)
     bf16_peak, f32_peak, hbm = rates
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     B = TRAIN_CONCAT
@@ -407,6 +424,15 @@ def phase_backward_kernels(torch, rates):
             # what D replaces, back to back in this same process
             row[f"{name}_dx_then_dw_ms"] = cuda_ms(
                 torch, lambda: (conv3x3x3_dx(dy, w), conv3x3x3_dw(x, dy)))
+            if dt == torch.bfloat16:
+                # D's variant, and both on the device alone (CUDA graphs)
+                row["bf16_dxdw_variant"] = str(tuple(dxdw_variant(
+                    B, X, Y, Z, c, sms)))
+                row["bf16_dxdw_device_ms"] = device_ms(
+                    torch, lambda: conv3x3x3_dxdw(x, dy, w))
+                row["bf16_dx_then_dw_device_ms"] = device_ms(
+                    torch, lambda: (conv3x3x3_dx(dy, w),
+                                    conv3x3x3_dw(x, dy)))
             del x, dy, w
         rows.append(row)
         print(f"backward {row['shape']}: C bf16 {row['bf16_dw_ms']:.4f} ms "
@@ -418,8 +444,11 @@ def phase_backward_kernels(torch, rates):
               f"ms (conv3d_input {row['bf16_dx_library_ms']:.4f}, plain "
               f"{row['bf16_dx_plain_ms']:.3f}, bound "
               f"{row['bf16_dx_bound_ms']:.4f}), f32 {row['f32_dx_ms']:.4f}"
-              f"; D bf16 {row['bf16_dxdw_ms']:.4f} ms (B-as-dx then C "
-              f"{row['bf16_dx_then_dw_ms']:.4f}, conv3d_input + "
+              f"; D bf16 {row['bf16_dxdw_ms']:.4f} ms, device "
+              f"{row['bf16_dxdw_device_ms']:.4f}, variant "
+              f"{row['bf16_dxdw_variant']} (B-as-dx then C "
+              f"{row['bf16_dx_then_dw_ms']:.4f}, device "
+              f"{row['bf16_dx_then_dw_device_ms']:.4f}, conv3d_input + "
               f"conv3d_weight {row['bf16_dxdw_library_ms']:.4f}, plain "
               f"{row['bf16_dxdw_plain_ms']:.3f}, bound "
               f"{row['bf16_dxdw_bound_ms']:.4f}, err dx "
@@ -453,11 +482,13 @@ def phase_backward_kernels(torch, rates):
                   "bcp_tpu_torch/kernels/csrc/conv3x3x3_dxdw.cu",
                   "bcp_tpu/ops/conv3d.py:448", "dx and dW together")
     fused["library"] = "conv3d_input + conv3d_weight, two calls"
-    fused["dx_then_dw_ms"] = sum(r["bf16_dx_then_dw_ms"] * r["per_backward"]
-                                 for r in rows)
+    for key in ("dx_then_dw_ms", "dxdw_device_ms", "dx_then_dw_device_ms"):
+        fused[key.replace("dxdw_", "")] = sum(
+            r[f"bf16_{key}"] * r["per_backward"] for r in rows)
     for r, out in zip(rows, fused["shapes"]):
         for name in ("bf16", "f32"):
             out[f"{name}_dx_then_dw_ms"] = r[f"{name}_dx_then_dw_ms"]
+        out["bf16_dx_then_dw_device_ms"] = r["bf16_dx_then_dw_device_ms"]
     return [entry("dx", "conv3x3x3_dx",
                   "bcp_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "bcp_tpu/ops/conv3d.py:188", "dx"),

@@ -5,6 +5,7 @@
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --check
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --sweep [--out F.json]
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --profile
+    PYTHONPATH=. python3 scripts/torch_conv_variants.py --dxdw [--out F.json]
 
 ``--check`` holds the kernel against the plain version
 (``conv3x3x3_same_reference``; bf16 max|k - p| <= 1e-2 max|p|) with the
@@ -21,6 +22,16 @@ launches of a V-Net forward, and writes all of them as JSON. The picker's
 rules were set from this sweep. ``--profile`` prints the device time of
 each kernel a wrapper call launches (weight packing, the conv, the K
 splits' second pass) and of ``F.conv3d``'s.
+
+``--dxdw`` does for the fused backward (kernel D,
+``bcp_tpu_torch/kernels/csrc/conv3x3x3_dxdw.cu``) what ``--sweep`` does for
+the conv: at the five stage shapes of the batch-4 backward it checks and
+times (device time in a CUDA graph) every (ci tile, co group) pair with
+every ring depth that fits and with a half, the picked and a double number
+of splits, beside kernel B as dx followed by kernel C and beside
+``conv3d_input`` + ``conv3d_weight``, prints what
+:func:`bcp_tpu_torch.ops.conv3d.dxdw_variant` picks and the sums over the
+20 launches of one backward. The picker's rules were set from it.
 """
 
 from __future__ import annotations
@@ -201,6 +212,84 @@ def sweep(out_path: str) -> int:
     return 0
 
 
+def dxdw_variants(B, X, Y, Z, c, sms):
+    """Each candidate of the shape with every ring depth that fits, and
+    with a half and a double number of splits."""
+    out = []
+    for v in C.dxdw_candidates(B, X, Y, Z, c, sms):
+        boxes = C.dxdw_boxes(B, X, Y, Z)
+        for stages in range(2, v.stages + 1):
+            for splits in {max(1, v.splits // 2), v.splits,
+                           min(boxes, 2 * v.splits)}:
+                u = v._replace(stages=stages, splits=splits)
+                if splits * 27 * c * c * 4 <= 2 * C.DW_WORKSPACE_BYTES \
+                        and u not in out:
+                    out.append(u)
+    return out
+
+
+def dxdw(out_path: str) -> int:
+    from torch.nn.grad import conv3d_input, conv3d_weight
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, per_backward = 4, {16: 1, 32: 4, 64: 6, 128: 6, 256: 3}
+    rows, bad = [], 0
+    for c, X, Y, Z in STAGES:
+        x, w = case(B, c, c, X, Y, Z, seed=1)
+        dy, _ = case(B, c, c, X, Y, Z, seed=2)
+        want_dx, want_dw = C.conv3x3x3_dxdw_reference(x, dy, w)
+        picked = C.dxdw_variant(B, X, Y, Z, c, sms)
+        timed = []
+        for v in dxdw_variants(B, X, Y, Z, c, sms):
+            got_dx, got_dw = C.conv3x3x3_dxdw(x, dy, w, variant=v)
+            again_dx, again_dw = C.conv3x3x3_dxdw(x, dy, w, variant=v)
+            err, ok = close(got_dx, want_dx)
+            err_w, ok_w = close(got_dw, want_dw, 1e-3)
+            same = torch.equal(got_dx, again_dx) and torch.equal(got_dw,
+                                                                 again_dw)
+            if not (ok and ok_w and same):
+                bad += 1
+                print(f"FAILED {B}x{c}@{X}x{Y}x{Z} {v}: dx err {err:.3g} "
+                      f"dW err {err_w:.3g} same bits {same}", flush=True)
+            del got_dx, got_dw, again_dx, again_dw
+            timed.append((device_ms(
+                lambda: C.conv3x3x3_dxdw(x, dy, w, variant=v)), v))
+        timed.sort(key=lambda t: t[0])
+        pick_ms = device_ms(lambda: C.conv3x3x3_dxdw(x, dy, w))
+        pair_ms = device_ms(lambda: (C.conv3x3x3_dx(dy, w),
+                                     C.conv3x3x3_dw(x, dy)))
+        lib = device_ms(lambda: (conv3d_input(x.shape, w, dy, padding=1),
+                                 conv3d_weight(x, w.shape, dy, padding=1)))
+        print(f"{B}x{c}@{X}x{Y}x{Z}: D picked {pick_ms:.4f} ms {picked}; "
+              f"B-as-dx then C {pair_ms:.4f}; conv3d_input + conv3d_weight "
+              f"{lib:.4f}", flush=True)
+        for ms, v in timed[:8]:
+            print(f"    {ms:.4f} ms {v} smem {v.smem_bytes()}", flush=True)
+        rows.append({"shape": f"{B}x{c}@{X}x{Y}x{Z}",
+                     "per_backward": per_backward[c], "picked_ms": pick_ms,
+                     "picked": picked._asdict(), "dx_then_dw_ms": pair_ms,
+                     "library_ms": lib,
+                     "variants": [dict(v._asdict(), ms=ms)
+                                  for ms, v in timed]})
+        del x, dy, w, want_dx, want_dw
+    for key in ("picked_ms", "dx_then_dw_ms", "library_ms"):
+        total = sum(r["per_backward"] * r[key] for r in rows)
+        print(f"batch {B}, the 20 launches of a backward, {key}: "
+              f"{total:.4f}", flush=True)
+    best = sum(r["per_backward"] * min(v["ms"] for v in r["variants"])
+               for r in rows)
+    print(f"batch {B}, the 20 launches of a backward, best variant of each "
+          f"shape: {best:.4f}", flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(card)
+    print(f"dxdw: {bad} failures", flush=True)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"card": card, "rows": rows}, f, indent=1)
+    return 1 if bad else 0
+
+
 def profile() -> int:
     """Device time by kernel name of the wrapper call with the picked
     variant and of ``F.conv3d``, 10 calls each under ``torch.profiler``."""
@@ -230,6 +319,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--dxdw", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -242,6 +332,8 @@ def main() -> int:
         rc |= sweep(args.out)
     if args.profile:
         rc |= profile()
+    if args.dxdw:
+        rc |= dxdw(args.out)
     return rc
 
 

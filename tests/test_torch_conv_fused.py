@@ -137,3 +137,88 @@ def test_layer_carries_the_flag_to_the_function():
     assert fused.fused_bwd and not plain.fused_bwd
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+#: the batch-4 backward's shapes of the self-train step (chip_smoke.py's
+#: CONV_STAGES and TRAIN_CONCAT) and ragged ones: X or Y not a multiple of
+#: 8, Z not a multiple of the box's 3 planes
+DXDW_SHAPES = [(4, 32, 56, 56, 40), (4, 64, 28, 28, 20),
+               (4, 128, 14, 14, 10), (4, 256, 7, 7, 5),
+               (4, 16, 112, 112, 80), (2, 16, 13, 11, 7),
+               (1, 48, 9, 20, 4), (3, 64, 7, 5, 11)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", DXDW_SHAPES)
+def test_dxdw_variants_fit_and_cover_every_box(shape, sms):
+    """Every candidate of kernel D (and so the one picked) fits in shared
+    memory at its CTAs per SM, its (ci tile, co group) tiles C, and the
+    CTAs of one tile, walking boxes split, split + splits, ..., visit each
+    box of the volume exactly once."""
+    B, C, X, Y, Z = shape
+    found = conv3d.dxdw_candidates(B, X, Y, Z, C, sms)
+    assert found and conv3d.dxdw_variant(B, X, Y, Z, C, sms) in found
+    boxes = conv3d.dxdw_boxes(B, X, Y, Z)
+    covered = (B * -(-X // 8) * 8 * -(-Y // 8) * 8
+               * -(-Z // conv3d.DXDW_TILES) * conv3d.DXDW_TILES)
+    assert boxes * 64 * conv3d.DXDW_TILES == covered >= B * X * Y * Z
+    for v in found:
+        assert (v.ci_tile, v.co_group) in conv3d.DXDW_PAIRS
+        assert C % v.ci_tile == 0 and C % v.co_group == 0
+        assert 2 <= v.stages <= conv3d.CONV_MAX_STAGES
+        per_sm = v.ctas_per_sm()
+        assert per_sm >= 1
+        assert v.smem_bytes() <= conv3d.CONV_SMEM_LIMIT
+        assert per_sm * (v.smem_bytes() + conv3d.CONV_CTA_RESERVED) \
+            <= conv3d.CONV_SM_SMEM
+        assert 1 <= v.splits <= boxes
+        assert v.splits * 27 * C * C * 4 <= max(conv3d.DW_WORKSPACE_BYTES,
+                                                27 * C * C * 4)
+        walked = sorted(b for s in range(v.splits)
+                        for b in range(s, boxes, v.splits))
+        assert walked == list(range(boxes))
+
+
+def test_dxdw_variant_rules():
+    """(32, 32) unless its f32 copies of dx pass DXDW_DX_PARTIALS_BYTES
+    (4x64@28x28x20: 32 MB, so (16, 64) with none), (16, 16) where 32 does
+    not divide C (16 or 48 channels); the grid near one wave."""
+    pick = {C: conv3d.dxdw_variant(B, X, Y, Z, C, 132)
+            for B, C, X, Y, Z in DXDW_SHAPES[:5]}
+    assert [(pick[C].ci_tile, pick[C].co_group)
+            for C in (16, 32, 64, 128, 256)] == [
+        (16, 16), (32, 32), (16, 64), (32, 32), (32, 32)]
+    assert pick[32].splits == 132 and pick[16].splits == 264
+    assert conv3d.dxdw_variant(1, 9, 20, 4, 48, 132)[:2] == (16, 16)
+    assert conv3d.dxdw_variant(1, 8, 8, 8, 96, 132)[:2] == (32, 32)
+    # past the workspace limit without a (16, 64): still (32, 32)
+    assert conv3d.dxdw_variant(4, 32, 32, 32, 96, 132)[:2] == (32, 32)
+    for C, v in pick.items():
+        ctas = v.splits * (C // v.ci_tile) * (C // v.co_group)
+        assert ctas <= 2 * 132
+
+
+@pytest.mark.parametrize("C,ci_tile", [(16, 16), (32, 32), (64, 16),
+                                        (64, 32), (128, 32)])
+def test_dxdw_weight_packing_round_trips(C, ci_tile):
+    """The packed order (flipped taps, K-major core matrices, one run per
+    CTA) round-trips, and each element is where the source note says."""
+    w = torch.from_numpy(np.random.default_rng(C + ci_tile).normal(
+        size=(C, C, 3, 3, 3)).astype(np.float32))
+    wpk = conv3d.dxdw_pack_reference(w, ci_tile)
+    assert wpk.shape == (27 * C * C,)
+    # the inverse permutation gives w back
+    back = wpk.reshape(C // ci_tile, C // 16, 27, 2, ci_tile, 8).permute(
+        1, 3, 5, 0, 4, 2).flip(5).reshape(C, C, 3, 3, 3)
+    assert torch.equal(back, w)
+    flat = w.reshape(C, C, 27)
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        tile = int(rng.integers(C // ci_tile))
+        chunk = int(rng.integers(C // 16))
+        tap, half = int(rng.integers(27)), int(rng.integers(2))
+        n, e = int(rng.integers(ci_tile)), int(rng.integers(8))
+        idx = ((((tile * (C // 16) + chunk) * 27 + tap) * 2 + half)
+               * ci_tile + n) * 8 + e
+        assert wpk[idx] == flat[16 * chunk + 8 * half + e,
+                                tile * ci_tile + n, 26 - tap]

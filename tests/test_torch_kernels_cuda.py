@@ -196,6 +196,81 @@ def test_dxdw_kernel_matches_plain(cuda_device, shape, dtype):
     assert err <= 1e-3 * want_dw.abs().max().item()
 
 
+#: kernel D's bf16 variants: each of the V-Net's channel counts at batch 2
+#: on small volumes, then ragged ones (X, Y not multiples of 8, Z not of 3)
+DXDW_VARIANT_SHAPES = [(2, 16, 12, 10, 7), (2, 32, 9, 16, 6),
+                       (2, 64, 8, 8, 5), (2, 128, 7, 9, 4),
+                       (2, 256, 7, 7, 5), (1, 48, 13, 11, 2),
+                       (3, 64, 5, 17, 10)]
+
+
+@pytest.mark.parametrize("shape", DXDW_VARIANT_SHAPES)
+def test_dxdw_every_variant_matches_plain(cuda_device, shape):
+    """Every variant kernel D's picker can return for the shape (each
+    (ci tile, co group) pair that divides C, with its stages and splits),
+    and a one-split, two-stage run of each: bf16 dx within 1e-2 max|p|,
+    dW within 1e-3 max|p|, two runs bit-identical, one launch a call."""
+    from bcp_tpu_torch.ops import conv3d
+    B, C, X, Y, Z = shape
+    x, w = _conv_case(B, X, Y, Z, C, C, seed=11)
+    dy, _ = _conv_case(B, X, Y, Z, C, C, seed=12)
+    x, dy = (t.to(cuda_device, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d) for t in (x, dy))
+    w = w.to(cuda_device, torch.bfloat16)
+    want_dx, want_dw = conv3x3x3_dxdw_reference(x, dy, w)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    found = conv3d.dxdw_candidates(B, X, Y, Z, C, sms)
+    assert conv3d.dxdw_variant(B, X, Y, Z, C, sms) in found
+    variants = list(found) + [v._replace(stages=2, splits=1) for v in found]
+    for v in variants:
+        before = conv3x3x3_dxdw.launches
+        dx, dw = conv3x3x3_dxdw(x, dy, w, variant=v)
+        dx2, dw2 = conv3x3x3_dxdw(x, dy, w, variant=v)
+        torch.cuda.synchronize()
+        assert conv3x3x3_dxdw.launches == before + 2, v
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2), v
+        err = (dx.float() - want_dx.float()).abs().max().item()
+        assert err <= 1e-2 * want_dx.float().abs().max().item(), (v, err)
+        err = (dw - want_dw).abs().max().item()
+        assert err <= 1e-3 * want_dw.abs().max().item(), (v, err)
+
+
+@pytest.mark.parametrize("C,ci_tile", [(16, 16), (32, 32), (64, 16),
+                                        (256, 16)])
+def test_dxdw_pack_kernel_matches_plain(cuda_device, C, ci_tile):
+    """Kernel D's ``pack_weights`` writes exactly the order its plain
+    statement gives."""
+    from bcp_tpu_torch import kernels
+    from bcp_tpu_torch.ops.conv3d import dxdw_pack_reference
+    _, w = _conv_case(1, 1, 1, 1, C, C, seed=C)
+    w = w.to(cuda_device, torch.bfloat16)
+    wpk = torch.empty(27 * C * C, dtype=torch.bfloat16, device=cuda_device)
+    kernels.check(kernels.library("conv3x3x3_dxdw").conv3x3x3_dxdw_pack(
+        w.data_ptr(), wpk.data_ptr(), C, ci_tile,
+        kernels.stream_handle(w.device)), "conv3x3x3_dxdw_pack")
+    torch.cuda.synchronize()
+    assert torch.equal(wpk, dxdw_pack_reference(w, ci_tile))
+
+
+def test_wgmma_mn_probe(cuda_device, tmp_path):
+    """``scripts/wgmma_mn_probe.cu``: wgmma with both operands MN-major in
+    kernel D's slab layout, and the dW engine on one tile, against host
+    products; it exits 0 when every check passes."""
+    import subprocess
+    from pathlib import Path
+    from bcp_tpu_torch import kernels
+    root = Path(__file__).resolve().parent.parent
+    exe = tmp_path / "wgmma_mn_probe"
+    subprocess.run([kernels._nvcc(), "-gencode", "arch=compute_90a,"
+                    "code=sm_90a", "-O3", "-std=c++17", "-I",
+                    str(kernels.CSRC), "-o", str(exe),
+                    str(root / "scripts" / "wgmma_mn_probe.cu")],
+                   check=True)
+    run = subprocess.run([str(exe)], capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "all checks pass" in run.stdout
+
+
 def test_dxdw_kernel_refuses_what_it_does_not_take(cuda_device):
     x, w = _conv_case(1, 4, 4, 4, 16, 32, seed=0)     # Ci != Co
     dy, _ = _conv_case(1, 4, 4, 4, 32, 32, seed=1)

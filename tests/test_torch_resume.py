@@ -292,3 +292,100 @@ def test_launch_counts_survive_two_launching_threads():
     finally:
         sys.setswitchinterval(old)
     assert wrapper.launches == n_threads * n_each
+
+
+def _recorded_draws(monkeypatch, trainer, stage, resume=False):
+    """Run one stage of ``trainer`` and return its draws per iteration:
+    [(mask starts, [keep mask of each dropout draw, in order]), ...]."""
+    from bcp_tpu_torch.models.layers import ChannelDropout
+    from bcp_tpu_torch.train import trainer as trainer_mod
+    draws = []
+    starts = trainer_mod.cuboid_starts
+
+    def rec_starts(*a, **k):
+        out = starts(*a, **k)
+        draws.append((out, []))
+        return out
+    forward = ChannelDropout.forward
+
+    def rec_forward(self, x):
+        if not self.training or self.keep is not None:
+            return forward(self, x)
+        self.keep = torch.rand(x.shape[:2], generator=self.generator,
+                               device=x.device) < 1.0 - self.p
+        draws[-1][1].append(self.keep.clone())
+        try:
+            return forward(self, x)
+        finally:
+            self.keep = None
+    monkeypatch.setattr(trainer_mod, "cuboid_starts", rec_starts)
+    monkeypatch.setattr(ChannelDropout, "forward", rec_forward)
+    run = trainer.pretrain if stage == "pre" else trainer.selftrain
+    run(resume=resume)
+    monkeypatch.undo()
+    return draws
+
+
+def _assert_same_draws(a, b):
+    assert len(a) == len(b)
+    for (sa, ka), (sb, kb) in zip(a, b):
+        assert sa == sb
+        assert len(ka) == len(kb) > 0
+        for x, y in zip(ka, kb):
+            assert torch.equal(x, y)
+
+
+def test_resumed_selftrain_draws_what_the_uninterrupted_stage_draws(
+        pre_run, data, tmp_path, monkeypatch):
+    """The mask offsets and keep masks of iteration ``it`` depend on (seed,
+    stage, it) alone (`fold_in(base_key, it)`, `trainer.py:483-495`): a
+    self-train stage stopped at its eval boundary 2 and resumed draws at 3
+    and 4 what the uninterrupted stage draws there."""
+    import shutil
+    whole_root, cut_root = tmp_path / "whole", tmp_path / "cut"
+    shutil.copytree(pre_run[0], whole_root)
+    shutil.copytree(pre_run[0], cut_root)
+    whole = _recorded_draws(monkeypatch, _trainer(
+        _cfg(whole_root, self_iterations=4), data), "self")
+    first = _recorded_draws(monkeypatch, _trainer(
+        _cfg(cut_root, self_iterations=2), data), "self")
+    resumed_trainer = _trainer(_cfg(cut_root, self_iterations=4), data)
+    assert torch.load(os.path.join(resumed_trainer.self_dir,
+                                   STATE_FILE))["step"] == 2
+    resumed = _recorded_draws(monkeypatch, resumed_trainer, "self",
+                              resume=True)
+    assert len(whole) == 4 and len(first) == 2 and len(resumed) == 2
+    _assert_same_draws(first, whole[:2])
+    _assert_same_draws(resumed, whole[2:])
+    # not one draw repeated over the iterations
+    assert len({s for s, _ in whole}) > 1
+
+
+@pytest.mark.parametrize("change", [{"stage": "pre"}, {"seed": 1338}])
+def test_draws_differ_by_stage_and_seed(data, tmp_path, monkeypatch,
+                                        change):
+    """Two stages of another kind or another seed draw differently at the
+    same iterations."""
+    base = _recorded_draws(monkeypatch, _trainer(
+        _cfg(tmp_path / "a", pre_iterations=2), data), "pre")
+    cfg = _cfg(tmp_path / "b", pre_iterations=2, self_iterations=2,
+               seed=change.get("seed", 1337))
+    if change.get("stage") == "pre":
+        # a self-train stage from the first run's pre-train checkpoint
+        import shutil
+        shutil.copytree(tmp_path / "a", tmp_path / "b")
+        other = _recorded_draws(monkeypatch, _trainer(cfg, data), "self")
+    else:
+        other = _recorded_draws(monkeypatch, _trainer(cfg, data), "pre")
+    assert len(base) == len(other) == 2
+    for (sa, ka), (sb, kb) in zip(base, other):
+        assert sa != sb or not all(torch.equal(x, y)
+                                   for x, y in zip(ka, kb))
+    assert [s for s, _ in base] != [s for s, _ in other]
+
+
+@pytest.mark.parametrize("field", [{"debug_nans": True},
+                                   {"profile_dir": "trace"}])
+def test_trainer_refuses_fields_it_does_not_honour(data, tmp_path, field):
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        _trainer(_cfg(tmp_path, **field), data)
