@@ -1,6 +1,7 @@
 // What the hand-written 3x3x3 conv kernels share: kernel B
-// (conv3x3x3.cu, forward and dx) and kernel D (conv3x3x3_dxdw.cu, the fused
-// backward), and the dW engine that D runs and C's redesign is to run.
+// (conv3x3x3.cu, forward and dx), kernel C (conv3x3x3_dw.cu, the weight
+// gradient) and kernel D (conv3x3x3_dxdw.cu, the fused backward), and the
+// dW engine that C and D run.
 //
 // - the m64 tile of 8 x 8 voxels of one z plane and its halo;
 // - cp.async (16-byte, zero-filling), mbarrier and bulk-copy helpers;
@@ -8,10 +9,10 @@
 //   swizzle, and wgmma.mma_async m64nNk16 (bf16 in, f32 out) from two
 //   descriptors, K-major or transposed;
 // - `Slab`, D's staged layout [plane][8-channel group][x][y] of 16-byte
-//   entries, and `DwEngine`, which multiplies an x slab shifted by a tap
-//   with a dy slab's centre over the voxels of a box: dW = shift(x)^T * dy
-//   with both operands read transposed from the slabs, no thread-side
-//   gather.
+//   entries, `Centre`, the same without the halo (C's dy), and `DwEngine`,
+//   which multiplies an x slab shifted by a tap with a dy slab's centre
+//   over the voxels of a box: dW = shift(x)^T * dy with both operands read
+//   transposed from the slabs, no thread-side gather.
 //
 // The header is included by each kernel source inside nothing: its names
 // live in an anonymous namespace of their own, as each source's do.
@@ -228,15 +229,49 @@ constexpr int SLAB_PLANE = (HX * HY + 6) * 16;
 // apart. As an MN-major operand with channels as rows (dW's): 8 channels of
 // a voxel are a core row, 8 voxels along y a core matrix, groups
 // SLAB_PLANE apart along M or N, x lines HY * 16 bytes apart along K.
-template <int G, int PLANES>
+template <int G, int P>
 struct Slab {
   static constexpr int GROUPS = G;
-  static constexpr int BYTES = PLANES * G * SLAB_PLANE;
-  static constexpr int VECS = PLANES * G * HX * HY;  // 16-byte entries
+  static constexpr int PLANES = P;
+  static constexpr int BYTES = P * G * SLAB_PLANE;
+  static constexpr int VECS = P * G * HX * HY;  // 16-byte entries
+  // as dW's B operand: bytes between x lines (K) and between groups (N)
+  static constexpr uint32_t K_STRIDE = HY * 16;
+  static constexpr uint32_t G_STRIDE = SLAB_PLANE;
   // the entry of halo voxel (hx, hy, hz), group g
   __device__ static __forceinline__ uint32_t at(int hx, int hy, int hz,
                                                 int g) {
     return (uint32_t)((hz * G + g) * SLAB_PLANE + (hx * HY + hy) * 16);
+  }
+  // box voxel (2s, 0, t), group 0: the first of dW's k step s on tile t
+  __device__ static __forceinline__ uint32_t centre(int t, int s) {
+    return at(2 * s + 1, 1, t + 1, 0);
+  }
+};
+
+// A box's own voxels without a halo (kernel C's dy, which only dW reads):
+// G 8-channel groups over P z planes of TX x TY voxels, laid out
+// [plane][group][x][y] in 16-byte entries, each (plane, group) padded to 65
+// units (= 1 mod 8) so that the copies of a warp, groups fastest, spread
+// over the banks. 2.6x fewer bytes than a Slab of P + 2 halo planes at P =
+// 3. As dW's B operand: x lines TY * 16 bytes apart along K, groups
+// CENTRE_PLANE apart along N.
+constexpr int CENTRE_PLANE = (TX * TY + 1) * 16;
+
+template <int G, int P>
+struct Centre {
+  static constexpr int BYTES = P * G * CENTRE_PLANE;
+  static constexpr int VECS = P * G * TX * TY;
+  static constexpr uint32_t K_STRIDE = TY * 16;
+  static constexpr uint32_t G_STRIDE = CENTRE_PLANE;
+  // the entry of box voxel (vx, vy, t), group g
+  __device__ static __forceinline__ uint32_t at(int vx, int vy, int t,
+                                                int g) {
+    return (uint32_t)((t * G + g) * CENTRE_PLANE + (vx * TY + vy) * 16);
+  }
+  // box voxel (2s, 0, t), group 0: the first of dW's k step s on tile t
+  __device__ static __forceinline__ uint32_t centre(int t, int s) {
+    return at(2 * s, 0, t, 0);
   }
 };
 
@@ -246,9 +281,10 @@ struct Slab {
 //   xs:  an x slab of CI channels, Slab<CI/8, MT + 3>, halo voxel (0, 0, 0)
 //        at voxel (-1, -1, -1) of the box (its last plane is never a real
 //        tap: it feeds the unused rows of the last z pass);
-//   dys: a dy slab of CG channels, Slab<CG/8, MT + 2>, the same origin;
-//        zero outside the volume (so are the box's voxels past its edge),
-//        so that those voxels add nothing.
+//   dys: a dy slab of CG channels, DS: D's Slab<CG/8, MT + 2> with the same
+//        origin, or C's Centre<CG/8, MT> of the box's own voxels; zero
+//        outside the volume (so are the box's voxels past its edge), so
+//        that those voxels add nothing.
 // M = 64 rows: ZT = 64 / CI z taps of CI channels each, row r is tap
 // ZT*p + r / CI, channel r % CI (rows of taps past 2 are discarded by the
 // caller); N = CG output channels; K = the box's voxels, 16 (two x lines)
@@ -257,13 +293,13 @@ struct Slab {
 // acc instead of adding to it (so acc needs no zeroing: non-wgmma writes
 // to accumulators in flight would serialise the wgmma). The caller fences,
 // commits and waits.
-template <int CI, int CG, int MT>
+template <int CI, int CG, int MT, class DS = Slab<CG / 8, MT + 2>>
 struct DwEngine {
   static constexpr int ZT = 64 / CI;                 // z taps per m64 tile
   static constexpr int PASSES = (3 + ZT - 1) / ZT;   // m64 tiles per (i, j)
   static constexpr int NR = CG / 2;                  // registers per tile
   using XSlab = Slab<CI / 8, MT + 3>;
-  using DySlab = Slab<CG / 8, MT + 2>;
+  using DySlab = DS;
   static_assert(CI == 16 || CI == 32 || CI == 64, "CI: 16, 32 or 64");
 
   __device__ static __forceinline__ void run(float (&acc)[3][PASSES][NR],
@@ -273,8 +309,8 @@ struct DwEngine {
     for (int t = 0; t < MT; ++t)
 #pragma unroll
       for (int s = 0; s < TX / 2; ++s) {
-        const uint64_t b = mnmajor_desc(
-            dys + DySlab::at(2 * s + 1, 1, t + 1, 0), HY * 16, SLAB_PLANE);
+        const uint64_t b = mnmajor_desc(dys + DS::centre(t, s),
+                                        DS::K_STRIDE, DS::G_STRIDE);
 #pragma unroll
         for (int j = 0; j < 3; ++j)
 #pragma unroll

@@ -28,8 +28,17 @@ On a CUDA tensor:
   kernel on dy with the io-transposed weights, read in reversed tap order
   (the spatial flip). f32 runs on CUDA cores;
 - :func:`conv3x3x3_dw` launches ``kernels/csrc/conv3x3x3_dw.cu`` (kernel
-  C), whose voxel reduction is split over CTAs and summed in a fixed
-  order (:func:`dw_splits`);
+  C). In bf16 it runs kernel D's dW engine on ``wgmma``: a CTA owns a
+  (ci tile, co group) block of dW in registers and walks boxes of 8 x 8 x
+  3 or 4 voxels, each staged once through a ``cp.async`` ring (the x halo
+  and dy's centre, read by descriptor, a tap a shift of x's address);
+  where the boxes are split over CTAs, clusters of two add their partial
+  sums through distributed shared memory and a second pass adds the
+  clusters' in a fixed order; the result comes out in the (Co, Ci, 3, 3,
+  3) layout the wrapper returns. :func:`dw_variant` picks tiles, box
+  depth, stages, splits and clusters from the shape and the SM count
+  alone. f32 runs on CUDA cores over the boxes of :func:`halo_box`, split
+  by :func:`dw_splits`;
 - :func:`conv3x3x3_dxdw` launches ``kernels/csrc/conv3x3x3_dxdw.cu``
   (kernel D, the counterpart of ``_conv3x3x3_dxdw_pallas``): dx and dW of
   a Ci == Co conv from one staging of each dy box (:func:`fused_bwd_eligible`).
@@ -55,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -64,12 +74,12 @@ import torch.nn.functional as F
 from bcp_tpu_torch import kernels
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: kernels C and D's box: the output voxels of one CTA, and the limit on
-#: its halo
+#: the f32 paths of kernels C and D: a box's output voxels (one CTA's at a
+#: time), and the limit on its halo
 BOX_VOXELS = 128
 MAX_HALO = 640
-#: kernel C: CTAs to aim for (about two resident per SM) and the most bytes
-#: of per-split partial sums
+#: their CTAs to aim for (about two resident per SM); and the most bytes of
+#: per-split dW partial sums of kernels C and D, bf16 and f32
 DW_CTAS_PER_SM = 2
 DW_WORKSPACE_BYTES = 32 << 20
 
@@ -82,7 +92,7 @@ def kernel_takes(ci: int, co: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def halo_box(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
-    """Output box (tx, ty, tz) of one CTA of kernels C and D: at most
+    """Output box (tx, ty, tz) of one CTA of kernels C and D in f32: at most
     ``BOX_VOXELS`` voxels with a halo of at most ``MAX_HALO``; the fewest
     boxes over the volume, then the smallest halo (the input voxels staged
     per box)."""
@@ -394,50 +404,202 @@ def conv3x3x3_dw_reference(x: torch.Tensor,
 
 
 def dw_splits(ci: int, co: int, bn: int, boxes: int, sms: int) -> int:
-    """Kernel C's split of the voxel reduction: enough CTAs over the
-    (ci tile, co tile, split) grid for about ``DW_CTAS_PER_SM`` per SM, at
-    most one split per box, and the splits' partial sums (27*Ci*Co f32
-    each) within ``DW_WORKSPACE_BYTES``."""
+    """The f32 split of kernels C and D's voxel reduction: enough CTAs
+    over the (ci tile, co tile, split) grid for about ``DW_CTAS_PER_SM``
+    per SM, at most one split per box, and the splits' partial sums
+    (27*Ci*Co f32 each) within ``DW_WORKSPACE_BYTES``."""
     tiles = (ci // 16) * (co // bn)
     want = math.ceil(DW_CTAS_PER_SM * sms / tiles)
     room = max(DW_WORKSPACE_BYTES // (27 * ci * co * 4), 1)
     return max(1, min(want, boxes, room))
 
 
-def conv3x3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+#: kernel C's bf16 kernel (``conv3x3x3_dw.cu``): a box is 3 or 4 z planes
+#: (tiles) of 8 x 8 voxels; the (ci tile, co group) pairs it is built for;
+#: its threads (three warpgroups); one (plane, 8-channel group) of its dy
+#: centre in shared memory (`Centre`)
+DW_TILES = (3, 4)
+DW_PAIRS = ((16, 16), (32, 32))
+DW_MIN_STAGES = 3
+#: CTAs of one thread-block cluster, which add their dW partial sums through
+#: distributed shared memory before any reach the workspace
+DW_CLUSTER = 2
+DW_THREADS = 384
+CENTRE_PLANE = (8 * 8 + 1) * 16
+
+
+class DwVariant(NamedTuple):
+    """How kernel C's bf16 kernel runs one shape: the input channels of one
+    CTA (dW's rows), its output channels (dW's columns), the ring's stages,
+    the CTAs that share the boxes of one (ci tile, co group), the z planes
+    (tiles) of a box, and the splits of one thread-block cluster, which
+    add their partial sums through distributed shared memory."""
+    ci_tile: int
+    co_group: int
+    stages: int
+    splits: int
+    tiles: int = 3
+    cluster: int = 1
+
+    def sums(self) -> int:
+        """dW sums a thread holds in registers (`DwEngine::run`'s acc):
+        3 tap columns x the m64 row blocks of 64 / ci_tile z taps x
+        co_group / 2."""
+        passes = math.ceil(3 / (64 // self.ci_tile))
+        return 3 * passes * self.co_group // 2
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA (`DwShape` in the source): the
+        larger of ``stages`` x (x slab of tiles + 3 halo planes, dy centre
+        of tiles planes) and the epilogue's tile of 27 * ci_tile * co_group
+        f32."""
+        x = (self.tiles + 3) * (self.ci_tile // 8) * SLAB_PLANE
+        d = self.tiles * (self.co_group // 8) * CENTRE_PLANE
+        return max(self.stages * (x + d),
+                   27 * self.ci_tile * self.co_group * 4)
+
+    def ctas_per_sm(self) -> int:
+        """By registers (`__launch_bounds__`: two CTAs only for (16, 16))
+        and shared memory."""
+        by_regs = 2 if (self.ci_tile, self.co_group) == (16, 16) else 1
+        return min(by_regs, CONV_SM_SMEM // (self.smem_bytes()
+                                             + CONV_CTA_RESERVED))
+
+
+def dw_boxes(B: int, X: int, Y: int, Z: int, tiles: int) -> int:
+    """Kernel C's (and D's) boxes of 8 x 8 x tiles voxels over the
+    volumes."""
+    return (B * math.ceil(X / CONV_TILE[0]) * math.ceil(Y / CONV_TILE[1])
+            * math.ceil(Z / tiles))
+
+
+def dw_candidates(B: int, X: int, Y: int, Z: int, ci: int, co: int,
+                  sms: int) -> Tuple[DwVariant, ...]:
+    """Every (ci tile, co group) pair that divides (ci, co) with boxes of
+    each depth in ``DW_TILES``, each with the most stages that fit and the
+    splits that fill the card: about one wave of resident CTAs, at most one
+    split per box, and the splits' partial sums (27*ci*co f32 each) within
+    ``DW_WORKSPACE_BYTES``; more than one split is rounded down to a
+    multiple of ``DW_CLUSTER`` and taken in clusters of that many."""
+    room = max(DW_WORKSPACE_BYTES // (27 * ci * co * 4), 1)
+    found = []
+    for (a, b), t in itertools.product(DW_PAIRS, DW_TILES):
+        if ci % a or co % b:
+            continue
+        boxes = dw_boxes(B, X, Y, Z, t)
+        v = DwVariant(a, b, DW_MIN_STAGES, 1, t)
+        per_sm = v.ctas_per_sm()
+        if not per_sm:
+            continue
+        limit = min(CONV_SM_SMEM // per_sm - CONV_CTA_RESERVED,
+                    CONV_SMEM_LIMIT)
+        stages = max(s for s in range(DW_MIN_STAGES, CONV_MAX_STAGES + 1)
+                     if s == DW_MIN_STAGES
+                     or v._replace(stages=s).smem_bytes() <= limit)
+        blocks = (ci // a) * (co // b)
+        splits = max(1, min(boxes, round(per_sm * sms / blocks), room))
+        cluster = DW_CLUSTER if splits >= DW_CLUSTER else 1
+        found.append(DwVariant(a, b, stages, splits - splits % cluster, t,
+                               cluster))
+    return tuple(found)
+
+
+#: kernel C: the share of one CTA per SM at which a variant's grid counts
+#: as a full wave
+DW_WAVE = 0.9
+
+
+@functools.lru_cache(maxsize=None)
+def dw_variant(B: int, X: int, Y: int, Z: int, ci: int, co: int,
+               sms: int) -> DwVariant:
+    """Kernel C's bf16 variant for one shape, from the shape and the SM
+    count alone (the rules follow ``scripts/torch_conv_variants.py --dw``).
+    Of :func:`dw_candidates`: the most CTAs up to ``DW_WAVE`` of one per
+    SM (a small volume has few boxes to split); then one whose partial
+    sums, if any, stay inside one cluster (no workspace, no second pass);
+    then (32, 32) over (16, 16) (N = 32 costs the tensor cores' operand
+    fetch less per product than N = 16); then the box depth that covers Z
+    with the fewest planes, then the deeper box (fewer halo planes a
+    plane)."""
+    found = dw_candidates(B, X, Y, Z, ci, co, sms)
+    if not found:
+        raise ValueError(f"dw_variant: no variant takes Ci={ci}, Co={co}")
+    wave = int(DW_WAVE * sms)
+
+    def key(v: DwVariant):
+        ctas = v.splits * (ci // v.ci_tile) * (co // v.co_group)
+        return (min(ctas, wave), v.splits == v.cluster, v.ci_tile,
+                -math.ceil(Z / v.tiles) * v.tiles, v.tiles)
+    return max(found, key=key)
+
+
+class _DwArgs(ctypes.Structure):
+    """`DwArgs` of ``conv3x3x3_dw.cu``: one bf16 launch's shape and
+    variant."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "B", "X", "Y", "Z", "Ci", "Co", "ci_tile", "co_group", "stages",
+        "splits", "tiles", "cluster")]
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_args(shape: Tuple[int, ...], v: DwVariant) -> Tuple[_DwArgs, int]:
+    args = _DwArgs(*shape, *v)
+    return args, ctypes.addressof(args)
+
+
+def conv3x3x3_dw(x: torch.Tensor, dy: torch.Tensor,
+                 variant: Optional[DwVariant] = None) -> torch.Tensor:
     """Weight gradient of the SAME conv, f32 (Co, Ci, 3, 3, 3), from x
-    (B,Ci,X,Y,Z) and dy (B,Co,X,Y,Z) of one dtype."""
+    (B,Ci,X,Y,Z) and dy (B,Co,X,Y,Z) of one dtype. ``variant`` overrides
+    :func:`dw_variant` in bf16 (the tuning script's sweep); the launcher
+    refuses one that does not fit."""
     if x.device.type == "cpu":
         return conv3x3x3_dw_reference(x, dy)
     B, Ci, X, Y, Z = x.shape
     Co = dy.shape[1]
+    what = "conv3x3x3_dw"
     if dy.shape != (B, Co, X, Y, Z):
-        raise ValueError(f"conv3x3x3_dw: x {tuple(x.shape)} and dy "
+        raise ValueError(f"{what}: x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} differ")
     if x.device.type != "cuda" or dy.device != x.device:
-        raise ValueError(f"conv3x3x3_dw: x on {x.device}, dy on {dy.device}")
+        raise ValueError(f"{what}: x on {x.device}, dy on {dy.device}")
     if x.dtype not in _KERNEL_DTYPES or dy.dtype != x.dtype:
-        raise TypeError(f"conv3x3x3_dw: kernel takes bf16 or f32 x and dy of "
+        raise TypeError(f"{what}: kernel takes bf16 or f32 x and dy of "
                         f"one dtype, got {x.dtype} and {dy.dtype}")
     if not kernel_takes(Ci, Co):
-        raise ValueError(f"conv3x3x3_dw: kernel does not take Ci={Ci}, "
-                         f"Co={Co}")
-    x = _channels_last(x, "conv3x3x3_dw")
-    dy = _channels_last(dy, "conv3x3x3_dw")
+        raise ValueError(f"{what}: kernel does not take Ci={Ci}, Co={Co}")
+    x = _channels_last(x, what)
+    dy = _channels_last(dy, what)
+    dev = x.device
+    sms = _sm_count(dev.index or 0)
+    lib = kernels.library("conv3x3x3_dw")
+    stream = kernels.stream_handle(dev)
+    if x.dtype == torch.bfloat16:
+        v = variant or dw_variant(B, X, Y, Z, Ci, Co, sms)
+        out = torch.empty((Co, Ci, 3, 3, 3), dtype=torch.float32, device=dev)
+        # f32 partial sums of the clusters, added in order by a second pass
+        parts = v.splits // v.cluster
+        ws = (torch.empty((parts, Co, Ci, 27), dtype=torch.float32,
+                          device=dev) if parts > 1 else None)
+        _, args = _dw_args((B, X, Y, Z, Ci, Co), v)
+        code = lib.conv3x3x3_dw_bf16(
+            x.data_ptr(), dy.data_ptr(),
+            ws.data_ptr() if ws is not None else None, out.data_ptr(), args,
+            stream)
+        kernels.check(code, what)
+        kernels.count_launch(conv3x3x3_dw)
+        return out
     tx, ty, tz = halo_box(X, Y, Z)
     boxes = B * math.ceil(X / tx) * math.ceil(Y / ty) * math.ceil(Z / tz)
     bn = 32 if Co % 32 == 0 else 16
-    splits = dw_splits(Ci, Co, bn, boxes, _sm_count(x.device.index or 0))
-    out = torch.empty((27, Ci, Co), dtype=torch.float32, device=x.device)
+    splits = dw_splits(Ci, Co, bn, boxes, sms)
+    out = torch.empty((27, Ci, Co), dtype=torch.float32, device=dev)
     ws = (torch.empty((splits, 27, Ci, Co), dtype=torch.float32,
-                      device=x.device) if splits > 1 else out)
-    lib = kernels.library("conv3x3x3_dw")
-    launch = (lib.conv3x3x3_dw_bf16 if x.dtype == torch.bfloat16
-              else lib.conv3x3x3_dw_f32)
-    code = launch(x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                  B, X, Y, Z, Ci, Co, tx, ty, tz, bn, splits,
-                  kernels.stream_handle(x.device))
-    kernels.check(code, "conv3x3x3_dw")
+                      device=dev) if splits > 1 else out)
+    code = lib.conv3x3x3_dw_f32(x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                                out.data_ptr(), B, X, Y, Z, Ci, Co, tx, ty,
+                                tz, bn, splits, stream)
+    kernels.check(code, what)
     kernels.count_launch(conv3x3x3_dw)
     return out.view(3, 3, 3, Ci, Co).permute(4, 3, 0, 1, 2).contiguous()
 
@@ -496,8 +658,7 @@ class DxdwVariant(NamedTuple):
 
 def dxdw_boxes(B: int, X: int, Y: int, Z: int) -> int:
     """Kernel D's boxes (8 x 8 x DXDW_TILES voxels) over the volumes."""
-    return (B * math.ceil(X / CONV_TILE[0]) * math.ceil(Y / CONV_TILE[1])
-            * math.ceil(Z / DXDW_TILES))
+    return dw_boxes(B, X, Y, Z, DXDW_TILES)
 
 
 def dxdw_candidates(B: int, X: int, Y: int, Z: int, C: int,

@@ -25,7 +25,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
    ``Conv3x3x3Function``'s (dx, dW) against autograd through the plain
    conv (f32 1e-3, bf16 1e-2 of max|plain|);
    CUDA-event times of C, B-as-dx, their plain versions and
-   ``torch.nn.grad.conv3d_weight`` / ``conv3d_input``. At the same shapes
+   ``torch.nn.grad.conv3d_weight`` / ``conv3d_input``, and C and
+   ``conv3d_weight`` on the device alone (CUDA graphs) with the variant C's
+   wrapper picks. At the same shapes
    kernel D (dx and dW in one launch): dx to B's limits, dW to C's,
    bit-identical over two runs, timed beside B-as-dx followed by C,
    beside its plain version and beside the two library calls
@@ -314,7 +316,8 @@ def phase_backward_kernels(torch, rates):
                                           conv3x3x3_dx, conv3x3x3_dxdw,
                                           conv3x3x3_dxdw_reference,
                                           conv3x3x3_same_reference,
-                                          dxdw_variant, flip_transpose)
+                                          dw_variant, dxdw_variant,
+                                          flip_transpose)
     bf16_peak, f32_peak, hbm = rates
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.device("cuda")
@@ -425,7 +428,14 @@ def phase_backward_kernels(torch, rates):
             row[f"{name}_dx_then_dw_ms"] = cuda_ms(
                 torch, lambda: (conv3x3x3_dx(dy, w), conv3x3x3_dw(x, dy)))
             if dt == torch.bfloat16:
-                # D's variant, and both on the device alone (CUDA graphs)
+                # C's and D's variants; C, conv3d_weight, D and B-as-dx
+                # then C on the device alone (CUDA graphs)
+                row["bf16_dw_variant"] = str(tuple(dw_variant(
+                    B, X, Y, Z, c, c, sms)))
+                row["bf16_dw_device_ms"] = device_ms(
+                    torch, lambda: conv3x3x3_dw(x, dy))
+                row["bf16_dw_library_device_ms"] = device_ms(
+                    torch, lambda: conv3d_weight(x, w.shape, dy, padding=1))
                 row["bf16_dxdw_variant"] = str(tuple(dxdw_variant(
                     B, X, Y, Z, c, sms)))
                 row["bf16_dxdw_device_ms"] = device_ms(
@@ -436,7 +446,10 @@ def phase_backward_kernels(torch, rates):
             del x, dy, w
         rows.append(row)
         print(f"backward {row['shape']}: C bf16 {row['bf16_dw_ms']:.4f} ms "
-              f"(conv3d_weight {row['bf16_dw_library_ms']:.4f}, plain "
+              f"(device {row['bf16_dw_device_ms']:.4f}, variant "
+              f"{row['bf16_dw_variant']}; conv3d_weight "
+              f"{row['bf16_dw_library_ms']:.4f}, device "
+              f"{row['bf16_dw_library_device_ms']:.4f}, plain "
               f"{row['bf16_dw_plain_ms']:.3f}, bound "
               f"{row['bf16_dw_bound_ms']:.4f}, err "
               f"{row['bf16_dw_max_abs_err']:.3g}), f32 "
@@ -489,13 +502,21 @@ def phase_backward_kernels(torch, rates):
         for name in ("bf16", "f32"):
             out[f"{name}_dx_then_dw_ms"] = r[f"{name}_dx_then_dw_ms"]
         out["bf16_dx_then_dw_device_ms"] = r["bf16_dx_then_dw_device_ms"]
+    dw = entry("dw", "conv3x3x3_dw",
+               "bcp_tpu_torch/kernels/csrc/conv3x3x3_dw.cu",
+               "bcp_tpu/ops/conv3d.py:323", "dW")
+    for key in ("dw_device_ms", "dw_library_device_ms"):
+        dw[key.replace("dw_", "")] = sum(
+            r[f"bf16_{key}"] * r["per_backward"] for r in rows)
+    print(f"kernel C over the 20 bf16 launches of a batch-{B} backward: "
+          f"{dw['ms']:.4f} ms (conv3d_weight {dw['library_ms']:.4f}); on "
+          f"the device {dw['device_ms']:.4f} (conv3d_weight "
+          f"{dw['library_device_ms']:.4f}), bound {dw['bound_ms']:.4f}",
+          flush=True)
     return [entry("dx", "conv3x3x3_dx",
                   "bcp_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "bcp_tpu/ops/conv3d.py:188", "dx"),
-            entry("dw", "conv3x3x3_dw",
-                  "bcp_tpu_torch/kernels/csrc/conv3x3x3_dw.cu",
-                  "bcp_tpu/ops/conv3d.py:323", "dW"),
-            fused]
+            dw, fused]
 
 
 def seeded_vnet(torch, device, seed: int):

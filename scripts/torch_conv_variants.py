@@ -6,6 +6,8 @@
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --sweep [--out F.json]
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --profile
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --dxdw [--out F.json]
+    PYTHONPATH=. python3 scripts/torch_conv_variants.py --dw [--out F.json] \
+        [--old DIR]
 
 ``--check`` holds the kernel against the plain version
 (``conv3x3x3_same_reference``; bf16 max|k - p| <= 1e-2 max|p|) with the
@@ -32,6 +34,26 @@ of splits, beside kernel B as dx followed by kernel C and beside
 ``conv3d_input`` + ``conv3d_weight``, prints what
 :func:`bcp_tpu_torch.ops.conv3d.dxdw_variant` picks and the sums over the
 20 launches of one backward. The picker's rules were set from it.
+
+``--dw`` does the same for the weight gradient (kernel C,
+``bcp_tpu_torch/kernels/csrc/conv3x3x3_dw.cu``) at the five stage shapes of
+the batch-4 backward and at the odd, ragged and Ci != Co shapes of the
+card-only tests: every (ci tile, co group) pair that divides the shape,
+with boxes of 3 and 4 z planes, with every ring depth that fits, with
+half, the picked and double the splits (and one split where it picks at
+most 16), and with the picked splits rounded to thread-block clusters of
+2, 4 and 8 CTAs that add their partial sums through distributed shared
+memory, is held against ``conv3x3x3_dw_reference`` (max|k - p| <= 1e-3
+max|p|, the same bits twice) and timed on the device beside
+``torch.nn.grad.conv3d_weight``; it prints what
+:func:`bcp_tpu_torch.ops.conv3d.dw_variant` picks, CUDA-event times of the
+picked variant and of ``conv3d_weight``, and the sums over the 20 launches
+of one backward (picked, best variant of each shape, library). With
+``--old DIR`` (a checkout of another commit, e.g. ``git archive`` of the
+parent unpacked under ``_work/``) it also times that commit's
+``conv3x3x3_dw`` at the same shapes, in a child process whose
+``PYTHONPATH`` is DIR, on the same card. The picker's rules were set from
+it.
 """
 
 from __future__ import annotations
@@ -40,6 +62,7 @@ import argparse
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 
@@ -290,6 +313,132 @@ def dxdw(out_path: str) -> int:
     return 1 if bad else 0
 
 
+DW_SHAPES = [(4, c, c, X, Y, Z) for c, X, Y, Z in STAGES] + [
+    (2, 16, 16, 6, 5, 7), (1, 32, 64, 4, 4, 3), (2, 256, 256, 3, 5, 4),
+    (1, 32, 48, 9, 11, 13), (2, 256, 256, 7, 7, 5), (1, 16, 16, 20, 18, 16),
+    (1, 48, 64, 9, 11, 13)]
+PER_BACKWARD = {16: 1, 32: 4, 64: 6, 128: 6, 256: 3}
+
+
+def dw_case(B, ci, co, X, Y, Z):
+    x, _ = case(B, ci, ci, X, Y, Z, seed=1)
+    dy, _ = case(B, co, co, X, Y, Z, seed=2)
+    return x, dy
+
+
+def dw_variants(B, X, Y, Z, ci, co, sms):
+    """Each candidate of the shape with every ring depth that fits, and
+    with half, the picked and double the splits (and one where it picks
+    at most 16) without clusters, and with the picked splits rounded to
+    clusters of 2, 4 and 8."""
+    out = []
+    for v in C.dw_candidates(B, X, Y, Z, ci, co, sms):
+        boxes = C.dw_boxes(B, X, Y, Z, v.tiles)
+        for stages in range(C.DW_MIN_STAGES, v.stages + 1):
+            for splits in sorted({1 if v.splits <= 16 else v.splits,
+                                  max(1, v.splits // 2), v.splits,
+                                  min(boxes, 2 * v.splits)}):
+                if splits * 27 * ci * co * 4 <= 2 * C.DW_WORKSPACE_BYTES:
+                    out.append(v._replace(stages=stages, splits=splits,
+                                          cluster=1))
+            for cluster in (2, 4, 8):
+                splits = round(v.splits / cluster) * cluster
+                if cluster <= splits <= boxes:
+                    out.append(v._replace(stages=stages, splits=splits,
+                                          cluster=cluster))
+    return list(dict.fromkeys(out))
+
+
+def old_dw_times() -> int:
+    """Device and event times of this checkout's ``conv3x3x3_dw`` (bf16)
+    at DW_SHAPES, as one JSON line (the ``--old`` child)."""
+    rows = {}
+    for B, ci, co, X, Y, Z in DW_SHAPES:
+        x, dy = dw_case(B, ci, co, X, Y, Z)
+        rows[f"{B}x{ci}->{co}@{X}x{Y}x{Z}"] = {
+            "device_ms": device_ms(lambda: C.conv3x3x3_dw(x, dy)),
+            "event_ms": cuda_ms(lambda: C.conv3x3x3_dw(x, dy))}
+    print(json.dumps(rows), flush=True)
+    return 0
+
+
+def dw(out_path: str, old: str) -> int:
+    from torch.nn.grad import conv3d_weight
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    old_rows = {}
+    if old:
+        run = subprocess.run(
+            [sys.executable, __file__, "--old-dw-times"], capture_output=True,
+            text=True, env={**os.environ, "PYTHONPATH": os.path.abspath(old)})
+        if run.returncode != 0:
+            print(run.stdout + run.stderr, flush=True)
+            return 1
+        old_rows = json.loads(run.stdout.strip().splitlines()[-1])
+    rows, bad = [], 0
+    for B, ci, co, X, Y, Z in DW_SHAPES:
+        shape = f"{B}x{ci}->{co}@{X}x{Y}x{Z}"
+        x, dy = dw_case(B, ci, co, X, Y, Z)
+        want = C.conv3x3x3_dw_reference(x, dy)
+        picked = C.dw_variant(B, X, Y, Z, ci, co, sms)
+        timed = []
+        for v in dw_variants(B, X, Y, Z, ci, co, sms):
+            got = C.conv3x3x3_dw(x, dy, variant=v)
+            again = C.conv3x3x3_dw(x, dy, variant=v)
+            err, ok = close(got, want, 1e-3)
+            same = torch.equal(got, again)
+            if not (ok and same):
+                bad += 1
+                print(f"FAILED {shape} {v}: err {err:.3g} same bits {same}",
+                      flush=True)
+            del got, again
+            timed.append((device_ms(
+                lambda: C.conv3x3x3_dw(x, dy, variant=v)), v))
+        timed.sort(key=lambda t: t[0])
+        lib = lambda: conv3d_weight(x, (co, ci, 3, 3, 3), dy, padding=1)
+        row = {"shape": shape,
+               "per_backward": PER_BACKWARD[ci] if B == 4 else 0,
+               "picked": picked._asdict(),
+               "picked_ms": device_ms(lambda: C.conv3x3x3_dw(x, dy)),
+               "picked_event_ms": cuda_ms(lambda: C.conv3x3x3_dw(x, dy)),
+               "library_ms": device_ms(lib),
+               "library_event_ms": cuda_ms(lib),
+               "old": old_rows.get(shape),
+               "variants": [dict(v._asdict(), ms=ms) for ms, v in timed]}
+        rows.append(row)
+        was = (f"; old C {row['old']['device_ms']:.4f} (events "
+               f"{row['old']['event_ms']:.4f})" if row["old"] else "")
+        print(f"{shape}: C picked {row['picked_ms']:.4f} ms (events "
+              f"{row['picked_event_ms']:.4f}) {tuple(picked)}; conv3d_weight "
+              f"{row['library_ms']:.4f} (events {row['library_event_ms']:.4f})"
+              f"{was}", flush=True)
+        for ms, v in timed[:6]:
+            print(f"    {ms:.4f} ms {tuple(v)} smem {v.smem_bytes()}",
+                  flush=True)
+        del x, dy, want
+    stage_rows = [r for r in rows if r["per_backward"]]
+    sums = {key: sum(r["per_backward"] * r[key] for r in stage_rows)
+            for key in ("picked_ms", "picked_event_ms", "library_ms",
+                        "library_event_ms")}
+    sums["best_ms"] = sum(r["per_backward"] * r["variants"][0]["ms"]
+                          for r in stage_rows)
+    if old_rows:
+        for key in ("device_ms", "event_ms"):
+            sums[f"old_{key}"] = sum(r["per_backward"] * r["old"][key]
+                                     for r in stage_rows)
+    for key, total in sums.items():
+        print(f"batch 4, the 20 launches of a backward, {key}: {total:.4f}",
+              flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(card)
+    print(f"dw: {bad} failures", flush=True)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"card": card, "sums": sums, "rows": rows}, f, indent=1)
+    return 1 if bad else 0
+
+
 def profile() -> int:
     """Device time by kernel name of the wrapper call with the picked
     variant and of ``F.conv3d``, 10 calls each under ``torch.profiler``."""
@@ -320,6 +469,11 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--dxdw", action="store_true")
+    ap.add_argument("--dw", action="store_true")
+    ap.add_argument("--old", default="", help="--dw: a checkout of the "
+                    "commit whose kernel C to time beside")
+    ap.add_argument("--old-dw-times", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -334,6 +488,10 @@ def main() -> int:
         rc |= profile()
     if args.dxdw:
         rc |= dxdw(args.out)
+    if args.dw:
+        rc |= dw(args.out, args.old)
+    if args.old_dw_times:
+        rc |= old_dw_times()
     return rc
 
 

@@ -105,9 +105,12 @@ def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
         conv3x3x3_same(x.half(), w.half())
 
 
+# (B, X, Y, Z, Ci, Co): odd and ragged shapes, Ci != Co; 48 -> 64 takes a
+# ci tile of 16 beside a co group of 32
 DW_SHAPES = [(2, 6, 5, 7, 16, 16), (1, 4, 4, 3, 32, 64),
              (2, 3, 5, 4, 256, 256), (1, 9, 11, 13, 32, 48),
-             (2, 7, 7, 5, 256, 256), (1, 20, 18, 16, 16, 16)]
+             (2, 7, 7, 5, 256, 256), (1, 20, 18, 16, 16, 16),
+             (1, 9, 11, 13, 48, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -130,6 +133,60 @@ def test_dw_kernel_matches_plain(cuda_device, shape, dtype):
     assert torch.equal(got, again)
     err = (got - want).abs().max().item()
     assert err <= 1e-3 * want.abs().max().item()
+
+
+#: kernel C's bf16 variants: two of the V-Net's stage shapes (batch 2,
+#: small volumes) and a ragged one (X, Y not multiples of 8, Z not of 3)
+DW_VARIANT_SHAPES = [(2, 16, 16, 12, 32, 32), (2, 8, 8, 6, 128, 128),
+                     (1, 13, 11, 7, 64, 96)]
+
+
+@pytest.mark.parametrize("shape", DW_VARIANT_SHAPES)
+def test_dw_every_variant_matches_plain(cuda_device, shape):
+    """Every (ci tile, co group) pair and box depth kernel C's picker can
+    return for the shape, with its stages and splits, with three stages
+    and one split, and with splits added through thread-block clusters
+    (two clusters of 2, one of 8): within 1e-3 max|plain|, the same bits on
+    a second run, one launch a call, and the picked variant among them."""
+    from bcp_tpu_torch.ops import conv3d
+    B, X, Y, Z, Ci, Co = shape
+    x, _ = _conv_case(B, X, Y, Z, Ci, Co, seed=13)
+    dy, _ = _conv_case(B, X, Y, Z, Co, Co, seed=14)
+    x, dy = (t.to(cuda_device, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d) for t in (x, dy))
+    want = conv3x3x3_dw_reference(x, dy)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    found = conv3d.dw_candidates(B, X, Y, Z, Ci, Co, sms)
+    assert conv3d.dw_variant(B, X, Y, Z, Ci, Co, sms) in found
+    variants = list(found) + [v._replace(stages=3, splits=1, cluster=1)
+                              for v in found]
+    variants += [v._replace(splits=s, cluster=c) for v in found
+                 for s, c in ((4, 2), (8, 8))]
+    for v in variants:
+        before = conv3x3x3_dw.launches
+        got = conv3x3x3_dw(x, dy, variant=v)
+        again = conv3x3x3_dw(x, dy, variant=v)
+        torch.cuda.synchronize()
+        assert conv3x3x3_dw.launches == before + 2, v
+        assert got.shape == want.shape and got.dtype == torch.float32, v
+        assert torch.equal(got, again), v
+        err = (got - want).abs().max().item()
+        assert err <= 1e-3 * want.abs().max().item(), (v, err)
+
+
+def test_dw_kernel_refuses_a_variant_that_does_not_fit(cuda_device):
+    """Kernel C's launcher refuses a variant whose ring does not fit in
+    shared memory (four stages of (32, 32) with boxes of 4 planes: 256512
+    bytes) or whose splits do not fill its clusters; the wrapper raises
+    and counts no launch (no fallback)."""
+    from bcp_tpu_torch.ops.conv3d import DwVariant
+    x, _ = _conv_case(1, 8, 8, 8, 32, 32, seed=15)
+    x = x.to(cuda_device, torch.bfloat16)
+    before = conv3x3x3_dw.launches
+    for v in (DwVariant(32, 32, 4, 1, 4, 1), DwVariant(32, 32, 3, 3, 3, 2)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            conv3x3x3_dw(x, x, variant=v)
+    assert conv3x3x3_dw.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
