@@ -3,12 +3,15 @@
 Counterpart of ``bcp_tpu/eval/sliding_window.py``:
 
 - the padded volume is uploaded once and stays on the device;
-- windows are gathered in batches of ``batch``, run through the net,
-  softmaxed in f32 and multiplied by the ``valid`` mask (the last chunk is
-  padded with empty windows at the origin, which add zeros);
-- the probs are overlap-added into the (X, Y, Z, C) f32 score map by
-  ``ops.scatter.scatter_add_windows`` (the hand-written kernel on the
-  card), in window order;
+- windows are gathered in batches of ``batch`` and run through the net
+  (the last chunk is padded with windows at the origin);
+- the softmax of each real window's logits is overlap-added into the
+  (X, Y, Z, C) f32 score map in window order by
+  ``ops.scatter.softmax_scatter_add_windows`` (one launch of the
+  hand-written kernel a chunk on the card), which does not read the
+  padded windows: the JAX package multiplies them by a ``valid`` mask of
+  zeros, and adding +0.0 to a score that starts at +0.0 and only grows
+  leaves it as it was;
 - the count map depends only on the window grid: it is built once per grid
   on the host and kept on the device;
 - then ``score / cnt`` and the reference's decision rule.
@@ -30,7 +33,7 @@ import torch
 
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.eval import metrics as M
-from bcp_tpu_torch.ops.scatter import scatter_add_windows
+from bcp_tpu_torch.ops.scatter import softmax_scatter_add_windows
 
 
 def window_starts(vol_shape: Sequence[int], patch: Sequence[int],
@@ -73,19 +76,19 @@ class SlidingWindowEvaluator:
         self.batch = batch
         self._cnt_cache: Dict[Tuple, torch.Tensor] = {}
 
-    # -- one chunk: gather, forward, softmax, overlap-add ---------------
+    # -- one chunk: gather, forward, softmax + overlap-add ---------------
     def _process_chunk(self, volume: torch.Tensor, starts: np.ndarray,
-                       valid: torch.Tensor, score: torch.Tensor) -> None:
+                       n_valid: int, score: torch.Tensor) -> None:
+        """The chunk's windows at ``starts``, of which the first
+        ``n_valid`` are real and the rest padding."""
         px, py, pz = self.patch
         patches = torch.stack([volume[sx:sx + px, sy:sy + py, sz:sz + pz]
                                for sx, sy, sz in starts.tolist()])[:, None]
         logits = self.model(patches)[0]
-        probs = torch.softmax(logits.float(), dim=1) * valid.view(-1, 1, 1,
-                                                                  1, 1)
         # (B, C, px, py, pz) -> (B, px, py, pz, C), the score map's layout
-        # (already this memory order when the net ran channels_last_3d)
-        probs = probs.permute(0, 2, 3, 4, 1).contiguous()
-        scatter_add_windows(score, probs, starts)
+        # (a view when the net ran channels_last_3d, as it does on the card)
+        logits = logits.float().permute(0, 2, 3, 4, 1).contiguous()
+        softmax_scatter_add_windows(score, logits, starts, n_valid)
 
     def _count_map(self, starts: np.ndarray,
                    shape: Tuple[int, ...]) -> torch.Tensor:
@@ -125,10 +128,9 @@ class SlidingWindowEvaluator:
         n_chunks = math.ceil(n / B)
         pad_n = n_chunks * B - n
         all_starts = np.concatenate([starts, np.zeros((pad_n, 3), np.int32)])
-        valid = torch.cat([torch.ones(n), torch.zeros(pad_n)]).to(self.device)
         for c in range(n_chunks):
             self._process_chunk(volume, all_starts[c * B:(c + 1) * B],
-                                valid[c * B:(c + 1) * B], score)
+                                min(B, n - c * B), score)
         score /= cnt[..., None]
         if rule == "argmax":
             label = torch.argmax(score, dim=-1).to(torch.uint8)

@@ -38,6 +38,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "scatter_add": {
         "scatter_add_windows_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _P),
+        "softmax_scatter_add_windows_f32": (_P, _P, _P, _I, _I, _I, _I, _I,
+                                            _I, _I, _I, _P),
+        "overlap_add_vector_width": (_P, _P, _P, _I, _I, _I, _I),
     },
     "conv3x3x3": {
         "conv3x3x3_bf16": (_P,) * 7,

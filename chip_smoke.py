@@ -9,8 +9,16 @@ Phases, each of which fails the run (non-zero exit, no final line):
    every hand-written kernel from ``bcp_tpu_torch/kernels/csrc`` (one nvcc
    per source, in parallel);
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes: the overlap-add bit for bit on one LA chunk (8 windows of
-   112x112x80x2 into a 240x200x96x2 score map); the 3^3 conv at the five
+   path's shapes. Kernel A, the overlap-add, on LA chunks (8 windows of
+   112x112x80x2 into a 240x200x96x2 score map): its probs entry bit for
+   bit against the in-order loop, its fused entry (softmax over the
+   classes, then the overlap-add of the real windows) to max|kernel -
+   plain| <= 1e-6 max|plain| against ``torch.softmax`` then the loop on
+   the grid's first and last chunk, both the same bits on a second run;
+   each timed with a cold L2 (CUDA events after a 512 MB read) and a warm
+   one (a CUDA graph), at vector widths 4 and 2, beside its bound, its
+   plain version, ``index_add_`` and the chain the fused entry replaced
+   (softmax, valid mask, copy, probs entry). The 3^3 conv at the five
    V-Net stage shapes at batch 8 and batch 4, f32 to rtol = atol = 1e-4 and
    bf16 to max|kernel - plain| <= 1e-2 max|plain|, bit-identical over two
    runs, with the variant (box, N tile, warpgroups, stages, weights staged
@@ -46,15 +54,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
    18/4, eval batch 8, bf16, NMS on, from that .pth, with every kernel's
    launch count reset before and read after; two case lines of four finite
    metrics, and class probabilities of the cropped score map summing to
-   1 +- 1e-2 per voxel. Then the steady-state time of the same evaluator
-   over both volumes, and a ``torch.profiler`` trace of one volume: device
-   time by kernel name, busy time and idle share;
+   1 +- 1e-2 per voxel. Every chunk takes kernel A's fused entry (no
+   launch of its probs entry). Then the steady-state time of the same
+   evaluator over both volumes, and a ``torch.profiler`` trace of one
+   volume: device time by kernel name, busy time and idle share, one
+   fused overlap-add a chunk (its device ms a launch) and no softmax
+   kernel;
 5. the training path: ``bcp_tpu_torch.cli.train_la``'s core function at
    full width (V-Net n_filters 16, 112x112x80 patches, batch 8 with
    labeled_bs 4, bf16, NMS on) on 8 synthetic 140x140x90 train volumes
    (labelnum 4) and one 240x200x96 validation volume, with the CLI's
    defaults (training volumes in the device store, validation on the
-   background workers, ``fused_bwd`` off): 15 pre-train iterations and a
+   background workers through kernel A's fused entry, ``fused_bwd`` off):
+   15 pre-train iterations and a
    validation that writes the stage's best .pth, then 15 self-train
    iterations from it. Launch counts reset before and read after, finite
    losses, both .pth files loading strictly into the eval model. Inside
@@ -164,51 +176,207 @@ def device_ms(torch, fn, n: int = 20) -> float:
     return ms
 
 
+def cold_ms(torch, fn, flush, n: int = 20) -> float:
+    """Median CUDA-event time of ``fn`` after a read of ``flush`` (larger
+    than the L2) has emptied the L2 of ``fn``'s data, as an evaluator
+    chunk finds it after the net's forward. The read also hides the host's
+    launch path of a single launch: it is queued before the card gets to
+    it."""
+    times = []
+    for _ in range(n + 1):
+        flush.sum()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[1:]))
+
+
+def phase_overlap_add(torch, rates, workdir: str):
+    """Kernel A's two entries on LA chunks (8 windows of 112x112x80x2 into
+    a 240x200x96x2 score map): the probs entry bit for bit against the
+    in-order loop on the grid's first chunk; the fused entry against
+    ``torch.softmax`` then the loop, to max|kernel - plain| <= 1e-6
+    max|plain|, on the first chunk and on the last, whose padded windows
+    it does not read; both the same bits on a second run. Times on the
+    first chunk with a cold L2 (:func:`cold_ms`) and a warm one (the same
+    launch 20 times in a CUDA graph, :func:`device_ms`), beside the bound,
+    the plain versions, the ``index_add_`` yardstick (its flat index built
+    outside the timing) and the chain the fused entry replaced in the
+    evaluator (``torch.softmax`` over the classes of the net's
+    channels_last_3d logits, the valid-mask multiply, the permuted copy,
+    the probs entry), with the device kernels of one chain and of one
+    fused launch from ``torch.profiler``; and both entries at vector width
+    2, on the first chunk of a 240x200x97 grid, whose odd last z start
+    halves the vectors."""
+    from bcp_tpu_torch import kernels
+    from bcp_tpu_torch.eval.sliding_window import window_starts
+    from bcp_tpu_torch.ops.scatter import (
+        scatter_add_windows, scatter_add_windows_reference,
+        softmax_scatter_add_windows, softmax_scatter_add_windows_reference)
+    _, f32_peak, hbm = rates
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, C = EVAL_BATCH, 2
+    grid = window_starts(LA_VOLUME, PATCH, 18, 4)
+    n_last = len(grid) - (len(grid) - 1) // B * B
+    first = grid[:B]
+    last = np.concatenate([grid[len(grid) - n_last:],
+                           np.zeros((B - n_last, 3), np.int32)])
+    score = torch.rand((*LA_VOLUME, C), generator=gen, device=dev)
+    probs = torch.rand((B, *PATCH, C), generator=gen, device=dev)
+    logits = 4 * torch.randn((B, *PATCH, C), generator=gen, device=dev)
+
+    got = scatter_add_windows(score.clone(), probs, first)
+    again = scatter_add_windows(score.clone(), probs, first)
+    want = scatter_add_windows_reference(score.clone(), probs, first)
+    torch.cuda.synchronize()
+    probs_err = float((got - want).abs().max().item())
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        fail(f"overlap-add probs entry differs from the in-order loop (max "
+             f"err {probs_err}) or between two runs")
+    checks = {}
+    for tag, st, n in (("first", first, B), ("last", last, n_last)):
+        got = softmax_scatter_add_windows(score.clone(), logits, st, n)
+        again = softmax_scatter_add_windows(score.clone(), logits, st, n)
+        want = softmax_scatter_add_windows_reference(score.clone(), logits,
+                                                     st, n)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max().item())
+        pmax = float(want.abs().max().item())
+        checks[tag] = {"n_valid": n, "max_abs_err": err,
+                       "bit_exact": bool(torch.equal(got, want))}
+        if not torch.equal(got, again):
+            fail(f"overlap-add fused entry, {tag} chunk: two runs differ")
+        if err > 1e-6 * pmax:
+            fail(f"overlap-add fused entry, {tag} chunk: max err {err} > "
+                 f"1e-6 * {pmax}")
+    del got, again, want
+
+    # the bound: each window's probs or logits read once, each covered
+    # score element read and written once; one add per probs element, and
+    # for the fused entry five f32 operations more a logit (max, subtract,
+    # exp, sum, divide)
+    covered = np.zeros(LA_VOLUME, bool)
+    for sx, sy, sz in first:
+        covered[sx:sx + PATCH[0], sy:sy + PATCH[1], sz:sz + PATCH[2]] = True
+    nbytes = probs.numel() * 4 + 2 * int(covered.sum()) * C * 4
+
+    def bound(ops):
+        return (max(nbytes / hbm, ops / f32_peak) * 1e3,
+                "bytes" if nbytes / hbm >= ops / f32_peak else "operations")
+
+    # index_add_ into the flattened map, the index built once here
+    st = torch.from_numpy(first).to(dev).long()
+    ax = [torch.arange(p, device=dev) for p in PATCH]
+    flat = ((st[:, 0, None, None, None] + ax[0][None, :, None, None])
+            * LA_VOLUME[1] + st[:, 1, None, None, None]
+            + ax[1][None, None, :, None]) * LA_VOLUME[2] \
+        + st[:, 2, None, None, None] + ax[2][None, None, None, :]
+    idx = (flat[..., None] * C + torch.arange(C, device=dev)).reshape(-1)
+    del flat
+    lib = score.clone().view(-1).index_add_(0, idx, probs.view(-1))
+    if not torch.allclose(lib.view(score.shape), scatter_add_windows_reference(
+            score.clone(), probs, first), rtol=1e-6, atol=1e-6):
+        fail("the index_add_ yardstick computes another function")
+    del lib
+    valid = torch.ones(B, device=dev)
+    logits_cl = logits.permute(0, 4, 1, 2, 3)    # as the net gives them
+    work = score.clone()
+
+    def chain():
+        p = torch.softmax(logits_cl, dim=1) * valid.view(-1, 1, 1, 1, 1)
+        scatter_add_windows(work, p.permute(0, 2, 3, 4, 1).contiguous(),
+                            first)
+
+    fns = {"probs": lambda: scatter_add_windows(work, probs, first),
+           "fused": lambda: softmax_scatter_add_windows(work, logits, first,
+                                                        B),
+           "index_add": lambda: work.view(-1).index_add_(0, idx,
+                                                         probs.view(-1)),
+           "chain": chain}
+    # vector width 2: the 240x200x97 grid's first chunk (z starts 0..17)
+    vol2 = (*LA_VOLUME[:2], LA_VOLUME[2] + 1)
+    first2 = window_starts(vol2, PATCH, 18, 4)[:B]
+    work2 = torch.rand((*vol2, C), generator=gen, device=dev)
+    vec = kernels.library("scatter_add").overlap_add_vector_width(
+        work2.data_ptr(), logits.data_ptr(), first2.ctypes.data, B,
+        vol2[2], C, PATCH[2])
+    if vec != 2:
+        fail(f"the {vol2} grid's first chunk takes width {vec}, not 2")
+    fns["probs_w2"] = lambda: scatter_add_windows(work2, probs, first2)
+    fns["fused_w2"] = lambda: softmax_scatter_add_windows(work2, logits,
+                                                          first2, B)
+    flush = torch.zeros(128 << 20, device=dev)      # 512 MB, 10x the L2
+    t = {k: (cold_ms(torch, fn, flush), device_ms(torch, fn))
+         for k, fn in fns.items()}
+    t["probs_plain"] = cold_ms(torch, lambda: scatter_add_windows_reference(
+        work, probs, first), flush)
+    t["fused_plain"] = cold_ms(
+        torch, lambda: softmax_scatter_add_windows_reference(work, logits,
+                                                             first, B),
+        flush)
+    kernels_of = {k: device_profile(torch, fns[k], os.path.join(
+        workdir, f"overlap_add_{k}.json")) for k in ("chain", "fused")}
+    print("kernel A, device kernels of one call: " + json.dumps(
+        {k: v and [(e["name"][:60], e["calls"]) for e in v["top"]]
+         for k, v in kernels_of.items()}), flush=True)
+    del idx, work, work2, score, probs, logits, logits_cl, flush
+
+    base = {"route": "cuda",
+            "source": "bcp_tpu_torch/kernels/csrc/scatter_add.cu",
+            "replaces": "bcp_tpu/ops/scatter.py:79",
+            "per": f"one launch: {B} windows of {'x'.join(map(str, PATCH))}"
+                   f"x{C} into {'x'.join(map(str, LA_VOLUME))}x{C}"}
+    probs_bound = bound(B * int(np.prod(PATCH)) * C)
+    fused_bound = bound(6 * B * int(np.prod(PATCH)) * C)
+    # ms: cold L2 (events after a 512 MB read); warm_l2_device_ms: the
+    # same launch 20 times in a CUDA graph
+    entries = [
+        dict(base, name="scatter_add_windows", max_abs_err=probs_err,
+             ms=t["probs"][0], warm_l2_device_ms=t["probs"][1],
+             width2_ms=t["probs_w2"][0],
+             width2_warm_l2_device_ms=t["probs_w2"][1],
+             plain_ms=t["probs_plain"], bound_ms=probs_bound[0],
+             bound_by=probs_bound[1], library_ms=t["index_add"][0],
+             library_warm_l2_device_ms=t["index_add"][1],
+             library="score.view(-1).index_add_(0, idx, probs.view(-1))",
+             on_main_path=False),
+        dict(base, name="softmax_scatter_add_windows",
+             max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+             checks=checks, ms=t["fused"][0],
+             warm_l2_device_ms=t["fused"][1], width2_ms=t["fused_w2"][0],
+             width2_warm_l2_device_ms=t["fused_w2"][1],
+             plain_ms=t["fused_plain"], bound_ms=fused_bound[0],
+             bound_by=fused_bound[1], library_ms=None,
+             index_add_ms=t["index_add"][0],
+             index_add_warm_l2_device_ms=t["index_add"][1],
+             chain_ms=t["chain"][0], chain_warm_l2_device_ms=t["chain"][1],
+             chain="torch.softmax(dim=1) * valid, permuted copy, "
+                   "scatter_add_windows")]
+    for e in entries:
+        print(f"kernel A {e['name']}, ms with a cold / warm L2: "
+              f"{e['ms']:.4f} / {e['warm_l2_device_ms']:.4f}, at width 2 "
+              f"{e['width2_ms']:.4f} / {e['width2_warm_l2_device_ms']:.4f} "
+              f"(plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f}, "
+              f"index_add_ {t['index_add'][0]:.4f} / "
+              f"{t['index_add'][1]:.4f}, the chain {t['chain'][0]:.4f} / "
+              f"{t['chain'][1]:.4f})", flush=True)
+    print(f"kernel A fused entry against torch.softmax then the loop: "
+          f"{json.dumps(checks)}", flush=True)
+    return entries
+
+
 def phase_kernels(torch, rates):
     import torch.nn.functional as F
-    from bcp_tpu_torch.eval.sliding_window import window_starts
     from bcp_tpu_torch.ops.conv3d import (conv_variant, conv3x3x3_same,
                                           conv3x3x3_same_reference)
-    from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
-                                           scatter_add_windows_reference)
     bf16_peak, f32_peak, hbm = rates
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    # -- A: overlap-add, one chunk of real overlapping LA windows
-    starts = window_starts(LA_VOLUME, PATCH, 18, 4)[:EVAL_BATCH]
-    score = torch.rand((*LA_VOLUME, 2), generator=gen, device=dev)
-    probs = torch.rand((EVAL_BATCH, *PATCH, 2), generator=gen, device=dev)
-    got = scatter_add_windows(score.clone(), probs, starts)
-    want = scatter_add_windows_reference(score.clone(), probs, starts)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("overlap-add kernel differs from the in-order loop")
-    covered = np.zeros(LA_VOLUME, bool)
-    for sx, sy, sz in starts:
-        covered[sx:sx + PATCH[0], sy:sy + PATCH[1], sz:sz + PATCH[2]] = True
-    a_bytes = probs.numel() * 4 + 2 * int(covered.sum()) * 2 * 4
-    a_bound = max(a_bytes / hbm, probs.numel() / f32_peak) * 1e3
-    work = score.clone()
-    scatter = {
-        "name": "scatter_add_windows", "route": "cuda",
-        "source": "bcp_tpu_torch/kernels/csrc/scatter_add.cu",
-        "replaces": "bcp_tpu/ops/scatter.py:79",
-        "max_abs_err": float((got - want).abs().max().item()),
-        "ms": cuda_ms(torch, lambda: scatter_add_windows(work, probs,
-                                                         starts)),
-        "plain_ms": cuda_ms(torch, lambda: scatter_add_windows_reference(
-            work, probs, starts)),
-        "bound_ms": a_bound,
-        "bound_by": "bytes" if a_bytes / hbm >= probs.numel() / f32_peak
-        else "operations",
-        "library_ms": None,
-        "per": "one launch: 8 windows of 112x112x80x2 into 240x200x96x2",
-    }
-    print(f"kernel A scatter_add_windows: bit-exact, {scatter['ms']:.4f} ms "
-          f"(plain {scatter['plain_ms']:.4f} ms, bound "
-          f"{scatter['bound_ms']:.4f} ms)", flush=True)
-    del score, probs, got, want, work
 
     # -- B: 3^3 conv at the five stage shapes, bf16 and f32, at batch 8 (the
     # evaluator's chunk and the student's forward) and batch 4 (the
@@ -304,7 +472,7 @@ def phase_kernels(torch, rates):
         "shapes": shapes,
         "shapes_batch4": shapes_batch4,
     }
-    return [scatter, conv]
+    return [conv]
 
 
 def phase_backward_kernels(torch, rates):
@@ -751,18 +919,10 @@ def device_summary(trace_path: str, top: int = 12):
     spans are read from the Chrome trace rather than ``prof.events()``,
     which builds a Python object per event and takes minutes on a long
     trace."""
-    with open(trace_path) as f:
-        trace = json.load(f)
-    spans = [(e["ts"], e["ts"] + e["dur"], e["name"])
-             for e in trace.get("traceEvents", [])
-             if e.get("ph") == "X"
-             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = trace_spans(trace_path)
     if not spans:
         return None
-    by_name = {}
-    for start, end, name in spans:
-        ms, calls = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + (end - start) / 1e3, calls + 1)
+    by_name = kernels_by_name(spans)
     busy, cur_start, cur_end = 0.0, None, None
     for start, end, _ in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -780,6 +940,25 @@ def device_summary(trace_path: str, top: int = 12):
             "device_ops": len(spans),
             "top": [{"name": n[:90], "ms": ms, "calls": c}
                     for n, (ms, c) in ranked[:top]]}
+
+
+def trace_spans(trace_path: str):
+    """(start, end, name) of each device span of an exported trace."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    return [(e["ts"], e["ts"] + e["dur"], e["name"])
+            for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def kernels_by_name(spans):
+    """name -> (device ms, calls) of the spans."""
+    by_name = {}
+    for start, end, name in spans:
+        ms, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e3, calls + 1)
+    return by_name
 
 
 def host_summary(trace_path: str):
@@ -827,7 +1006,8 @@ def phase_main_path(torch, pth: str, workdir: str):
     wall = time.perf_counter() - t0
     launches = read_launches(counters)
     print(out.getvalue(), end="")
-    want = {"scatter_add_windows": 2 * chunks,
+    want = {"scatter_add_windows": 0,
+            "softmax_scatter_add_windows": 2 * chunks,
             "conv3x3x3_same": 2 * chunks * sum(n for _, n in CONV_STAGES),
             "conv3x3x3_dx": 0, "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0}
     print(f"main path launches {launches} (expected {want})", flush=True)
@@ -855,29 +1035,62 @@ def phase_main_path(torch, pth: str, workdir: str):
         fail(f"score map: shape {score.shape}, max |sum - 1| "
              f"{np.abs(sums - 1.0).max()}")
     # where one volume's device time goes
+    trace = os.path.join(workdir, "trace.json")
     prof = device_profile(torch, lambda: evaluator.infer(
-        cases[1][0], return_score=False), os.path.join(workdir, "trace.json"))
+        cases[1][0], return_score=False), trace)
     print("main path profile, one volume: " + (
         json.dumps(prof) if prof else "no device activity in the trace "
         "(not measured)"), flush=True)
+    a_ms = None
+    if prof:
+        a_ms = check_chunk_epilogue(trace_spans(trace), chunks)
     result = {"volumes": 2, "windows_per_volume": n_win,
               "cli_s": wall, "cli_windows_per_s": 2 * n_win / wall,
               "cli_s_per_volume": wall / 2,
               "steady_s_per_volume": steady / 2,
               "steady_windows_per_s": 2 * n_win / steady,
               "max_abs_prob_sum_err": float(np.abs(sums - 1.0).max()),
-              "average_metric": [float(v) for v in avg]}
+              "average_metric": [float(v) for v in avg],
+              "overlap_add_device_ms_per_launch": a_ms}
     print("main path: " + json.dumps(result), flush=True)
-    return launches
+    return launches, a_ms
+
+
+def check_chunk_epilogue(spans, chunks: int) -> float:
+    """One volume's trace: one fused overlap-add a chunk and no softmax
+    kernel; prints the elementwise and reduction kernels left, in calls a
+    chunk (the net's, since the chunk's own passes went into A). Returns
+    the overlap-add's device ms a launch in the evaluator."""
+    by_name = kernels_by_name(spans)
+    fused = sum(c for n, (_, c) in by_name.items()
+                if "overlap_add_kernel" in n)
+    fused_ms = sum(ms for n, (ms, _) in by_name.items()
+                   if "overlap_add_kernel" in n)
+    softmax = {n[:90]: c for n, (_, c) in by_name.items()
+               if "softmax" in n.lower()}
+    left = {n[:90]: [round(ms, 4), c / chunks]
+            for n, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])
+            if "elementwise" in n or "reduce" in n.lower()}
+    print(f"chunk epilogue, one volume: {fused} overlap-add launches for "
+          f"{chunks} chunks, {fused_ms / max(fused, 1):.4f} device ms a "
+          f"launch; softmax kernels {softmax}; elementwise and "
+          f"reduction kernels left [ms, calls a chunk]: {json.dumps(left)}",
+          flush=True)
+    if fused != chunks or softmax:
+        fail(f"the trace of one volume holds {fused} overlap-add kernels "
+             f"for {chunks} chunks and softmax kernels {softmax}")
+    return fused_ms / fused
 
 
 def kernel_counters():
     from bcp_tpu_torch.ops.conv3d import (conv3x3x3_dw, conv3x3x3_dx,
                                           conv3x3x3_dxdw, conv3x3x3_same)
-    from bcp_tpu_torch.ops.scatter import scatter_add_windows
-    return {f.__name__: f for f in (scatter_add_windows, conv3x3x3_same,
-                                    conv3x3x3_dx, conv3x3x3_dw,
-                                    conv3x3x3_dxdw)}
+    from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
+                                           softmax_scatter_add_windows)
+    return {f.__name__: f for f in (scatter_add_windows,
+                                    softmax_scatter_add_windows,
+                                    conv3x3x3_same, conv3x3x3_dx,
+                                    conv3x3x3_dw, conv3x3x3_dxdw)}
 
 
 def read_launches(counters, reset: bool = False):
@@ -979,7 +1192,8 @@ def phase_training(torch, workdir: str):
         fail(f"the CLI's defaults changed: {cfg}")
     chunks, convs = val_chunks(cfg), sum(n for _, n in CONV_STAGES)
     v = trainer.validations
-    want = {"scatter_add_windows": v * chunks,
+    want = {"scatter_add_windows": 0,
+            "softmax_scatter_add_windows": v * chunks,
             "conv3x3x3_same": convs * (3 * STAGE_ITERS + v * chunks),
             "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
@@ -1111,7 +1325,7 @@ def steady_step(clock, cfg, stage: str, fused: bool):
            "conv3x3x3_dx": 0 if fused else convs,
            "conv3x3x3_dw": 0 if fused else convs,
            "conv3x3x3_dxdw": convs if fused else 0,
-           "scatter_add_windows": 0}
+           "scatter_add_windows": 0, "softmax_scatter_add_windows": 0}
     timed = clock.launches[stage]
     if timed != {k: n * STEADY_STEPS for k, n in per.items()}:
         fail(f"{STEADY_STEPS} {stage}-train steps (fused_bwd={fused}) "
@@ -1149,7 +1363,8 @@ def phase_training_fused(torch, workdir: str, shared):
     cfg = trainer.cfg
     chunks, convs = val_chunks(cfg), sum(n for _, n in CONV_STAGES)
     v = trainer.validations
-    want = {"scatter_add_windows": v * chunks,
+    want = {"scatter_add_windows": 0,
+            "softmax_scatter_add_windows": v * chunks,
             "conv3x3x3_same": convs * (2 * STAGE_ITERS + v * chunks),
             "conv3x3x3_dx": 0, "conv3x3x3_dw": 0,
             "conv3x3x3_dxdw": convs * STAGE_ITERS}
@@ -1229,28 +1444,35 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     print(f"kernels built in {kernels.build_all():.2f} s", flush=True)
 
-    entries = phase_kernels(torch, rates)
-    entries += phase_backward_kernels(torch, rates)
     # scratch inside the checkout (git-ignored), removed on the way out
     work_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "_work")
     os.makedirs(work_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
+        entries = phase_overlap_add(torch, rates, workdir)
+        entries += phase_kernels(torch, rates)
+        entries += phase_backward_kernels(torch, rates)
         pth = os.path.join(workdir, "VNet_best_model.pth")
         torch.save(seeded_vnet(torch, DEVICE, SEED).state_dict(), pth)
         phase_slice(torch, pth)
         phase_train_step(torch)
-        launches = {"test_la": phase_main_path(torch, pth, workdir)}
+        launches = {}
+        launches["test_la"], a_ms = phase_main_path(torch, pth, workdir)
         launches["train_la"], shared = phase_training(torch, workdir)
         (launches["train_la_fused_bwd"],
          launches["train_la_unfused_again"]) = phase_training_fused(
             torch, workdir, shared)
     for e in entries:
+        if e["name"] == "softmax_scatter_add_windows":
+            # device ms a launch inside the evaluator (phase 4's trace)
+            e["main_path_device_ms"] = a_ms
         by_path = {path: counts[e["name"]]
                    for path, counts in launches.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
-        if e["launches"] == 0:
+        # the probs entry of A, the port of the TPU function, is on no
+        # path since the evaluator takes the fused entry
+        if e["launches"] == 0 and e.get("on_main_path", True):
             fail(f"no path launched {e['name']}")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -19,8 +19,11 @@ from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
                                       conv3x3x3_same,
                                       conv3x3x3_same_reference,
                                       flip_transpose)
+from bcp_tpu_torch import kernels
 from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
-                                       scatter_add_windows_reference)
+                                       scatter_add_windows_reference,
+                                       softmax_scatter_add_windows,
+                                       softmax_scatter_add_windows_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -398,3 +401,117 @@ def test_scatter_kernel_equals_plain(cuda_device, seed):
     torch.cuda.synchronize()
     assert scatter_add_windows.launches == before + 1
     assert torch.equal(got, want)
+
+
+# kernel A's two entries: (map, classes, windows, patch, z starts, the
+# vector width the launch takes; the fused entry takes it at C = 2 and its
+# generic kernel at any other C). Width 4 needs Z*C, pz*C and every start's
+# z*C to be multiples of 4; odd starts or an odd Z halve it, and with an odd
+# C they leave single floats. Every case has a repeated window and one at
+# the map's far corner.
+OVERLAP_CASES = [((40, 36, 28), 2, 6, (16, 12, 8), "even", 4),
+                 ((40, 36, 28), 2, 6, (16, 12, 8), "odd", 2),
+                 ((40, 36, 27), 2, 6, (16, 12, 8), "even", 2),
+                 ((40, 36, 28), 3, 6, (16, 12, 8), "four", 4),
+                 ((40, 36, 28), 3, 6, (16, 12, 8), "odd", 1),
+                 ((33, 20, 27), 1, 5, (9, 7, 5), "odd", 1),
+                 ((30, 26, 40), 4, 9, (12, 10, 16), "even", 4),
+                 ((30, 26, 40), 9, 5, (12, 10, 16), "odd", 1)]
+
+
+def _overlap_case(case, seed):
+    (X, Y, Z), C, B, p, zs, _ = case
+    rng = np.random.default_rng(seed)
+    score = rng.random((X, Y, Z, C)).astype(np.float32)
+    src = (3 * rng.normal(size=(B, *p, C))).astype(np.float32)
+    z = rng.integers(0, Z - p[2] + 1, B)
+    if zs == "even":
+        z -= z % 2
+    elif zs == "four":
+        z -= z % 4
+    else:
+        z[0] = 2 * rng.integers(0, (Z - p[2]) // 2) + 1
+    starts = np.stack([rng.integers(0, X - p[0] + 1, B),
+                       rng.integers(0, Y - p[1] + 1, B), z],
+                      1).astype(np.int32)
+    starts[1] = starts[0]                                  # repeated
+    starts[2] = (X - p[0], Y - p[1], Z - p[2] - (Z - p[2]) % 4
+                 if zs in ("even", "four") and Z % 2 == 0 else Z - p[2])
+    return score, src, starts
+
+
+@pytest.mark.parametrize("case", OVERLAP_CASES)
+def test_overlap_add_vector_width(cuda_device, case):
+    score, src, starts = _overlap_case(case, 0)
+    s, p = (torch.from_numpy(a).to(cuda_device) for a in (score, src))
+    Z, C, pz = score.shape[2], score.shape[3], src.shape[3]
+    lib = kernels.library("scatter_add")
+    assert lib.overlap_add_vector_width(
+        s.data_ptr(), p.data_ptr(), starts.ctypes.data, len(starts), Z, C,
+        pz) == case[-1]
+
+
+@pytest.mark.parametrize("case", OVERLAP_CASES)
+def test_overlap_add_probs_entry_is_the_in_order_loop(cuda_device, case):
+    """Bit for bit the in-order loop, the same bits on a second run; the
+    launch moves its own counter by one and not the fused entry's."""
+    score, probs, starts = _overlap_case(case, 1)
+    s_dev = torch.from_numpy(score).to(cuda_device)
+    p_dev = torch.from_numpy(probs).abs().to(cuda_device)
+    want = scatter_add_windows_reference(s_dev.clone(), p_dev, starts)
+    before = (scatter_add_windows.launches,
+              softmax_scatter_add_windows.launches)
+    got = scatter_add_windows(s_dev.clone(), p_dev, starts)
+    again = scatter_add_windows(s_dev.clone(), p_dev, starts)
+    torch.cuda.synchronize()
+    assert (scatter_add_windows.launches,
+            softmax_scatter_add_windows.launches) == (before[0] + 2,
+                                                      before[1])
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("padded", [0, 2])
+@pytest.mark.parametrize("case", OVERLAP_CASES)
+def test_overlap_add_fused_entry_matches_plain(cuda_device, case, padded):
+    """Within 1e-6 max|plain| of torch.softmax then the in-order loop (the
+    same bits where the two softmaxes sum in the same order), the same bits
+    on a second run. The padded windows' logits are NaN: a read of one
+    would show. The launch moves its own counter by one."""
+    score, logits, starts = _overlap_case(case, 2)
+    n_valid = len(starts) - padded
+    logits[n_valid:] = np.nan
+    starts[n_valid:] = 0
+    s_dev = torch.from_numpy(score).to(cuda_device)
+    l_dev = torch.from_numpy(logits).to(cuda_device)
+    want = softmax_scatter_add_windows_reference(s_dev.clone(), l_dev,
+                                                 starts, n_valid)
+    before = (scatter_add_windows.launches,
+              softmax_scatter_add_windows.launches)
+    got = softmax_scatter_add_windows(s_dev.clone(), l_dev, starts, n_valid)
+    again = softmax_scatter_add_windows(s_dev.clone(), l_dev, starts,
+                                        n_valid)
+    torch.cuda.synchronize()
+    assert (scatter_add_windows.launches,
+            softmax_scatter_add_windows.launches) == (before[0],
+                                                      before[1] + 1 + 1)
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-6 * want.abs().max().item()
+
+
+def test_overlap_add_refuses_cuda_tensors_it_cannot_take(cuda_device):
+    """On a CUDA tensor the fused wrapper launches or raises: a score on
+    another device than the logits and non-contiguous logits are refused
+    and not handed to the plain version."""
+    score, logits, starts = _overlap_case(OVERLAP_CASES[0], 3)
+    s_dev = torch.from_numpy(score).to(cuda_device)
+    l_dev = torch.from_numpy(logits).to(cuda_device)
+    before = softmax_scatter_add_windows.launches
+    with pytest.raises(ValueError, match="logits on"):
+        softmax_scatter_add_windows(s_dev, torch.from_numpy(logits), starts,
+                                    len(starts))
+    with pytest.raises(ValueError, match="contiguous"):
+        softmax_scatter_add_windows(
+            s_dev, l_dev.transpose(1, 2).contiguous().transpose(1, 2),
+            starts, len(starts))
+    assert softmax_scatter_add_windows.launches == before
