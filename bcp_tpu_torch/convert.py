@@ -14,6 +14,8 @@ go through :func:`state_dict_from_flax`, with the transposes of
   correlation, torch's is the conv adjoint);
 - TorchBatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var, and a zero ``num_batches_tracked``.
+
+Mappings: the LA ``"VNet"`` and the ACDC ``"unet"``.
 """
 
 from __future__ import annotations
@@ -65,7 +67,30 @@ def _vnet_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
     return out
 
 
-_MAPPINGS = {"VNet": _vnet_mapping}
+def _unet2d_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(state_dict prefix, flax path, kind) of ``UNet_2d``
+    (`torch_ckpt.py:105-131`): ``conv_conv`` indices 0 conv, 1 BN, 4 conv,
+    5 BN."""
+    out = []
+
+    def conv_block(prefix: str, fpath: Tuple[str, ...]):
+        for i, (ci, bi) in enumerate(((0, 1), (4, 5))):
+            out.append((f"{prefix}.conv_conv.{ci}", fpath + (f"conv{i}",),
+                        "conv"))
+            out.append((f"{prefix}.conv_conv.{bi}", fpath + (f"bn{i}",),
+                        "bn"))
+
+    conv_block("encoder.in_conv", ("in_conv",))
+    for k in range(1, 5):
+        conv_block(f"encoder.down{k}.maxpool_conv.1", (f"down{k}",))
+    for k in range(1, 5):
+        out.append((f"decoder.up{k}.conv1x1", (f"up{k}", "conv1x1"), "conv"))
+        conv_block(f"decoder.up{k}.conv", (f"up{k}", "conv"))
+    out.append(("decoder.out_conv", ("out_conv",), "conv"))
+    return out
+
+
+_MAPPINGS = {"VNet": _vnet_mapping, "unet": _unet2d_mapping}
 
 
 def _get(tree, path: Tuple[str, ...]):

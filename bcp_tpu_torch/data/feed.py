@@ -1,4 +1,4 @@
-"""The LA batch feed: ``bcp_tpu/data/feed.py`` for the port.
+"""The LA and ACDC batch feed: ``bcp_tpu/data/feed.py`` for the port.
 
 Host path (``cfg.device_data_cache`` off): a background thread builds the
 next batches with numpy (two-stream indices, rot/flip, random crop;
@@ -7,8 +7,9 @@ thread copies a built batch to the card from pinned memory without
 waiting.
 
 Device-store path (``cfg.device_data_cache`` on, `feed.py:164-223`): the
-training volumes live on the card (``data.device_store``) and a batch is a
-handful of host draws plus crops cut on the device. There is no
+training volumes (LA) or slices (ACDC) live on the card
+(``data.device_store``) and a batch is a handful of host draws plus crops
+or gathers cut on the device. There is no
 background thread on this path: the crops are issued by the thread that
 asks for the batch, on its current CUDA stream, so the step that reads a
 batch is ordered after the batch's crops by the stream itself and needs
@@ -35,22 +36,38 @@ from bcp_tpu_torch.config import Config
 from bcp_tpu_torch.data.sampler import two_stream_batches
 from bcp_tpu_torch.device import resolve_device
 
+ACDC_PATIENTS_TO_SLICES = {
+    # `patients_to_slices` (`feed.py:27-36`, `ACDC_BCP_train.py:181-191`)
+    1: 32, 3: 68, 7: 136, 14: 256, 21: 396, 28: 512, 35: 664, 70: 1312,
+}
+
+
+def labeled_count(cfg: Config) -> int:
+    """Labelled training cases: the first ``labelnum`` LA volumes, or the
+    slices of the first ``labelnum`` ACDC patients."""
+    if cfg.variant == "acdc":
+        return ACDC_PATIENTS_TO_SLICES[cfg.labelnum]
+    return cfg.labelnum
+
 
 class BCPBatchFeeder:
     """Endless train batches of one stage: ``stage="pre"`` the labelled pair
     (``img_a``, ``img_b``, ``lab_a``, ``lab_b``), ``"self"`` also the two
     unlabelled sub-batches (``uimg_a``, ``uimg_b``). ``dataset`` is
-    anything with ``len`` and ``sample_train(i, patch, rng)``; its first
-    ``cfg.labelnum`` volumes are the labelled ones. One epoch is one pass
-    over the labelled indices. With ``cfg.device_data_cache`` the dataset
+    anything with ``len`` and ``sample_train(i, patch, rng)`` (which applies
+    the variant's augmentation); its first :func:`labeled_count` cases are
+    the labelled ones. One epoch is one pass over the labelled indices.
+    With ``cfg.device_data_cache`` the dataset
     also needs ``load(i)``; ``store_cache`` is a dict shared by the feeders
     of one run, so the second stage reuses the first stage's store instead
     of uploading it again (`feed.py:71-76`)."""
 
     def __init__(self, cfg: Config, stage: str, dataset, device=None,
                  store_cache: Optional[dict] = None):
-        if cfg.variant != "la":
-            raise NotImplementedError("the port's feed is the LA feed")
+        if cfg.variant not in ("la", "acdc"):
+            raise NotImplementedError(
+                f"variant {cfg.variant!r}: the port's feed is LA's and "
+                f"ACDC's (pancreas is ROADMAP A3)")
         self.cfg = cfg
         self.stage = stage
         self.dataset = dataset
@@ -58,7 +75,7 @@ class BCPBatchFeeder:
         self.rng = np.random.default_rng(cfg.seed)
         self.img_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                           else torch.float32)
-        n_lab = cfg.labelnum
+        n_lab = labeled_count(cfg)
         total = len(dataset)
         self.steps_per_epoch = max(n_lab // cfg.labeled_bs, 1)
         self._index_stream = two_stream_batches(
@@ -77,16 +94,31 @@ class BCPBatchFeeder:
         self._thread.start()
 
     def _init_device_store(self, cache: dict) -> None:
-        from bcp_tpu_torch.data.device_store import DeviceVolumeStore
+        from bcp_tpu_torch.data.device_store import (DeviceSliceStore,
+                                                     DeviceVolumeStore)
         t0 = time.time()
         store = cache.get("store")
         if store is None:
-            store = DeviceVolumeStore.from_dataset(
-                self.dataset, range(len(self.dataset)), self.cfg.patch_size,
-                pad_extra=3, img_dtype=self.img_dtype, device=self.device)
+            cases = range(len(self.dataset))
+            if self.cfg.variant == "acdc":
+                store = DeviceSliceStore.from_dataset(
+                    self.dataset, cases, self.cfg.patch_size,
+                    img_dtype=self.img_dtype, device=self.device)
+            else:
+                store = DeviceVolumeStore.from_dataset(
+                    self.dataset, cases, self.cfg.patch_size, pad_extra=3,
+                    img_dtype=self.img_dtype, device=self.device)
             cache["store"] = store
         self._store = store
         self.store_init_s = time.time() - t0
+
+    def _sample_device(self, indices):
+        """(images, labels) of ``indices`` from the store, consuming the
+        feed's generator: LA's crop with rot90 + flip, ACDC's
+        ``RandomGenerator``."""
+        if self.cfg.variant == "acdc":
+            return self._store.sample_batch(indices, self.rng)
+        return self._store.sample_batch(indices, self.rng, rotflip=True)
 
     def build_device(self) -> Dict[str, torch.Tensor]:
         """The next batch cut from the device store (`feed.py:209-223`):
@@ -95,12 +127,11 @@ class BCPBatchFeeder:
         cfg = self.cfg
         lab_idx, unlab_idx = next(self._index_stream)
         sub = cfg.labeled_sub_bs
-        img, lab = self._store.sample_batch(lab_idx, self.rng, rotflip=True)
+        img, lab = self._sample_device(lab_idx)
         batch = {"img_a": img[:sub], "img_b": img[sub:],
                  "lab_a": lab[:sub], "lab_b": lab[sub:]}
         if self.stage == "self":
-            uimg, _ = self._store.sample_batch(unlab_idx, self.rng,
-                                               rotflip=True)
+            uimg, _ = self._sample_device(unlab_idx)
             usub = cfg.unlabeled_sub_bs
             batch["uimg_a"], batch["uimg_b"] = uimg[:usub], uimg[usub:]
         return batch

@@ -1,8 +1,9 @@
-"""Synthetic LA volumes: ``bcp_tpu/data/synthetic.py`` for the port.
+"""Synthetic LA volumes and ACDC slices: ``bcp_tpu/data/synthetic.py`` for
+the port.
 
-Noisy backgrounds with one bright ellipsoid blob whose voxels are the
-foreground class. The generator draws the same numbers as the JAX
-package's from the same seed.
+Noisy backgrounds with one bright ellipsoid blob per foreground class
+whose voxels are that class. The generators draw the same numbers as the
+JAX package's from the same seed.
 """
 
 from __future__ import annotations
@@ -55,4 +56,48 @@ def make_la_dataset(root: str, n_train: int = 6, n_test: int = 2,
         f.write("\n".join(names[:n_train]) + "\n")
     with open(os.path.join(root, "test.list"), "w") as f:
         f.write("\n".join(names[n_train:]) + "\n")
+    return root
+
+
+def acdc_cases(n_slices: int, slice_shapes: Sequence[Sequence[int]] = (
+        (64, 64),), n_volumes: int = 0, volume_shape=(4, 64, 64),
+        n_classes: int = 4, seed: int = 0):
+    """ACDC cases in memory, drawn in the order ``make_acdc_dataset`` draws
+    them: ``n_slices`` train slices (image f32, label uint8), slice i of
+    shape ``slice_shapes[i % len(slice_shapes)]`` (mixed native shapes, as
+    ACDC's), then ``n_volumes`` (slices, H, W) volumes of
+    ``volume_shape``, one blob draw a slice. Returns (slices, volumes)."""
+    rng = np.random.default_rng(seed)
+    slices = [blob_volume(rng, slice_shapes[i % len(slice_shapes)],
+                          n_classes) for i in range(n_slices)]
+    volumes = []
+    for _ in range(n_volumes):
+        vol = [blob_volume(rng, volume_shape[1:], n_classes)
+               for _ in range(volume_shape[0])]
+        volumes.append((np.stack([v[0] for v in vol]),
+                        np.stack([v[1] for v in vol])))
+    return slices, volumes
+
+
+def make_acdc_dataset(root: str, n_train_slices: int = 24, n_val: int = 2,
+                      slice_shape=(64, 64), vol_depth: int = 4,
+                      n_classes: int = 4, seed: int = 0) -> str:
+    """ACDC layout (`synthetic.py:54-91`): per-slice train h5 under
+    data/slices/, volumes under data/, the lists at the root (the
+    validation volumes serve as the test list too)."""
+    import h5py
+    slices, volumes = acdc_cases(n_train_slices, (slice_shape,), n_val,
+                                 (vol_depth, *slice_shape), n_classes, seed)
+    os.makedirs(os.path.join(root, "data", "slices"), exist_ok=True)
+    train = [f"synth_patient_{i:03d}_slice_0" for i in range(n_train_slices)]
+    val = [f"synth_val_{i:03d}" for i in range(n_val)]
+    files = [os.path.join("slices", n) for n in train] + val
+    for name, (image, label) in zip(files, slices + volumes):
+        with h5py.File(os.path.join(root, "data", f"{name}.h5"), "w") as f:
+            f.create_dataset("image", data=image)
+            f.create_dataset("label", data=label)
+    for name, cases in (("train_slices", train), ("val", val),
+                        ("test", val)):
+        with open(os.path.join(root, f"{name}.list"), "w") as f:
+            f.write("\n".join(cases) + "\n")
     return root

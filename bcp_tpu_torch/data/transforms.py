@@ -1,13 +1,14 @@
-"""LA train augmentation: ``bcp_tpu/data/transforms.py``'s LA part for the
-port. Pure numpy over an explicit ``np.random.Generator``, drawing the same
-numbers in the same order as the JAX package, so the same seed gives the
-same crops bit for bit."""
+"""Train augmentation: ``bcp_tpu/data/transforms.py``'s LA and ACDC parts
+for the port. Pure numpy (and scipy's nearest resampling) over an explicit
+``np.random.Generator``, drawing the same numbers in the same order as the
+JAX package, so the same seed gives the same samples bit for bit."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+from scipy import ndimage
 
 
 def random_rot_flip(image: np.ndarray, label: np.ndarray,
@@ -21,6 +22,42 @@ def random_rot_flip(image: np.ndarray, label: np.ndarray,
     image = np.flip(image, axis=axis).copy()
     label = np.flip(label, axis=axis).copy()
     return image, label
+
+
+def random_rotate(image: np.ndarray, label: np.ndarray,
+                  rng: np.random.Generator):
+    """Nearest rotation by an integer angle in [-20, 20) degrees
+    (`transforms.py:32-39`, `dataloaders/dataset.py:62-66`)."""
+    angle = int(rng.integers(-20, 20))
+    image = ndimage.rotate(image, angle, order=0, reshape=False)
+    label = ndimage.rotate(label, angle, order=0, reshape=False)
+    return image, label
+
+
+def zoom_to(image: np.ndarray, label: np.ndarray,
+            output_size: Sequence[int]):
+    """Nearest zoom of a 2-D slice to ``output_size``
+    (`transforms.py:42-50`)."""
+    x, y = image.shape
+    sx, sy = output_size[0] / x, output_size[1] / y
+    image = ndimage.zoom(image, (sx, sy), order=0)
+    label = ndimage.zoom(label, (sx, sy), order=0)
+    return image, label
+
+
+def acdc_random_generator(image: np.ndarray, label: np.ndarray,
+                          output_size: Sequence[int],
+                          rng: np.random.Generator):
+    """The ACDC train transform (`transforms.py:53-65`,
+    `dataloaders/dataset.py:69-88`): with p = 0.5 rot90 + flip, else with
+    p = 0.25 a rotation (two coin draws, as the reference's ``if ... elif``),
+    then the nearest zoom to ``output_size``."""
+    if rng.random() > 0.5:
+        image, label = random_rot_flip(image, label, rng)
+    elif rng.random() > 0.5:
+        image, label = random_rotate(image, label, rng)
+    image, label = zoom_to(image, label, output_size)
+    return image.astype(np.float32), label.astype(np.uint8)
 
 
 def _pad_to_fit(arrs, output_size, extra: int):

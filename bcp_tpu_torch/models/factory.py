@@ -1,7 +1,7 @@
 """Model registry: ``bcp_tpu/models/factory.py`` for the port.
 
-The port carries the LA ``"VNet"``; the other reference models come with
-their slices.
+The port carries the LA ``"VNet"`` and the ACDC ``"unet"``; the other
+reference models come with their slices.
 """
 
 from __future__ import annotations
@@ -9,13 +9,28 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 from bcp_tpu_torch.device import resolve_device
+from bcp_tpu_torch.models.unet2d import UNet2D
 from bcp_tpu_torch.models.vnet3d import VNet3D
+
+
+def _unet(class_num: int, mode: str, n_filters=None, **kw):
+    """`net_factory('unet')` (`factory.py:27-33`): ``UNet_2d`` with its
+    dropout in train mode; ``n_filters`` scales the whole channel ladder
+    (reference: 16)."""
+    if kw.pop("fused_bwd", False):
+        raise ValueError("fused_bwd is the V-Net's 3^3 conv backward; the "
+                         "2-D U-Net's convs are cuDNN's")
+    if n_filters:
+        kw["feature_chns"] = tuple(n_filters * 2 ** i for i in range(5))
+    return UNet2D(n_classes=class_num, **kw)
+
 
 MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     # `net_factory('VNet')` (`net_factory.py:8-11`): batchnorm; dropout on
     # for training, off for test-mode construction (`factory.py:38-43`)
     "VNet": lambda class_num, mode, **kw: VNet3D(
         n_classes=class_num, has_dropout=(mode == "train"), **kw),
+    "unet": _unet,
 }
 
 

@@ -1,11 +1,13 @@
 """Building blocks of the port's models: convs with a compute dtype, the
-JAX package's grouped BatchNorm and channel dropout.
+JAX package's grouped BatchNorm, element-wise and channel dropout, and the
+align-corners upsample.
 
 Counterpart of ``bcp_tpu/models/layers.py``. Parameters stay f32 and keep
-``nn.Conv3d`` / ``nn.BatchNorm3d`` names and layouts, so a reference
-state_dict loads by name; each forward casts input and parameters to the
-module's compute dtype (bf16 for mixed precision), as the flax modules'
-``dtype`` does.
+``nn.Conv2d`` / ``nn.Conv3d`` / ``nn.BatchNorm*d`` names and layouts, so a
+reference state_dict loads by name; each forward casts input and
+parameters to the module's compute dtype (bf16 for mixed precision), as
+the flax modules' ``dtype`` does. The BatchNorm takes (N, C, *spatial) of
+any rank.
 """
 
 from __future__ import annotations
@@ -52,6 +54,21 @@ class Conv3x3x3(nn.Conv3d):
         else:
             y = F.conv3d(x, w, None, padding=1)
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computed in the compute dtype, bias included: the flax
+    ``nn.Conv`` (`layers.py:40-44`) of every conv of the 2-D U-Net, which
+    the JAX package leaves to XLA and the port to cuDNN."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _cast(x, self.compute_dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype))
 
 
 class Conv3d(nn.Conv3d):
@@ -169,29 +186,54 @@ class TorchBatchNorm(nn.Module):
         return y
 
 
-class ChannelDropout(nn.Module):
-    """Channel dropout (`layers.py:411-420`; ``nn.Dropout3d`` semantics):
-    in train mode each (sample, channel) map is kept with probability
-    1 - p and scaled by 1 / (1 - p), else zeroed. The keep mask (N, C) is
-    ``keep`` when a caller set it (:func:`dropout_draws`), else drawn from
-    ``generator`` (a ``torch.Generator`` on x's device, or torch's default
-    one when None)."""
+class Dropout(nn.Module):
+    """Element-wise dropout, flax's ``nn.Dropout`` (`unet2d.py:39-40`): in
+    train mode each element is kept with probability 1 - p, as
+    ``where(keep, x / (1 - p), 0)``. The keep mask is ``keep`` when a
+    caller set it (:func:`dropout_draws`), else drawn from ``generator``
+    (a ``torch.Generator`` on x's device, or torch's default one when
+    None); its shape is :meth:`mask_shape`, x's own here."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.keep: Optional[torch.Tensor] = None
         self.generator: Optional[torch.Generator] = None
+
+    def mask_shape(self, x: torch.Tensor) -> torch.Size:
+        return x.shape
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
         keep = self.keep
         if keep is None:
-            keep = torch.rand(x.shape[:2], generator=self.generator,
+            keep = torch.rand(self.mask_shape(x), generator=self.generator,
                               device=x.device) < 1.0 - self.p
-        keep = keep.to(x.device).reshape(*x.shape[:2], *(1,) * (x.dim() - 2))
+        keep = keep.to(x.device)
+        keep = keep.reshape(*keep.shape, *(1,) * (x.dim() - keep.dim()))
         return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+class ChannelDropout(Dropout):
+    """Channel dropout (`layers.py:411-420`; ``nn.Dropout3d`` semantics):
+    each (sample, channel) map is kept or zeroed whole, so the keep mask
+    is (N, C)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__(p)
+
+    def mask_shape(self, x: torch.Tensor) -> torch.Size:
+        return x.shape[:2]
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of (N, C, H, W) on torch's ``align_corners=True``
+    grid (`layers.py:425-438`, `networks/unet.py:50`), in x's dtype. The JAX
+    package computes its scale in x's dtype too, so in bf16 the two sample
+    slightly different positions; in f32 they agree."""
+    return F.interpolate(x, size=(2 * x.shape[2], 2 * x.shape[3]),
+                         mode="bilinear", align_corners=True)
 
 
 def _modules(model: nn.Module, kind) -> list:
@@ -233,10 +275,11 @@ def dropout_draws(model: nn.Module,
                   keep: Optional[Sequence[torch.Tensor]] = None,
                   generator: Optional[torch.Generator] = None
                   ) -> Iterator[None]:
-    """Hand ``model``'s channel dropouts their draws for one forward: the
-    keep masks ``keep`` (one (N, C) bool tensor per dropout, in forward
-    order), or a ``generator`` they draw from."""
-    drops = _modules(model, ChannelDropout)
+    """Hand ``model``'s dropouts their draws for one forward: the keep
+    masks ``keep`` (one bool tensor per dropout, in forward order, of the
+    dropout's ``mask_shape``: (N, C) for a channel dropout, x's shape for
+    an element-wise one), or a ``generator`` they draw from."""
+    drops = _modules(model, Dropout)
     if keep is not None and len(keep) != len(drops):
         raise ValueError(f"{len(keep)} keep masks for {len(drops)} dropouts")
     for i, m in enumerate(drops):

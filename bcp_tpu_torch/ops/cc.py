@@ -1,18 +1,21 @@
 """Largest-connected-component NMS of the pseudo-labels, on the device.
 
 Counterpart of ``bcp_tpu/ops/cc.py`` (`get_cut_mask` :288,
-`largest_cc_batch` :238, `connected_components` :97-170): every foreground
-voxel is seeded with ``1 + its flat index``; the largest label is spread
-through the foreground by neighbour-max sweeps (``max_pool3d`` with the
+`largest_cc_batch` :238, `connected_components` :97-170,
+`largest_cc_per_class` :271, `get_multiclass_mask` :302), for batches of
+2-D or 3-D masks: every foreground pixel is seeded with ``1 + its flat
+index``; the largest label is spread through the foreground by
+neighbour-max sweeps (``max_pool2d`` / ``max_pool3d`` with the
 connectivity's boxes) and pointer jumps (``lab <- lab.flat[lab - 1]``:
-every label names a voxel of its own component, so a jump only moves a
+every label names a pixel of its own component, so a jump only moves a
 larger label of the same component), until a round changes nothing. Then
 each component carries its largest seed. The largest component is the
 most frequent positive label, size ties going to the lowest label
 (``torch.argmax`` takes the first maximum), which is what the JAX
 package's ``_mode_by_sort`` picks (`cc.py:173-190`); empty masks pass
-through unchanged. Labels are held in f32, exact below 2^24 voxels per
-sample. The fixpoint test reads one flag back to the host every round.
+through unchanged. Labels are held in f32, exact below 2^24 pixels per
+sample. The fixpoint test reads one flag back to the host every round, so
+the per-class NMS of ACDC runs every class of every sample as one batch.
 """
 
 from __future__ import annotations
@@ -29,25 +32,29 @@ JUMPS = 2
 
 
 def _neighbor_max(lab: torch.Tensor, connectivity: int) -> torch.Tensor:
-    """Max over the connectivity neighbourhood, self included, of
-    (N, X, Y, Z) labels; skimage's convention: neighbours differ in at most
-    ``connectivity`` axes."""
+    """Max over the connectivity neighbourhood, self included, of (N, *S)
+    labels, S of rank 2 or 3; skimage's convention: neighbours differ in
+    at most ``connectivity`` axes."""
+    nd = lab.dim() - 1
+    pool = F.max_pool2d if nd == 2 else F.max_pool3d
     x = lab[:, None]
-    if connectivity >= 3:
-        return F.max_pool3d(x, 3, 1, 1)[:, 0]
+    if connectivity >= nd:
+        return pool(x, 3, 1, 1)[:, 0]
     out = x
-    for axes in itertools.combinations(range(3), connectivity):
-        k = tuple(3 if a in axes else 1 for a in range(3))
-        p = tuple(1 if a in axes else 0 for a in range(3))
-        out = torch.maximum(out, F.max_pool3d(x, k, 1, p))
+    for axes in itertools.combinations(range(nd), connectivity):
+        k = tuple(3 if a in axes else 1 for a in range(nd))
+        p = tuple(1 if a in axes else 0 for a in range(nd))
+        out = torch.maximum(out, pool(x, k, 1, p))
     return out[:, 0]
 
 
 def connected_components(masks: torch.Tensor,
                          connectivity: Optional[int] = None) -> torch.Tensor:
-    """Labels (f32) of the components of each (X, Y, Z) mask of a batch:
-    0 on the background, each component its largest ``1 + flat index``."""
-    connectivity = 3 if connectivity is None else connectivity
+    """Labels (f32) of the components of each 2-D or 3-D mask of a batch:
+    0 on the background, each component its largest ``1 + flat index``.
+    ``None`` is full connectivity of the mask's rank (skimage's default)."""
+    if connectivity is None:
+        connectivity = masks.dim() - 1
     fg = masks > 0
     n = masks[0].numel()
     if n >= 1 << 24:
@@ -98,3 +105,30 @@ def get_cut_mask(logits: torch.Tensor, thres: float = 0.5, nms: bool = False,
     if nms:
         masks = largest_cc_batch(masks, connectivity)
     return masks
+
+
+def largest_cc_per_class(seg: torch.Tensor, n_classes: int,
+                         connectivity: Optional[int] = None) -> torch.Tensor:
+    """Each class 1..n_classes-1 of each (H, W) map of ``seg`` (N, H, W)
+    kept to its largest component, the maps summed back (`cc.py:271-285`,
+    `get_ACDC_2DLargestCC`); int32. Every (sample, class) mask goes through
+    one batched :func:`largest_cc_batch`, so the fixpoint's flag is read
+    once a round for all of them."""
+    classes = torch.arange(1, n_classes, device=seg.device, dtype=seg.dtype)
+    shape = (1, -1) + (1,) * (seg.dim() - 1)
+    binary = (seg[:, None] == classes.view(shape)).to(torch.int32)
+    keep = largest_cc_batch(binary.reshape(-1, *seg.shape[1:]),
+                            connectivity).view(binary.shape)
+    return (keep * classes.view(shape).to(torch.int32)).sum(1,
+                                                            dtype=torch.int32)
+
+
+def get_multiclass_mask(logits: torch.Tensor, n_classes: int,
+                        nms: bool = False,
+                        connectivity: Optional[int] = None) -> torch.Tensor:
+    """Argmax pseudo-label (N, *S) int32 from (N, C, *S) logits, optionally
+    cleaned class by class (`cc.py:302-311`, `get_ACDC_masks`)."""
+    seg = torch.argmax(torch.softmax(logits, dim=1), dim=1).to(torch.int32)
+    if nms:
+        seg = largest_cc_per_class(seg, n_classes, connectivity)
+    return seg

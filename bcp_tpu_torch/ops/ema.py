@@ -1,6 +1,8 @@
-"""Mean-teacher EMA, parameters only (`bcp_tpu/ops/ema.py:30-34`, the LA
-flavour, `BCP_utils.py:78-81`): teacher <- alpha * teacher + (1 - alpha) *
-student, in place over the parameter lists."""
+"""Mean-teacher EMA (`bcp_tpu/ops/ema.py:30-40`): teacher <- alpha *
+teacher + (1 - alpha) * student, in place. The LA flavour
+(`BCP_utils.py:78-81`) moves the parameters only; ACDC's
+(`ACDC_BCP_train.py:123-129`, ``Config.ema_full_state``) the whole state,
+the BatchNorms' running statistics included."""
 
 from __future__ import annotations
 
@@ -9,10 +11,16 @@ import torch
 
 @torch.no_grad()
 def ema_update(teacher: torch.nn.Module, student: torch.nn.Module,
-               alpha: float) -> None:
-    """Update ``teacher``'s parameters from ``student``'s; buffers (BN
-    running statistics) are left as they are."""
+               alpha: float, full_state: bool = False) -> None:
+    """Update ``teacher``'s parameters from ``student``'s, and with
+    ``full_state`` its floating-point buffers too (the BN running mean and
+    variance). ``num_batches_tracked``, an integer counter with no JAX
+    counterpart that no forward reads (the momentum is fixed), is left as
+    it is."""
     t = list(teacher.parameters())
     s = list(student.parameters())
+    if full_state:
+        t += [b for b in teacher.buffers() if b.is_floating_point()]
+        s += [b for b in student.buffers() if b.is_floating_point()]
     torch._foreach_mul_(t, alpha)
     torch._foreach_add_(t, torch._foreach_mul(s, 1.0 - alpha))

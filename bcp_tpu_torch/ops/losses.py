@@ -1,4 +1,4 @@
-"""The LA losses: ``bcp_tpu/ops/losses.py`` :34-136 for the port.
+"""The LA and ACDC losses: ``bcp_tpu/ops/losses.py`` :34-152 for the port.
 
 Logits are (N, C, *S) (the JAX package's are channels-last), integer
 targets (N, *S). Same smoothing constants and reductions as the reference
@@ -47,6 +47,24 @@ def masked_dice_loss(logits: torch.Tensor, target: torch.Tensor,
     return 1.0 - dice.mean()
 
 
+def dice_loss_per_class(probs: torch.Tensor, target: torch.Tensor,
+                        n_classes: int, mask: Optional[torch.Tensor] = None,
+                        smooth: float = 1e-10) -> torch.Tensor:
+    """`DiceLoss` (`losses.py:77-99`, `utils/losses.py:79-134`): ``probs``
+    already softmaxed (N, C, *S); per class one dice over the batch and
+    the spatial dims together, squared terms in the denominator, the
+    optional mask on every sum; ``mean(1 - dice)``."""
+    t = _one_hot(target, n_classes, probs.dtype)
+    red = (0,) + tuple(range(2, probs.dim()))
+    pt, tt, pp = probs * t, t * t, probs * probs
+    if mask is not None:
+        m = mask.unsqueeze(1).to(probs.dtype)
+        pt, tt, pp = pt * m, tt * m, pp * m
+    dice = (2.0 * pt.sum(red) + smooth) / (pp.sum(red) + tt.sum(red)
+                                           + smooth)
+    return (1.0 - dice).mean()
+
+
 def pixel_ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-pixel cross entropy (`losses.py:100-105`), (N, *S)."""
     logp = torch.log_softmax(logits, dim=1)
@@ -80,3 +98,21 @@ def mix_loss_volume(logits: torch.Tensor, img_l: torch.Tensor,
     ce = image_w * masked_cross_entropy(logits, img_l, mask)
     ce = ce + patch_w * masked_cross_entropy(logits, patch_l, patch_mask)
     return (dice + ce) / 2.0
+
+
+def mix_loss_slice(logits: torch.Tensor, img_l: torch.Tensor,
+                   patch_l: torch.Tensor, mask: torch.Tensor, n_classes: int,
+                   l_weight: float = 1.0, u_weight: float = 0.5,
+                   unlab: bool = False):
+    """The ACDC mix loss (`losses.py:139-152`, `ACDC_BCP_train.py:167-179`):
+    ``mask == 1`` pixels carry ``img_l``; with ``unlab`` the image / patch
+    weights swap. Returns (dice, ce)."""
+    image_w, patch_w = (u_weight, l_weight) if unlab else (l_weight, u_weight)
+    patch_mask = 1 - mask
+    probs = torch.softmax(logits, dim=1)
+    dice = dice_loss_per_class(probs, img_l, n_classes, mask) * image_w
+    dice = dice + dice_loss_per_class(probs, patch_l, n_classes,
+                                      patch_mask) * patch_w
+    ce = image_w * masked_cross_entropy(logits, img_l, mask)
+    ce = ce + patch_w * masked_cross_entropy(logits, patch_l, patch_mask)
+    return dice, ce

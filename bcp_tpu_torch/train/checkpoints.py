@@ -5,7 +5,11 @@ The reference saves the student's state_dict (`LA_BCP_train.py:79-93,
 written here loads strictly into the eval model of slice 1 and into the
 reference's own V-Net. Per stage directory: ``iter_{i}_dice_{d}.pth`` at a
 new best validation, ``{model}_best_model.pth`` (the stage hand-off,
-`checkpoints.py:102-114`) and ``last.pth``.
+`checkpoints.py:102-130`) and ``last.pth``. Where the next stage takes the
+optimizer too (``Config.load_opt_state``, ACDC) these files hold the
+reference's ``save_net_opt`` layout, ``{'net': state_dict, 'opt':
+optimizer state}`` (`ACDC_BCP_train.py:60-74`), which
+``convert.load_reference_checkpoint`` unwraps to the state_dict.
 
 Beside them, ``last_state.pt`` holds the stage's full train state at its
 last validation (student, teacher, optimizer with its momentum buffers,
@@ -69,18 +73,31 @@ def _write(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
-def save_many(paths: Sequence[str], snap: Dict[str, Any]) -> None:
+def save_many(paths: Sequence[str], snap: Dict[str, Any],
+              with_opt: bool = False) -> None:
     """The student's state_dict of a :func:`snapshot` under several names
     (the tagged, best and last files of a validation: one device-to-host
-    fetch and one serialisation), and the full state beside the last of
+    fetch and one serialisation), with ``with_opt`` beside the optimizer's
+    state as ``{'net', 'opt'}``; and the full state beside the last of
     them as ``last_state.pt``."""
     host = _map(lambda t: t.to("cpu"), snap)
-    _write(host["model"], paths[0])
+    _write({"net": host["model"], "opt": host["optimizer"]} if with_opt
+           else host["model"], paths[0])
     for path in paths[1:]:
         tmp = f"{path}.tmp"
         shutil.copyfile(paths[0], tmp)
         os.replace(tmp, path)
     _write(host, os.path.join(os.path.dirname(paths[-1]), STATE_FILE))
+
+
+def load_optimizer_state(path: str) -> Dict[str, Any]:
+    """The optimizer state of a ``{'net', 'opt'}`` checkpoint (what the
+    ACDC self-train stage starts from, `checkpoints.py:116-130`)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(blob, dict) and isinstance(blob.get("opt"), dict)):
+        raise ValueError(f"{path} holds no optimizer state ('opt'): it was "
+                         f"not written with the optimizer")
+    return blob["opt"]
 
 
 def restore_state(path: str, state):

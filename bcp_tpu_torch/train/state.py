@@ -30,8 +30,9 @@ class TrainState:
 
 
 def lr_at(cfg: Config, stage: str, step: int) -> float:
-    """Pre-train: constant base_lr. LA self-train: base * 0.1**(step //
-    lr_decay_every) (`state.py:34-44`, `LA_BCP_train.py:273-276`)."""
+    """Pre-train, and self-train without ``lr_decay_every`` (ACDC): constant
+    base_lr. LA self-train: base * 0.1**(step // lr_decay_every)
+    (`state.py:34-44`, `LA_BCP_train.py:273-276`)."""
     if stage == "self" and cfg.lr_decay_every:
         return cfg.base_lr * 0.1 ** (step // cfg.lr_decay_every)
     return cfg.base_lr
@@ -45,8 +46,8 @@ def build_optimizer(cfg: Config,
     (`state.py:47-62`)."""
     if cfg.optimizer != "sgd":
         raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r}: the port has SGD (LA); Adam "
-            f"comes with the pancreas slice")
+            f"optimizer {cfg.optimizer!r}: the port has SGD (LA, ACDC); "
+            f"Adam comes with the pancreas slice (ROADMAP A3)")
     return torch.optim.SGD(params, lr=cfg.base_lr, momentum=cfg.momentum,
                            weight_decay=cfg.weight_decay)
 
@@ -84,4 +85,14 @@ def load_weights_only(state: TrainState, state_dict) -> TrainState:
     the optimizer and the step stay fresh."""
     state.model.load_state_dict(state_dict, strict=True)
     state.teacher.load_state_dict(state_dict, strict=True)
+    return state
+
+
+def load_with_opt(state: TrainState, state_dict, opt_state) -> TrainState:
+    """`load_net_opt` semantics (`checkpoints.py:116-130`,
+    `ACDC_BCP_train.py:335-336`): student weights, BN statistics and the
+    optimizer (its momentum buffers) from the checkpoint, the teacher from
+    the same weights; the step stays fresh."""
+    load_weights_only(state, state_dict)
+    state.optimizer.load_state_dict(opt_state)
     return state

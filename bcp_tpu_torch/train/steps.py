@@ -1,19 +1,22 @@
-"""The LA train steps: ``bcp_tpu/train/steps.py`` for the port.
+"""The LA and ACDC train steps: ``bcp_tpu/train/steps.py`` for the port.
 
 ``pretrain_step`` is the labelled copy-paste update (`steps.py:170-222`,
-`LA_BCP_train.py:145-170`); ``selftrain_step`` the bidirectional
-copy-paste mean-teacher update on the fused-sub-batch path
-(`steps.py:228-341`, `LA_BCP_train.py:234-270`): the teacher's pseudo-labels
+`LA_BCP_train.py:145-170`, `ACDC_BCP_train.py:237-255`);
+``selftrain_step`` the bidirectional copy-paste mean-teacher update on the
+fused-sub-batch path (`steps.py:228-341`, `LA_BCP_train.py:234-270`,
+`ACDC_BCP_train.py:354-390`): the teacher's pseudo-labels
 (:func:`pseudo_labels`) then the student's update
 (:func:`selftrain_update`), which a caller may also run on pseudo-labels of
-its own.
+its own. ``cfg.variant`` picks the pipeline's losses, mix order and
+pseudo-label rule; ``cfg.ema_full_state`` (ACDC) makes the EMA move the
+teacher's BN running statistics too.
 
 Batches are dicts of tensors on the device: ``img_a``, ``img_b``,
 ``uimg_a``, ``uimg_b`` (N, 1, *S) and ``lab_a``, ``lab_b`` (N, *S) integer.
 The random draws come from the caller: the copy-paste ``mask``
 (``ops.masks.cuboid_mask``) and, per forward, the dropout's draws: None
 (the dropouts' own generator), a ``torch.Generator`` or the keep masks, one
-(N, C) bool tensor per dropout in forward order.
+bool tensor per dropout in forward order (``layers.dropout_draws``).
 """
 
 from __future__ import annotations
@@ -41,9 +44,14 @@ def _draws(model, dropout):
 
 
 def _check(cfg: Config) -> None:
-    if cfg.variant != "la" or not cfg.fuse_subbatches:
+    if cfg.variant not in ("la", "acdc"):
         raise NotImplementedError(
-            "the port's steps are the LA steps with fused sub-batches")
+            f"variant {cfg.variant!r}: the port's steps are LA's and ACDC's "
+            f"(pancreas is ROADMAP A3)")
+    if not cfg.fuse_subbatches:
+        raise NotImplementedError(
+            "fuse_subbatches=False (two student forwards) is not ported "
+            "(ROADMAP A1)")
 
 
 def _update(state: TrainState, loss: torch.Tensor, cfg: Config,
@@ -61,16 +69,25 @@ def _update(state: TrainState, loss: torch.Tensor, cfg: Config,
 def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
                   mask: torch.Tensor, cfg: Config,
                   dropout=None) -> Dict[str, torch.Tensor]:
-    """One labelled update: CE + Dice of the student on the mixed labelled
-    pair (`steps.py:174-207`). Returns the losses (device scalars)."""
+    """One labelled update: (CE + Dice) / 2 of the student on the mixed
+    labelled pair (`steps.py:174-207`); LA's on the mixed label, ACDC's the
+    mix loss of both labels with weights 1. Returns the losses (device
+    scalars)."""
     _check(cfg)
     model = state.model
     img = mix(batch["img_a"], batch["img_b"], mask)
-    lab = mix(batch["lab_a"].long(), batch["lab_b"].long(), mask)
     with _draws(model, dropout):
         logits = model(img)[0]
-    ce = losses.cross_entropy_mean(logits, lab)
-    dice = losses.masked_dice_loss(logits, lab)
+    lab_a, lab_b = batch["lab_a"].long(), batch["lab_b"].long()
+    if cfg.variant == "acdc":
+        # `steps.py:178-188`: both weights 1.0
+        dice, ce = losses.mix_loss_slice(
+            logits, lab_a, lab_b, mask[None].expand(lab_a.shape),
+            cfg.num_classes, u_weight=1.0, unlab=True)
+    else:
+        lab = mix(lab_a, lab_b, mask)
+        ce = losses.cross_entropy_mean(logits, lab)
+        dice = losses.masked_dice_loss(logits, lab)
     loss = (ce + dice) / 2.0
     _update(state, loss, cfg, "pre")
     return {"loss": loss.detach(), "loss_dice": dice.detach(),
@@ -82,16 +99,32 @@ def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
                   cfg: Config, dropout=None) -> torch.Tensor:
     """The teacher's pseudo-labels of concat(uimg_a, uimg_b): one forward in
     train mode with live dropout and 2-group BatchNorm whose running-stat
-    updates are discarded (`steps.py:63-68,298-303`), then the thresholded,
-    largest-CC-cleaned mask (`get_cut_mask`)."""
+    updates are discarded (`steps.py:63-68,298-303`), then the mask of
+    ``cfg.pseudo_label`` (`steps.py:101-106`): the thresholded,
+    largest-CC-cleaned class 1 (``"binary"``, LA) or the argmax cleaned
+    class by class (``"argmax"``, ACDC)."""
     _check(cfg)
     teacher = state.teacher
     x = torch.cat([batch["uimg_a"], batch["uimg_b"]])
     with bn_groups(teacher, 2), frozen_running_stats(teacher), \
             _draws(teacher, dropout):
         logits = teacher(x)[0]
+    if cfg.pseudo_label == "argmax":
+        return cc.get_multiclass_mask(logits, cfg.num_classes, nms=cfg.nms,
+                                      connectivity=cfg.cc_connectivity)
     return cc.get_cut_mask(logits, nms=cfg.nms,
                            connectivity=cfg.cc_connectivity)
+
+
+def mixed_inputs(variant: str, batch: Dict[str, torch.Tensor],
+                 mask: torch.Tensor):
+    """The two bidirectionally mixed student inputs (`steps.py:115-126`):
+    LA mix(a, ua), mix(ub, b); ACDC mix(ua, a), mix(b, ub)."""
+    a, b = batch["img_a"], batch["img_b"]
+    ua, ub = batch["uimg_a"], batch["uimg_b"]
+    if variant == "acdc":
+        return mix(ua, a, mask), mix(b, ub, mask)
+    return mix(a, ua, mask), mix(ub, b, mask)
 
 
 def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -99,31 +132,40 @@ def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
                      dropout=None) -> Dict[str, torch.Tensor]:
     """The student's update on the pseudo-labels ``plab`` (concat of the
     two unlabelled sub-batches'): the bidirectional mix
-    (`mixed_inputs`, `steps.py:115-126`), one concat forward with 2-group
-    BatchNorm, the two mix losses (`steps.py:233-243`), backward, SGD, then
-    the EMA of the teacher's parameters from the new student
-    (`steps.py:323-334`)."""
+    (:func:`mixed_inputs`), one concat forward with 2-group BatchNorm, the
+    two mix losses (`steps.py:233-253`), backward, SGD, then the EMA of the
+    teacher from the new student (`steps.py:323-334`)."""
     _check(cfg)
     model = state.model
     usub = batch["uimg_a"].shape[0]
     plab = plab.long()
     plab_a, plab_b = plab[:usub], plab[usub:]
     lab_a, lab_b = batch["lab_a"].long(), batch["lab_b"].long()
-    in1 = mix(batch["img_a"], batch["uimg_a"], mask)
-    in2 = mix(batch["uimg_b"], batch["img_b"], mask)
+    in1, in2 = mixed_inputs(cfg.variant, batch, mask)
     n = in1.shape[0]
     with bn_groups(model, 2), _draws(model, dropout):
         logits = model(torch.cat([in1, in2]))[0]
     lmask = mask[None].expand(lab_a.shape)
-    loss_l = losses.mix_loss_volume(logits[:n], lab_a, plab_a, lmask,
-                                    u_weight=cfg.u_weight)
-    loss_u = losses.mix_loss_volume(logits[n:], plab_b, lab_b, lmask,
-                                    u_weight=cfg.u_weight, unlab=True)
-    loss = loss_l + loss_u
+    if cfg.variant == "acdc":
+        unl_d, unl_c = losses.mix_loss_slice(
+            logits[:n], plab_a, lab_a, lmask, cfg.num_classes,
+            u_weight=cfg.u_weight, unlab=True)
+        l_d, l_c = losses.mix_loss_slice(
+            logits[n:], lab_b, plab_b, lmask, cfg.num_classes,
+            u_weight=cfg.u_weight)
+        loss = ((unl_d + l_d) + (unl_c + l_c)) / 2.0
+        parts = {"loss_dice": unl_d + l_d, "loss_ce": unl_c + l_c}
+    else:
+        loss_l = losses.mix_loss_volume(logits[:n], lab_a, plab_a, lmask,
+                                        u_weight=cfg.u_weight)
+        loss_u = losses.mix_loss_volume(logits[n:], plab_b, lab_b, lmask,
+                                        u_weight=cfg.u_weight, unlab=True)
+        loss = loss_l + loss_u
+        parts = {"loss_l": loss_l, "loss_u": loss_u}
     _update(state, loss, cfg, "self")
-    ema_update(state.teacher, model, cfg.ema_alpha)
-    return {"loss": loss.detach(), "loss_l": loss_l.detach(),
-            "loss_u": loss_u.detach()}
+    ema_update(state.teacher, model, cfg.ema_alpha, cfg.ema_full_state)
+    return {"loss": loss.detach(),
+            **{k: v.detach() for k, v in parts.items()}}
 
 
 def selftrain_step(state: TrainState, batch: Dict[str, torch.Tensor],

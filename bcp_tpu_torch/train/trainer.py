@@ -1,12 +1,16 @@
-"""The LA two-stage BCP trainer: ``bcp_tpu/train/trainer.py``'s LA path for
-the port.
+"""The two-stage BCP trainer: ``bcp_tpu/train/trainer.py``'s LA and ACDC
+paths for the port.
 
 Copy-paste pre-training, then bidirectional copy-paste mean-teacher
 self-training from the pre-train stage's best checkpoint, with validation
-(mean Dice of the slice-1 sliding-window evaluator over the test split, as
-the reference does) every ``eval_every`` steps, best-Dice checkpoints, and
-an end-of-stage validation when a stage saved no best model
-(`trainer.py:271-590`). Step losses are read back one step late, so the
+every ``eval_every`` steps, best-Dice checkpoints, and an end-of-stage
+validation when a stage saved no best model (`trainer.py:271-590`). LA
+validates with the sliding-window evaluator on the test split (mean Dice,
+as the reference does), ACDC with the per-slice evaluator on the val split
+(per-class Dice and HD95; the score is the mean Dice over the classes,
+`trainer.py:238-256`). The self-train stage starts from the pre-train
+best's weights (LA) or from its weights and optimizer (ACDC,
+``cfg.load_opt_state``). Step losses are read back one step late, so the
 host enqueues step i+1 before it waits for step i's numbers.
 
 With ``cfg.async_val`` (the default, as in the JAX package) validations
@@ -46,19 +50,21 @@ import numpy as np
 import torch
 
 from bcp_tpu_torch.config import Config
-from bcp_tpu_torch.data.datasets import LAHeartDataset
+from bcp_tpu_torch.data.datasets import ACDCDataset, LAHeartDataset
 from bcp_tpu_torch.data.feed import BCPBatchFeeder
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.convert import load_reference_checkpoint
+from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
 from bcp_tpu_torch.ops.masks import cuboid_mask, cuboid_starts
 from bcp_tpu_torch.ops.ramps import sigmoid_rampup
 from bcp_tpu_torch.train.checkpoints import (STATE_FILE, best_model_path,
+                                             load_optimizer_state,
                                              restore_state, save_many,
                                              scan_best_dice, snapshot,
                                              snapshot_dir)
 from bcp_tpu_torch.train.state import (TrainState, build_model, init_state,
-                                       load_weights_only)
+                                       load_weights_only, load_with_opt)
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
 from bcp_tpu_torch.utils.logging import MetricWriter, setup_logging
 
@@ -140,7 +146,8 @@ class _ValWorker:
 
 class BCPTrainer:
     """``train_dataset`` (``len`` + ``sample_train``) and ``val_cases``
-    ((image, label) pairs) default to the LA train and test splits under
+    ((image, label) pairs) default to the variant's train split and its
+    validation split (LA's test list, ACDC's val list) under
     ``cfg.root_path``. ``on_step(stage, iteration)``, when given, is called
     after each iteration has enqueued its step and read back the step
     before it, ahead of that iteration's validation; ``chip_smoke.py``
@@ -150,8 +157,10 @@ class BCPTrainer:
                  val_cases: Optional[List[Tuple[np.ndarray, np.ndarray]]]
                  = None,
                  on_step: Optional[Callable[[str, int], None]] = None):
-        if cfg.variant != "la":
-            raise NotImplementedError("the port's trainer runs LA")
+        if cfg.variant not in ("la", "acdc"):
+            raise NotImplementedError(
+                f"variant {cfg.variant!r}: the port's trainer runs LA and "
+                f"ACDC (pancreas is ROADMAP A3)")
         if cfg.debug_nans or cfg.profile_dir is not None:
             raise NotImplementedError(
                 "debug_nans and profile_dir (with profile_steps) are not "
@@ -164,9 +173,15 @@ class BCPTrainer:
         self._val_cases = val_cases
         self.on_step = on_step
         self.eval_model = build_model(cfg, "test", self.device)
-        self.evaluator = SlidingWindowEvaluator(
-            self.eval_model, cfg.patch_size, cfg.num_classes, cfg.stride_xy,
-            cfg.stride_z, batch=cfg.eval_batch, device=self.device)
+        if cfg.dims == 3:
+            self.evaluator = SlidingWindowEvaluator(
+                self.eval_model, cfg.patch_size, cfg.num_classes,
+                cfg.stride_xy, cfg.stride_z, batch=cfg.eval_batch,
+                device=self.device)
+        else:
+            self.evaluator = Slice2DEvaluator(
+                self.eval_model, cfg.patch_size, cfg.num_classes,
+                device=self.device)
         #: validations run (the background warm-ups included), for callers
         #: that count kernel launches
         self.validations = 0
@@ -177,24 +192,35 @@ class BCPTrainer:
     # ---------------- validation ----------------
     def _load_val_cases(self):
         if self._val_cases is None:
-            ds = LAHeartDataset(self.cfg.root_path, "test")
+            if self.cfg.variant == "acdc":
+                ds = ACDCDataset(self.cfg.root_path, "val")
+            else:
+                ds = LAHeartDataset(self.cfg.root_path, "test")
             self._val_cases = [ds.load(i) for i in range(len(ds))]
         return self._val_cases
 
     def validate(self, state: TrainState) -> float:
-        """Mean Dice of the student (`var_all_case_LA`)."""
-        return self._validate_weights(state.model.state_dict())
+        """The student's validation score (`var_all_case_LA`, or ACDC's
+        mean Dice over classes)."""
+        return self._validate_weights(state.model.state_dict())[0]
 
-    def _validate_weights(self, weights, ready=None) -> float:
-        """Mean Dice of the eval model under ``weights`` (a student's
-        state_dict), on the calling thread's stream once ``ready`` (the
-        CUDA event of the weights' copy, if any) has passed."""
+    def _validate_weights(self, weights, ready=None):
+        """(score, per-class (dice, hd95) array or None) of the eval model
+        under ``weights`` (a student's state_dict), on the calling thread's
+        stream once ``ready`` (the CUDA event of the weights' copy, if any)
+        has passed. LA: the mean Dice over the cases. ACDC: the per-class
+        (dice, hd95) averaged over the volumes, whose zoomed images stay on
+        the device between validations, and the mean of its Dice column."""
         if ready is not None:
             torch.cuda.current_stream(self.device).wait_event(ready)
         self.eval_model.load_state_dict(weights)
         self.validations += 1
+        if self.cfg.variant == "acdc":
+            per_class = np.mean(self.evaluator.validate_volumes(
+                self._load_val_cases(), cache=True), axis=0)
+            return float(per_class[:, 0].mean()), per_class
         return self.evaluator.validate_dice(self._load_val_cases(),
-                                            rule=self.cfg.eval_rule)
+                                            rule=self.cfg.eval_rule), None
 
     def wait_for_validations(self) -> None:
         """Block until the background validation and checkpoint jobs
@@ -224,8 +250,13 @@ class BCPTrainer:
         logger.info("config: %s", cfg)
         state = init_state(cfg, self.device)
         if init_from is not None:
-            # weights-only hand-off (`LA_BCP_train.py:220-222`)
-            load_weights_only(state, load_reference_checkpoint(init_from))
+            weights = load_reference_checkpoint(init_from)
+            if cfg.load_opt_state:
+                # student and optimizer (`ACDC_BCP_train.py:335-336`)
+                load_with_opt(state, weights, load_optimizer_state(init_from))
+            else:
+                # weights only (`LA_BCP_train.py:220-222`)
+                load_weights_only(state, weights)
             logger.info("loaded from %s", init_from)
         state_path = os.path.join(out_dir, STATE_FILE)
         resumed_best = 0.0
@@ -238,7 +269,8 @@ class BCPTrainer:
                         "%.4f)", state_path, state.step, resumed_best)
         dataset = self.train_dataset
         if dataset is None:
-            dataset = LAHeartDataset(cfg.root_path, "train", cache=True)
+            dataset = (ACDCDataset if cfg.variant == "acdc" else
+                       LAHeartDataset)(cfg.root_path, "train", cache=True)
         feeder = BCPBatchFeeder(cfg, stage, dataset, self.device,
                                 store_cache=self.feed_store_cache)
         logger.info("%d iterations per epoch (device-store init %.1fs)",
@@ -248,10 +280,19 @@ class BCPTrainer:
         best = resumed_best     # written by validation jobs, in order
         best_path = best_model_path(out_dir, cfg.net_type)
         last_path = os.path.join(out_dir, "last.pth")
-        tags = ({"loss_dice": "pre/loss_dice", "loss_ce": "pre/loss_ce",
-                 "loss": "pre/loss_all"} if stage == "pre" else
-                {"loss_l": "Self/loss_l", "loss_u": "Self/loss_u",
-                 "loss": "Self/loss_all"})
+        # the reference's scalar tags: LA `pre/*`, `Self/*`
+        # (`LA_BCP_train.py:164-166,261-263`), ACDC `info/*`
+        # (`ACDC_BCP_train.py:259-261,392-394`; `trainer.py:592-630`)
+        if cfg.variant == "acdc":
+            tags = {"loss": "info/total_loss", "loss_dice": "info/mix_dice",
+                    "loss_ce": "info/mix_ce"}
+        elif stage == "pre":
+            tags = {"loss_dice": "pre/loss_dice", "loss_ce": "pre/loss_ce",
+                    "loss": "pre/loss_all"}
+        else:
+            tags = {"loss_l": "Self/loss_l", "loss_u": "Self/loss_u",
+                    "loss": "Self/loss_all"}
+        with_opt = cfg.load_opt_state
 
         def emit(it: int, metrics: Dict[str, torch.Tensor]) -> None:
             host = {k: float(v) for k, v in metrics.items()}
@@ -270,23 +311,30 @@ class BCPTrainer:
             writes of validation v."""
             nonlocal best
             tv = time.time()
-            dice = self._validate_weights(snap["model"], ready)
+            dice, per_class = self._validate_weights(snap["model"], ready)
             t_eval = time.time() - tv
             tc = time.time()
             if dice > best:
                 best = round(dice, 4)
                 tagged = os.path.join(out_dir, f"iter_{it}_dice_{best}.pth")
                 io_job = partial(save_many, [tagged, best_path, last_path],
-                                 snap)
+                                 snap, with_opt)
                 logger.info("save best model to %s", tagged)
             else:
-                io_job = partial(save_many, [last_path], snap)
+                io_job = partial(save_many, [last_path], snap, with_opt)
             if ckpt_worker is not None:
                 ckpt_worker.submit(io_job)
             else:
                 io_job()
-            writer.scalar("4_Var_dice/Dice", dice, it)
-            writer.scalar("4_Var_dice/Best_dice", best, it)
+            if per_class is not None:
+                # `ACDC_BCP_train.py:281-285`
+                for c, (c_dice, c_hd95) in enumerate(per_class, start=1):
+                    writer.scalar(f"info/val_{c}_dice", float(c_dice), it)
+                    writer.scalar(f"info/val_{c}_hd95", float(c_hd95), it)
+                writer.scalar("info/val_mean_dice", dice, it)
+            else:
+                writer.scalar("4_Var_dice/Dice", dice, it)
+                writer.scalar("4_Var_dice/Best_dice", best, it)
             logger.info("validation@%d: dice %.4f (eval %.2fs, ckpt %.2fs)",
                         it, dice, t_eval, time.time() - tc)
 
@@ -327,10 +375,14 @@ class BCPTrainer:
                     metrics = selftrain_step(state, batch, mask, cfg,
                                              dropout_gen, dropout_gen)
                     # computed and logged, never applied (reference parity,
-                    # `LA_BCP_train.py:246,260`)
-                    writer.scalar("Self/consistency", cfg.consistency *
-                                  sigmoid_rampup(it // 150,
-                                                 cfg.consistency_rampup), it)
+                    # `LA_BCP_train.py:246,260`); ACDC's helper carries a
+                    # factor 5 (`ACDC_BCP_train.py:119-121`)
+                    cw = cfg.consistency * sigmoid_rampup(
+                        it // 150, cfg.consistency_rampup)
+                    if cfg.variant == "acdc":
+                        writer.scalar("info/consistency_weight", 5.0 * cw, it)
+                    else:
+                        writer.scalar("Self/consistency", cw, it)
                 if warm_job is not None:
                     val_worker.submit(warm_job)
                     warm_job = None
@@ -363,7 +415,7 @@ class BCPTrainer:
                 # a stage shorter than eval_every, or one whose validations
                 # never beat 0, still hands a checkpoint on
                 best_dice = round(self.validate(state), 4)
-                save_many([best_path, last_path], snapshot(state))
+                save_many([best_path, last_path], snapshot(state), with_opt)
                 logger.info("end-of-stage save (dice %.4f) to %s", best_dice,
                             best_path)
         finally:
