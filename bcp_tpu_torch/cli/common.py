@@ -23,5 +23,6 @@ def load_eval_model(cfg: Config, ckpt_path: str,
             f"reference-layout .pth (orbax snapshots of the JAX package are "
             f"not readable by the port yet)")
     model = build_model(cfg, "test", device)
-    model.load_state_dict(load_reference_checkpoint(path), strict=True)
+    model.load_state_dict(load_reference_checkpoint(path, cfg.net_type),
+                          strict=True)
     return model

@@ -1,0 +1,105 @@
+"""Pancreas offline evaluation CLI of the port:
+``bcp_tpu/cli/test_pancreas.py`` (`test_model` + `test_calculate_metric`,
+`pancreas/train_pancreas.py:181-187`, `pancreas/test_util.py:188-198`).
+
+Each test volume is centre-cropped to the 96^3 patch, run through the
+sliding-window evaluator (stride 16/4, one window a cropped volume) with
+the argmax rule, and scored (dice, jaccard, hd95, asd), (0, 0, 0, 0) for
+an empty prediction; the means over the test list are printed and
+returned. Runs on the card by default.
+
+    python -m bcp_tpu_torch.cli.test_pancreas --data_root DATA/pancreas \\
+        --torch_ckpt VNet_pancreas_best_model.pth
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from bcp_tpu_torch.cli.common import load_eval_model
+from bcp_tpu_torch.config import pancreas_config
+from bcp_tpu_torch.data.datasets import PancreasDataset
+from bcp_tpu_torch.data.transforms import pancreas_test_transform
+from bcp_tpu_torch.eval.metrics import calculate_metric_percase
+from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
+from bcp_tpu_torch.train.checkpoints import best_model_path, snapshot_dir
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Pancreas BCP evaluation (CUDA)")
+    p.add_argument("--data_root", type=str, default="./data/pancreas")
+    p.add_argument("--label_percent", type=int, default=20)
+    p.add_argument("--stage_name", type=str, default="self_train")
+    # a reference-layout torch .pth (overrides --snapshot_root)
+    p.add_argument("--torch_ckpt", type=str, default=None)
+    p.add_argument("--snapshot_root", type=str, default="./result/cutmix")
+    p.add_argument("--stride_xy", type=int, default=16)
+    p.add_argument("--stride_z", type=int, default=4)
+    p.add_argument("--detail", type=int, default=1)
+    # NIfTI dumps need the writer of data/preprocess.py (ROADMAP A5)
+    p.add_argument("--save_result", type=int, default=0)
+    # multi-GPU evaluation comes with ROADMAP A4
+    p.add_argument("--num_devices", type=int, default=1)
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def build_evaluator(args, device=None):
+    """(cfg, evaluator) of the parsed flags, weights loaded."""
+    if args.save_result:
+        raise SystemExit("error: --save_result needs the NIfTI writer, which "
+                         "the port does not have yet (ROADMAP A5)")
+    if args.num_devices not in (0, 1):
+        raise SystemExit("error: the port evaluates on one device; "
+                         "--num_devices > 1 comes with the multi-GPU slice "
+                         "(ROADMAP A4)")
+    cfg = pancreas_config(label_percent=args.label_percent).replace(
+        root_path=args.data_root, snapshot_root=args.snapshot_root,
+        stride_xy=args.stride_xy, stride_z=args.stride_z)
+    device = device or args.device
+    ckpt = best_model_path(snapshot_dir(cfg, args.stage_name), cfg.net_type)
+    model = load_eval_model(cfg, ckpt, torch_ckpt=args.torch_ckpt,
+                            device=device)
+    print(f"init weight from {args.torch_ckpt or ckpt}")
+    return cfg, SlidingWindowEvaluator(
+        model, cfg.patch_size, cfg.num_classes, cfg.stride_xy, cfg.stride_z,
+        batch=cfg.eval_batch, device=device)
+
+
+def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
+    """Evaluate the test list (or ``dataset``: anything with ``len`` and
+    ``load(i) -> (image, label)`` volumes as read) and return the average
+    (dice, jc, hd95, asd)."""
+    cfg, evaluator = build_evaluator(args, device)
+    ds = dataset if dataset is not None else PancreasDataset(
+        cfg.root_path, "test", cache=False)
+    total = np.zeros(4)
+    loaded = []
+
+    def _images():
+        for i in range(len(ds)):
+            loaded.append(pancreas_test_transform(*ds.load(i),
+                                                  cfg.patch_size))
+            yield loaded[-1][0]
+
+    # the device runs the next volumes while the host scores volume i
+    for i, pred in enumerate(evaluator.infer_cases(_images(), rule="argmax",
+                                                   depth=3)):
+        m = ((0.0, 0.0, 0.0, 0.0) if pred.sum() == 0
+             else calculate_metric_percase(pred, loaded[i][1]))
+        if args.detail:
+            print("%02d,\t%.5f, %.5f, %.5f, %.5f" % (i, *m))
+        total += np.asarray(m)
+    avg = total / len(ds)
+    print(f"average metric is {avg}")
+    return avg
+
+
+def main(argv=None):
+    test_calculate_metric(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -15,13 +15,15 @@ go through :func:`state_dict_from_flax`, with the transposes of
 - TorchBatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var, and a zero ``num_batches_tracked``.
 
-Mappings: the LA ``"VNet"`` and the ACDC ``"unet"``.
+Mappings: the LA ``"VNet"``, the ACDC ``"unet"`` and the pancreas
+``"VNet_pancreas"`` (flat names, no BN leaves: its instance norm holds no
+state).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,11 @@ _BN_LEAVES = (
 #: contrastive heads (`networks/VNet.py:250-278`, `networks/unet.py:214-236`)
 DEAD_PREFIXES = ("projection_head", "prediction_head",
                  "contrastive_class_selector", "branchs")
+
+#: the dead prefixes by net type: the pancreas V-Net's ``branchs`` holds its
+#: block_nine and head (`torch_ckpt.py:132-145`), so only the contrastive
+#: heads are dead there
+_DEAD_BY_NET = {"VNet_pancreas": DEAD_PREFIXES[:3]}
 
 
 def _vnet_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
@@ -90,7 +97,32 @@ def _unet2d_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
     return out
 
 
-_MAPPINGS = {"VNet": _vnet_mapping, "unet": _unet2d_mapping}
+def _vnet_pancreas_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(state_dict prefix, flax path, kind) of the pancreas V-Net
+    (`torch_ckpt.py:132-145`, flat, instance norm): the LA V-Net's convs
+    without the ``encoder.`` / ``decoder.`` prefixes and without norms,
+    block_nine's conv at ``branchs.0.0.conv.0`` and the head at
+    ``branchs.0.1``, in the module's order."""
+    out = []
+    for blk, n, nxt, kind in (
+            ("block_one", 1, "block_one_dw", "conv"),
+            ("block_two", 2, "block_two_dw", "conv"),
+            ("block_three", 3, "block_three_dw", "conv"),
+            ("block_four", 3, "block_four_dw", "conv"),
+            ("block_five", 3, "block_five_up", "deconv"),
+            ("block_six", 3, "block_six_up", "deconv"),
+            ("block_seven", 3, "block_seven_up", "deconv"),
+            ("block_eight", 2, "block_eight_up", "deconv")):
+        out += [(f"{blk}.conv.{3 * i}", (blk, f"conv{i}"), "conv")
+                for i in range(n)]
+        out.append((f"{nxt}.conv.0", (nxt, kind), kind))
+    out.append(("branchs.0.0.conv.0", ("block_nine", "conv0"), "conv"))
+    out.append(("branchs.0.1", ("out_conv",), "conv"))
+    return out
+
+
+_MAPPINGS = {"VNet": _vnet_mapping, "unet": _unet2d_mapping,
+             "VNet_pancreas": _vnet_pancreas_mapping}
 
 
 def _get(tree, path: Tuple[str, ...]):
@@ -135,20 +167,29 @@ def state_dict_from_flax(variables: Dict[str, dict], net_type: str = "VNet",
     return out
 
 
-def load_reference_checkpoint(path: str) -> "OrderedDict[str, torch.Tensor]":
-    """A reference ``.pth`` as a state_dict for the port's module. Accepts a
-    raw state_dict (LA, `LA_BCP_train.py:287`), ``{'net': ...}`` and
+def load_reference_checkpoint(path: str, net_type: Optional[str] = None
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference ``.pth`` as a state_dict for the port's ``net_type``
+    module. Accepts a raw state_dict (LA, `LA_BCP_train.py:287`),
+    ``{'net': ...}`` (pancreas, `pancreas_utils.py:160-166`) and
     ``{'state_dict': ...}``; strips a ``module.`` (DataParallel) prefix and
-    drops the dead heads."""
+    drops the dead heads. ``branchs`` is dead in the LA V-Net and the U-Net
+    (and when no ``net_type`` is given); ``VNet_pancreas`` keeps it, and a
+    head at ``branchs.0.2`` (a branch built with a ``Dropout3d``,
+    `torch_ckpt.py:141-144`) moves to the port's ``branchs.0.1``."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     for wrapper in ("net", "state_dict"):
         if isinstance(blob, dict) and isinstance(blob.get(wrapper), dict):
             blob = blob[wrapper]
             break
+    dead = _DEAD_BY_NET.get(net_type, DEAD_PREFIXES)
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for k, v in blob.items():
         if k.startswith("module."):
             k = k[len("module."):]
-        if not k.startswith(DEAD_PREFIXES):
-            out[k] = v
+        if k.startswith(dead):
+            continue
+        if net_type == "VNet_pancreas" and k.startswith("branchs.0.2."):
+            k = "branchs.0.1." + k[len("branchs.0.2."):]
+        out[k] = v
     return out

@@ -1,4 +1,5 @@
-"""The LA and ACDC batch feed: ``bcp_tpu/data/feed.py`` for the port.
+"""The LA, ACDC and pancreas batch feed: ``bcp_tpu/data/feed.py`` for the
+port.
 
 Host path (``cfg.device_data_cache`` off): a background thread builds the
 next batches with numpy (two-stream indices, rot/flip, random crop;
@@ -6,8 +7,13 @@ next batches with numpy (two-stream indices, rot/flip, random crop;
 thread copies a built batch to the card from pinned memory without
 waiting.
 
+Pancreas (`feed.py:129-162`) zips four sequential streams, as the
+reference's four DataLoaders (`train_pancreas.py:144`): the labelled list
+oversampled, forwards (``lab_a``) and reversed (``lab_b``), and the
+unlabelled list forwards and reversed, with ``drop_last`` and no shuffle.
+
 Device-store path (``cfg.device_data_cache`` on, `feed.py:164-223`): the
-training volumes (LA) or slices (ACDC) live on the card
+training volumes (LA, pancreas) or slices (ACDC) live on the card
 (``data.device_store``) and a batch is a handful of host draws plus crops
 or gathers cut on the device. There is no
 background thread on this path: the crops are issued by the thread that
@@ -50,6 +56,18 @@ def labeled_count(cfg: Config) -> int:
     return cfg.labelnum
 
 
+def pancreas_steps_per_epoch(cfg: Config, stage: str, dataset) -> int:
+    """Batches of a pancreas epoch (`feed.py:146-153`): of the oversampled
+    labelled stream in pre-train, of the shorter of it and the unlabelled
+    stream in self-train (the reference zips its loaders). ``dataset`` is
+    the (labelled, unlabelled) pair of case lists."""
+    lab, unlab = dataset
+    n = lab.n_raw * cfg.labeled_oversample // cfg.labeled_sub_bs
+    if stage == "self":
+        n = min(n, unlab.n_raw // cfg.unlabeled_sub_bs)
+    return max(n, 1)
+
+
 class BCPBatchFeeder:
     """Endless train batches of one stage: ``stage="pre"`` the labelled pair
     (``img_a``, ``img_b``, ``lab_a``, ``lab_b``), ``"self"`` also the two
@@ -57,17 +75,18 @@ class BCPBatchFeeder:
     anything with ``len`` and ``sample_train(i, patch, rng)`` (which applies
     the variant's augmentation); its first :func:`labeled_count` cases are
     the labelled ones. One epoch is one pass over the labelled indices.
-    With ``cfg.device_data_cache`` the dataset
+    Pancreas' ``dataset`` is the (labelled, unlabelled) pair of case lists
+    instead (``PancreasDataset`` or ``PancreasList``) and its epoch is
+    :func:`pancreas_steps_per_epoch`. With ``cfg.device_data_cache`` the
+    dataset
     also needs ``load(i)``; ``store_cache`` is a dict shared by the feeders
     of one run, so the second stage reuses the first stage's store instead
     of uploading it again (`feed.py:71-76`)."""
 
     def __init__(self, cfg: Config, stage: str, dataset, device=None,
                  store_cache: Optional[dict] = None):
-        if cfg.variant not in ("la", "acdc"):
-            raise NotImplementedError(
-                f"variant {cfg.variant!r}: the port's feed is LA's and "
-                f"ACDC's (pancreas is ROADMAP A3)")
+        if cfg.variant not in ("la", "acdc", "pancreas"):
+            raise ValueError(f"unknown variant {cfg.variant!r}")
         self.cfg = cfg
         self.stage = stage
         self.dataset = dataset
@@ -75,13 +94,17 @@ class BCPBatchFeeder:
         self.rng = np.random.default_rng(cfg.seed)
         self.img_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                           else torch.float32)
-        n_lab = labeled_count(cfg)
-        total = len(dataset)
-        self.steps_per_epoch = max(n_lab // cfg.labeled_bs, 1)
-        self._index_stream = two_stream_batches(
-            list(range(n_lab)), list(range(n_lab, total)), cfg.batch_size,
-            cfg.unlabeled_bs, seed=cfg.seed)
+        if cfg.variant == "pancreas":
+            self._init_pancreas(dataset)
+        else:
+            n_lab = labeled_count(cfg)
+            total = len(dataset)
+            self.steps_per_epoch = max(n_lab // cfg.labeled_bs, 1)
+            self._index_stream = two_stream_batches(
+                list(range(n_lab)), list(range(n_lab, total)),
+                cfg.batch_size, cfg.unlabeled_bs, seed=cfg.seed)
         self._store = None
+        self._unlab_store = None
         self.store_init_s = 0.0
         self._thread = None
         if cfg.device_data_cache:
@@ -93,10 +116,49 @@ class BCPBatchFeeder:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def _init_pancreas(self, dataset) -> None:
+        """The four streams of `_init_pancreas` (`feed.py:129-162`) from
+        ``dataset`` = (labelled, unlabelled) case lists
+        (``PancreasDataset`` or ``PancreasList``)."""
+        cfg = self.cfg
+        lab, unlab = dataset
+        self.lab_a = lab.variant(cfg.labeled_oversample)
+        self.lab_b = lab.variant(cfg.labeled_oversample, reverse=True)
+        self.unlab_a = unlab.variant()
+        self.unlab_b = unlab.variant(reverse=True)
+        per, un = cfg.labeled_sub_bs, cfg.unlabeled_sub_bs
+        self.steps_per_epoch = pancreas_steps_per_epoch(cfg, self.stage,
+                                                        dataset)
+        n_lab, n_unlab = len(self.lab_a), len(self.unlab_a)
+
+        def stream():
+            # sequential, no shuffle, drop_last
+            # (`pancreas/dataloaders.py:185-194`), wrapped modulo
+            while True:
+                for i in range(self.steps_per_epoch):
+                    yield ([j % n_lab for j in range(i * per, (i + 1) * per)],
+                           [j % n_unlab for j in range(i * un, (i + 1) * un)])
+        self._index_stream = stream()
+
     def _init_device_store(self, cache: dict) -> None:
         from bcp_tpu_torch.data.device_store import (DeviceSliceStore,
                                                      DeviceVolumeStore)
         t0 = time.time()
+        if self.cfg.variant == "pancreas":
+            # the raw volumes of each list; the pre stage does not build
+            # the unlabelled store (`feed.py:193-205`)
+            def volumes(key, cases):
+                if key not in cache:
+                    cache[key] = DeviceVolumeStore.from_dataset(
+                        cases, range(cases.n_raw), self.cfg.patch_size,
+                        pad_extra=1, img_dtype=self.img_dtype,
+                        device=self.device)
+                return cache[key]
+            self._store = volumes("lab", self.lab_a.variant())
+            if self.stage == "self":
+                self._unlab_store = volumes("unlab", self.unlab_a.variant())
+            self.store_init_s = time.time() - t0
+            return
         store = cache.get("store")
         if store is None:
             cases = range(len(self.dataset))
@@ -126,6 +188,8 @@ class BCPBatchFeeder:
         the host path consumes its generator."""
         cfg = self.cfg
         lab_idx, unlab_idx = next(self._index_stream)
+        if cfg.variant == "pancreas":
+            return self._build_device_pancreas(lab_idx, unlab_idx)
         sub = cfg.labeled_sub_bs
         img, lab = self._sample_device(lab_idx)
         batch = {"img_a": img[:sub], "img_b": img[sub:],
@@ -136,10 +200,49 @@ class BCPBatchFeeder:
             batch["uimg_a"], batch["uimg_b"] = uimg[:usub], uimg[usub:]
         return batch
 
+    def _build_device_pancreas(self, lab_idx, unlab_idx):
+        """`feed.py:261-277`: stream index i is raw volume ``i % n`` in the
+        forward streams and ``n - (i % n) - 1`` in the reversed ones; every
+        ``lab_a`` crop draws before every ``lab_b`` crop, and the
+        unlabelled volumes are centre-cropped (no draws)."""
+        n = self._store.shapes.shape[0]
+        img_a, lab_a = self._store.sample_batch(
+            [i % n for i in lab_idx], self.rng, rotflip=False)
+        img_b, lab_b = self._store.sample_batch(
+            [n - (i % n) - 1 for i in lab_idx], self.rng, rotflip=False)
+        batch = {"img_a": img_a, "img_b": img_b, "lab_a": lab_a,
+                 "lab_b": lab_b}
+        if self.stage == "self":
+            nu = self._unlab_store.shapes.shape[0]
+            batch["uimg_a"] = self._unlab_store.center_batch(
+                [i % nu for i in unlab_idx])[0]
+            batch["uimg_b"] = self._unlab_store.center_batch(
+                [nu - (i % nu) - 1 for i in unlab_idx])[0]
+        return batch
+
+    def _build_pancreas(self, lab_idx, unlab_idx) -> Dict[str, np.ndarray]:
+        """`feed.py:283-300`: every ``lab_a`` crop, then every ``lab_b``
+        crop, then the centre-cropped unlabelled pair."""
+        patch = self.cfg.patch_size
+        batch = {}
+        for key, ds in (("a", self.lab_a), ("b", self.lab_b)):
+            samples = [ds.sample_train(i, patch, self.rng) for i in lab_idx]
+            batch[f"img_{key}"] = np.stack([s[0] for s in samples])[:, None]
+            batch[f"lab_{key}"] = np.stack([s[1] for s in samples]).astype(
+                np.uint8)
+        if self.stage == "self":
+            for key, ds in (("a", self.unlab_a), ("b", self.unlab_b)):
+                batch[f"uimg_{key}"] = np.stack(
+                    [ds.sample_train(i, patch, self.rng)[0]
+                     for i in unlab_idx])[:, None]
+        return batch
+
     def build(self) -> Dict[str, np.ndarray]:
         """The next batch on the host, f32 images (`feed.py:258-301`)."""
         cfg = self.cfg
         lab_idx, unlab_idx = next(self._index_stream)
+        if cfg.variant == "pancreas":
+            return self._build_pancreas(lab_idx, unlab_idx)
         sub = cfg.labeled_sub_bs
         samples = [self.dataset.sample_train(i, cfg.patch_size, self.rng)
                    for i in lab_idx]

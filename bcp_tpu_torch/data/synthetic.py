@@ -1,5 +1,5 @@
-"""Synthetic LA volumes and ACDC slices: ``bcp_tpu/data/synthetic.py`` for
-the port.
+"""Synthetic LA and pancreas volumes and ACDC slices:
+``bcp_tpu/data/synthetic.py`` for the port.
 
 Noisy backgrounds with one bright ellipsoid blob per foreground class
 whose voxels are that class. The generators draw the same numbers as the
@@ -100,4 +100,47 @@ def make_acdc_dataset(root: str, n_train_slices: int = 24, n_val: int = 2,
                         ("test", val)):
         with open(os.path.join(root, f"{name}.list"), "w") as f:
             f.write("\n".join(cases) + "\n")
+    return root
+
+
+def pancreas_cases(n_lab: int, n_unlab: int, n_test: int,
+                   shapes: Sequence[Sequence[int]] = ((48, 48, 48),),
+                   test_shape=None, seed: int = 0):
+    """Pancreas cases in memory, drawn in the order ``make_pancreas_dataset``
+    draws them (labelled, unlabelled, test): train case i of shape
+    ``shapes[i % len(shapes)]`` (counted over both train lists), test
+    cases of ``test_shape`` (default ``shapes[0]``). Labels are f32, as the
+    reference's h5 files store them. Returns (lab, unlab, test)."""
+    rng = np.random.default_rng(seed)
+    test_shape = tuple(test_shape or shapes[0])
+    out = []
+    for i in range(n_lab + n_unlab + n_test):
+        shape = (shapes[i % len(shapes)] if i < n_lab + n_unlab
+                 else test_shape)
+        image, label = blob_volume(rng, shape)
+        out.append((image, label.astype(np.float32)))
+    return (out[:n_lab], out[n_lab:n_lab + n_unlab],
+            out[n_lab + n_unlab:])
+
+
+def make_pancreas_dataset(root: str, n_lab: int = 4, n_unlab: int = 6,
+                          n_test: int = 2, shape=(48, 48, 48),
+                          seed: int = 0) -> str:
+    """Pancreas layout (`synthetic.py:90-109`): h5 files under <root>/h5 and
+    the train_lab / train_unlab / test .txt lists of their relative
+    paths."""
+    import h5py
+    groups = zip(("train_lab", "train_unlab", "test"),
+                 pancreas_cases(n_lab, n_unlab, n_test, (shape,), seed=seed))
+    os.makedirs(os.path.join(root, "h5"), exist_ok=True)
+    for group, cases in groups:
+        rels = []
+        for i, (image, label) in enumerate(cases):
+            rel = os.path.join("h5", f"{group}_{i:03d}.h5")
+            with h5py.File(os.path.join(root, rel), "w") as f:
+                f.create_dataset("image", data=image)
+                f.create_dataset("label", data=label)
+            rels.append(rel)
+        with open(os.path.join(root, f"{group}.txt"), "w") as f:
+            f.write("\n".join(rels) + "\n")
     return root

@@ -1,7 +1,8 @@
-"""Train augmentation: ``bcp_tpu/data/transforms.py``'s LA and ACDC parts
-for the port. Pure numpy (and scipy's nearest resampling) over an explicit
-``np.random.Generator``, drawing the same numbers in the same order as the
-JAX package, so the same seed gives the same samples bit for bit."""
+"""Train augmentation: ``bcp_tpu/data/transforms.py``'s LA, ACDC and
+pancreas parts for the port. Pure numpy (and scipy's nearest resampling)
+over an explicit ``np.random.Generator``, drawing the same numbers in the
+same order as the JAX package, so the same seed gives the same samples bit
+for bit."""
 
 from __future__ import annotations
 
@@ -61,7 +62,9 @@ def acdc_random_generator(image: np.ndarray, label: np.ndarray,
 
 
 def _pad_to_fit(arrs, output_size, extra: int):
-    """Pad-if-small, +3 per side for LA (`transforms.py:68-78`)."""
+    """Pad-if-small, +3 per side for LA, +1 for pancreas
+    (`transforms.py:63-71`): every axis is padded unless all of them exceed
+    the patch."""
     shape = arrs[0].shape
     if all(s > o for s, o in zip(shape, output_size)):
         return arrs
@@ -86,4 +89,29 @@ def la_train_transform(image, label, patch_size, rng):
     """RandomRotFlip -> RandomCrop (`transforms.py:113-118`)."""
     image, label = random_rot_flip(image, label, rng)
     image, label = random_crop(image, label, patch_size, rng)
+    return image.astype(np.float32), label.astype(np.int32)
+
+
+def center_crop(image: np.ndarray, label: np.ndarray,
+                output_size: Sequence[int], pad_extra: int = 3):
+    """Pad-then-centre-crop (`transforms.py:95-104`, `CenterCrop`); the
+    start is ``round((s - o) / 2)``, Python's round half to even."""
+    image, label = _pad_to_fit([image, label], output_size, pad_extra)
+    starts = [int(round((s - o) / 2.0))
+              for s, o in zip(image.shape, output_size)]
+    sl = tuple(slice(st, st + o) for st, o in zip(starts, output_size))
+    return image[sl], label[sl]
+
+
+def pancreas_train_transform(image, label, patch_size, rng):
+    """RandomCrop only, +1 padding (`transforms.py:121-125`,
+    `pancreas/dataloaders.py:120-125`)."""
+    image, label = random_crop(image, label, patch_size, rng, pad_extra=1)
+    return image.astype(np.float32), label.astype(np.int32)
+
+
+def pancreas_test_transform(image, label, patch_size):
+    """CenterCrop, +1 padding: the unlabelled stream and the test volumes
+    (`transforms.py:128-132`, `pancreas/dataloaders.py:127-136`)."""
+    image, label = center_crop(image, label, patch_size, pad_extra=1)
     return image.astype(np.float32), label.astype(np.int32)

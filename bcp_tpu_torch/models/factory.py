@@ -1,7 +1,7 @@
 """Model registry: ``bcp_tpu/models/factory.py`` for the port.
 
-The port carries the LA ``"VNet"`` and the ACDC ``"unet"``; the other
-reference models come with their slices.
+The port carries the LA ``"VNet"``, the ACDC ``"unet"`` and the pancreas
+``"VNet_pancreas"``; the other reference models come with their slices.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from typing import Any, Callable, Dict
 
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.models.unet2d import UNet2D
-from bcp_tpu_torch.models.vnet3d import VNet3D
+from bcp_tpu_torch.models.vnet3d import VNet3D, VNetPancreas
 
 
 def _unet(class_num: int, mode: str, n_filters=None, **kw):
@@ -31,6 +31,10 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "VNet": lambda class_num, mode, **kw: VNet3D(
         n_classes=class_num, has_dropout=(mode == "train"), **kw),
     "unet": _unet,
+    # `pancreas/Vnet.py:92-194` + `create_Vnet` (`factory.py:46-51`):
+    # instance norm, no dropout in either mode
+    "VNet_pancreas": lambda class_num, mode, **kw: VNetPancreas(
+        n_classes=class_num, **kw),
 }
 
 

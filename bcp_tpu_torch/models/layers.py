@@ -1,6 +1,6 @@
 """Building blocks of the port's models: convs with a compute dtype, the
-JAX package's grouped BatchNorm, element-wise and channel dropout, and the
-align-corners upsample.
+JAX package's grouped BatchNorm, the parameter-free instance norm,
+element-wise and channel dropout, and the align-corners upsample.
 
 Counterpart of ``bcp_tpu/models/layers.py``. Parameters stay f32 and keep
 ``nn.Conv2d`` / ``nn.Conv3d`` / ``nn.BatchNorm*d`` names and layouts, so a
@@ -184,6 +184,31 @@ class TorchBatchNorm(nn.Module):
                 self.running_var.copy_(var)
                 self.num_batches_tracked += G
         return y
+
+
+class InstanceNorm(nn.Module):
+    """Parameter-free instance norm, ``instance_norm`` (`layers.py:356-379`;
+    torch's ``InstanceNorm3d`` defaults, `pancreas/Vnet.py:25`): the mean
+    and biased variance over the spatial axes of each (sample, channel),
+    ``(x - mean) * rsqrt(var + eps)``, no running statistics, the same in
+    train and eval mode. The statistics are taken in f32 (f64 stays f64)
+    over x's own layout, so channels_last_3d activations are not copied to
+    NCDHW as ``F.instance_norm`` would; the normalisation is one
+    ``addcmul`` pass in the compute dtype. It holds no state_dict entries,
+    as the reference's ``InstanceNorm3d``."""
+
+    def __init__(self, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _cast(x, self.compute_dtype)
+        sdt = torch.promote_types(torch.float32, x.dtype)
+        var, mean = torch.var_mean(x.to(sdt), dim=tuple(range(2, x.dim())),
+                                   unbiased=False, keepdim=True)
+        rstd = torch.rsqrt(var + self.eps)
+        return torch.addcmul((-mean * rstd).to(x.dtype), x, rstd.to(x.dtype))
 
 
 class Dropout(nn.Module):

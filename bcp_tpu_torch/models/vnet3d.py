@@ -13,6 +13,12 @@ heads of the reference are omitted as in the JAX package. With
 ``has_dropout`` (train-mode construction) a channel dropout follows
 block_five and block_nine (`vnet3d.py:205-220`); it holds no parameters, so
 train and eval models share one state_dict layout.
+
+:class:`VNetPancreas` is the pancreas net (`pancreas/Vnet.py:92-194`,
+``VNet3D(normalization="instancenorm")`` in the JAX package): the same
+topology with a parameter-free instance norm and the reference's flat
+names, ``block_one.conv.0.weight`` ... ``block_eight_up.conv.0.bias``,
+block_nine and the head in its one-branch ``branchs`` list.
 """
 
 from __future__ import annotations
@@ -23,7 +29,19 @@ import torch
 from torch import nn
 
 from bcp_tpu_torch.models.layers import (ChannelDropout, Conv3d, Conv3x3x3,
-                                         ConvTranspose3d, TorchBatchNorm)
+                                         ConvTranspose3d, InstanceNorm,
+                                         TorchBatchNorm)
+
+
+def _norm(kind: str, n: int, dtype) -> nn.Module:
+    """The reference's ``normalization`` strings (`VNet.py:18-25`) the port
+    has: ``"batchnorm"`` (LA) and ``"instancenorm"`` (pancreas). Either
+    takes the Sequential slot after its conv, so indices step by 3."""
+    if kind == "batchnorm":
+        return TorchBatchNorm(n, dtype=dtype)
+    if kind == "instancenorm":
+        return InstanceNorm(dtype=dtype)
+    raise ValueError(f"unknown normalization {kind!r}")
 
 
 class ConvBlock(nn.Module):
@@ -31,13 +49,13 @@ class ConvBlock(nn.Module):
 
     def __init__(self, n_stages: int, n_in: int, n_out: int,
                  dtype: Optional[torch.dtype] = None,
-                 fused_bwd: bool = False):
+                 fused_bwd: bool = False, norm: str = "batchnorm"):
         super().__init__()
         ops = []
         for i in range(n_stages):
             ops += [Conv3x3x3(n_in if i == 0 else n_out, n_out, dtype=dtype,
                               fused_bwd=fused_bwd),
-                    TorchBatchNorm(n_out, dtype=dtype), nn.ReLU()]
+                    _norm(norm, n_out, dtype), nn.ReLU()]
         self.conv = nn.Sequential(*ops)
 
     def forward(self, x):
@@ -48,11 +66,12 @@ class DownBlock(nn.Module):
     """`DownsamplingConvBlock` (`VNet.py:68-92`): 2^3 conv, stride 2."""
 
     def __init__(self, n_in: int, n_out: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 norm: str = "batchnorm"):
         super().__init__()
         self.conv = nn.Sequential(
             Conv3d(n_in, n_out, 2, stride=2, dtype=dtype),
-            TorchBatchNorm(n_out, dtype=dtype), nn.ReLU())
+            _norm(norm, n_out, dtype), nn.ReLU())
 
     def forward(self, x):
         return self.conv(x)
@@ -62,11 +81,12 @@ class UpBlock(nn.Module):
     """`UpsamplingDeconvBlock` (`VNet.py:95-119`): 2^3 deconv, stride 2."""
 
     def __init__(self, n_in: int, n_out: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 norm: str = "batchnorm"):
         super().__init__()
         self.conv = nn.Sequential(
             ConvTranspose3d(n_in, n_out, 2, stride=2, dtype=dtype),
-            TorchBatchNorm(n_out, dtype=dtype), nn.ReLU())
+            _norm(norm, n_out, dtype), nn.ReLU())
 
     def forward(self, x):
         return self.conv(x)
@@ -150,5 +170,62 @@ class VNet3D(nn.Module):
             x = x.contiguous(memory_format=torch.channels_last_3d)
         x1, x2, x3, x4, x5 = self.encoder(x)
         logits, x8_up = self.decoder((x1, x2, x3, x4, self.enc_dropout(x5)))
+        return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
+            x8_up
+
+
+class VNetPancreas(nn.Module):
+    """The pancreas `VNet` (`pancreas/Vnet.py:92-194`): the V-Net topology
+    with instance norm, no dropout (`factory.py:46-51`) and the reference's
+    flat state_dict names. block_nine and the 1^3 head sit in the one
+    branch of ``branchs`` (``branchs.0.0.conv.0``, ``branchs.0.1``); the
+    reference's branch carries a ``Dropout3d`` at index 1 when built with
+    dropout, and ``convert.load_reference_checkpoint`` moves such a file's
+    head (``branchs.0.2``) to index 1. ``forward`` is
+    :class:`VNet3D`'s: (logits promoted to at least f32, x8_up). Instance
+    norm is per sample, so a concatenated batch gives exactly its parts'
+    forwards and the BatchNorm group context has nothing to set."""
+
+    def __init__(self, n_channels: int = 1, n_classes: int = 2,
+                 n_filters: int = 16, dtype: Optional[torch.dtype] = None,
+                 fused_bwd: bool = False):
+        super().__init__()
+        nf, f, n = n_filters, fused_bwd, "instancenorm"
+        self.compute_dtype = dtype
+        self.block_one = ConvBlock(1, n_channels, nf, dtype, f, n)
+        self.block_one_dw = DownBlock(nf, 2 * nf, dtype, n)
+        self.block_two = ConvBlock(2, 2 * nf, 2 * nf, dtype, f, n)
+        self.block_two_dw = DownBlock(2 * nf, 4 * nf, dtype, n)
+        self.block_three = ConvBlock(3, 4 * nf, 4 * nf, dtype, f, n)
+        self.block_three_dw = DownBlock(4 * nf, 8 * nf, dtype, n)
+        self.block_four = ConvBlock(3, 8 * nf, 8 * nf, dtype, f, n)
+        self.block_four_dw = DownBlock(8 * nf, 16 * nf, dtype, n)
+        self.block_five = ConvBlock(3, 16 * nf, 16 * nf, dtype, f, n)
+        self.block_five_up = UpBlock(16 * nf, 8 * nf, dtype, n)
+        self.block_six = ConvBlock(3, 8 * nf, 8 * nf, dtype, f, n)
+        self.block_six_up = UpBlock(8 * nf, 4 * nf, dtype, n)
+        self.block_seven = ConvBlock(3, 4 * nf, 4 * nf, dtype, f, n)
+        self.block_seven_up = UpBlock(4 * nf, 2 * nf, dtype, n)
+        self.block_eight = ConvBlock(2, 2 * nf, 2 * nf, dtype, f, n)
+        self.block_eight_up = UpBlock(2 * nf, nf, dtype, n)
+        self.branchs = nn.ModuleList([nn.Sequential(
+            ConvBlock(1, nf, nf, dtype, f, n),
+            Conv3d(nf, n_classes, 1, dtype=dtype))])
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        if x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last_3d)
+        x1 = self.block_one(x)
+        x2 = self.block_two(self.block_one_dw(x1))
+        x3 = self.block_three(self.block_two_dw(x2))
+        x4 = self.block_four(self.block_three_dw(x3))
+        x5 = self.block_five(self.block_four_dw(x4))
+        x6 = self.block_six(self.block_five_up(x5) + x4)
+        x7 = self.block_seven(self.block_six_up(x6) + x3)
+        x8 = self.block_eight(self.block_seven_up(x7) + x2)
+        x8_up = self.block_eight_up(x8) + x1
+        logits = self.branchs[0](x8_up)
         return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
             x8_up

@@ -1,4 +1,5 @@
-"""Copy-paste masks: ``bcp_tpu/ops/masks.py``'s LA part for the port.
+"""Copy-paste masks: ``bcp_tpu/ops/masks.py``'s LA, ACDC and pancreas parts
+for the port.
 
 Polarity as in the reference (`BCP_utils.py:26`): ``mask == 0`` marks the
 pasted patch, ``mask == 1`` the kept image; the mixed input is
@@ -49,6 +50,23 @@ def cuboid_mask(spatial: Sequence[int], starts: Sequence[int],
     """The single zero-cuboid copy-paste mask of ``context_mask``
     (`masks.py:42-60`) at the given start offsets."""
     return box_mask(spatial, starts, cuboid_sizes(spatial, ratio), device)
+
+
+def fixed_starts(rng: np.random.Generator, spatial: Sequence[int],
+                 patch: int) -> Tuple[int, ...]:
+    """Start offsets of the pancreas cube, uniform in [0, dim - patch) per
+    dim (`masks.py:63-78`; the reference's ``np.random.randint``), from a
+    numpy generator."""
+    return tuple(int(rng.integers(0, int(dim) - int(patch)))
+                 for dim in spatial)
+
+
+def cuboid_mask_fixed(spatial: Sequence[int], starts: Sequence[int],
+                      patch: int, device=None) -> torch.Tensor:
+    """The pancreas copy-paste mask, ``cuboid_mask_fixed``
+    (`masks.py:63-78`, `pancreas_utils.py:187-200`): a ``patch``^3 cube of
+    zeros at the given start offsets."""
+    return box_mask(spatial, starts, (int(patch),) * len(spatial), device)
 
 
 def mix(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

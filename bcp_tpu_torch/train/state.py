@@ -40,14 +40,20 @@ def lr_at(cfg: Config, stage: str, step: int) -> float:
 
 def build_optimizer(cfg: Config,
                     params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
-    """``optim.SGD(lr, momentum=0.9, weight_decay=1e-4)``
-    (`LA_BCP_train.py:135,218`): the decay is added to the gradient before
-    the momentum trace, the ordering of ``build_optimizer``
-    (`state.py:47-62`)."""
+    """``build_optimizer`` (`state.py:47-65`). SGD:
+    ``optim.SGD(lr, momentum=0.9, weight_decay=1e-4)``
+    (`LA_BCP_train.py:135,218`), the decay added to the gradient before the
+    momentum trace. Adam: pancreas' ``optim.Adam(lr=1e-3)``
+    (`pancreas/dataloaders.py:182`), betas (0.9, 0.999), eps 1e-8, no
+    decay, which is ``optax.adam``: optax's ``m_hat / (sqrt(v_hat) + eps)``
+    and torch's ``(m / bc1) / (sqrt(v) / sqrt(bc2) + eps)`` are the same
+    function. Its state (moments and step count) travels with the
+    pre-train best to the self stage, as optax's ``count`` does."""
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=cfg.base_lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=cfg.weight_decay)
     if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r}: the port has SGD (LA, ACDC); "
-            f"Adam comes with the pancreas slice (ROADMAP A3)")
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return torch.optim.SGD(params, lr=cfg.base_lr, momentum=cfg.momentum,
                            weight_decay=cfg.weight_decay)
 
@@ -90,9 +96,10 @@ def load_weights_only(state: TrainState, state_dict) -> TrainState:
 
 def load_with_opt(state: TrainState, state_dict, opt_state) -> TrainState:
     """`load_net_opt` semantics (`checkpoints.py:116-130`,
-    `ACDC_BCP_train.py:335-336`): student weights, BN statistics and the
-    optimizer (its momentum buffers) from the checkpoint, the teacher from
-    the same weights; the step stays fresh."""
+    `ACDC_BCP_train.py:335-336`, `train_pancreas.py:140-141`): student
+    weights, BN statistics and the optimizer (SGD's momentum buffers, or
+    Adam's moments and step count) from the checkpoint, the teacher from
+    the same weights; the stage's step stays fresh."""
     load_weights_only(state, state_dict)
     state.optimizer.load_state_dict(opt_state)
     return state

@@ -1,10 +1,13 @@
-"""The LA and ACDC train steps: ``bcp_tpu/train/steps.py`` for the port.
+"""The LA, ACDC and pancreas train steps: ``bcp_tpu/train/steps.py`` for the
+port.
 
 ``pretrain_step`` is the labelled copy-paste update (`steps.py:170-222`,
-`LA_BCP_train.py:145-170`, `ACDC_BCP_train.py:237-255`);
-``selftrain_step`` the bidirectional copy-paste mean-teacher update on the
-fused-sub-batch path (`steps.py:228-341`, `LA_BCP_train.py:234-270`,
-`ACDC_BCP_train.py:354-390`): the teacher's pseudo-labels
+`LA_BCP_train.py:145-170`, `ACDC_BCP_train.py:237-255`,
+`train_pancreas.py:80-99`); ``selftrain_step`` the bidirectional
+copy-paste mean-teacher update on the fused-sub-batch path
+(`steps.py:228-341`, `LA_BCP_train.py:234-270`,
+`ACDC_BCP_train.py:354-390`, `train_pancreas.py:146-174`): the teacher's
+pseudo-labels
 (:func:`pseudo_labels`) then the student's update
 (:func:`selftrain_update`), which a caller may also run on pseudo-labels of
 its own. ``cfg.variant`` picks the pipeline's losses, mix order and
@@ -14,7 +17,8 @@ teacher's BN running statistics too.
 Batches are dicts of tensors on the device: ``img_a``, ``img_b``,
 ``uimg_a``, ``uimg_b`` (N, 1, *S) and ``lab_a``, ``lab_b`` (N, *S) integer.
 The random draws come from the caller: the copy-paste ``mask``
-(``ops.masks.cuboid_mask``) and, per forward, the dropout's draws: None
+(``ops.masks.cuboid_mask``, pancreas' ``cuboid_mask_fixed``) and, per
+forward, the dropout's draws: None
 (the dropouts' own generator), a ``torch.Generator`` or the keep masks, one
 bool tensor per dropout in forward order (``layers.dropout_draws``).
 """
@@ -44,10 +48,8 @@ def _draws(model, dropout):
 
 
 def _check(cfg: Config) -> None:
-    if cfg.variant not in ("la", "acdc"):
-        raise NotImplementedError(
-            f"variant {cfg.variant!r}: the port's steps are LA's and ACDC's "
-            f"(pancreas is ROADMAP A3)")
+    if cfg.variant not in ("la", "acdc", "pancreas"):
+        raise ValueError(f"unknown variant {cfg.variant!r}")
     if not cfg.fuse_subbatches:
         raise NotImplementedError(
             "fuse_subbatches=False (two student forwards) is not ported "
@@ -56,7 +58,7 @@ def _check(cfg: Config) -> None:
 
 def _update(state: TrainState, loss: torch.Tensor, cfg: Config,
             stage: str) -> None:
-    """backward, then one SGD step at this step's learning rate."""
+    """backward, then one optimizer step at this step's learning rate."""
     opt = state.optimizer
     for group in opt.param_groups:
         group["lr"] = lr_at(cfg, stage, state.step)
@@ -70,9 +72,11 @@ def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
                   mask: torch.Tensor, cfg: Config,
                   dropout=None) -> Dict[str, torch.Tensor]:
     """One labelled update: (CE + Dice) / 2 of the student on the mixed
-    labelled pair (`steps.py:174-207`); LA's on the mixed label, ACDC's the
-    mix loss of both labels with weights 1. Returns the losses (device
-    scalars)."""
+    labelled pair (`steps.py:174-207`); LA's and pancreas' on the mixed
+    label, ACDC's the mix loss of both labels with weights 1. Returns the
+    losses (device scalars), and for pancreas ``train_dice``: the class-1
+    probability >= 0.5 against the mixed label, a global Dice with 1e-6
+    smoothing, in f32 (`steps.py:195-207`)."""
     _check(cfg)
     model = state.model
     img = mix(batch["img_a"], batch["img_b"], mask)
@@ -89,9 +93,17 @@ def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
         ce = losses.cross_entropy_mean(logits, lab)
         dice = losses.masked_dice_loss(logits, lab)
     loss = (ce + dice) / 2.0
+    out = {"loss": loss.detach(), "loss_dice": dice.detach(),
+           "loss_ce": ce.detach()}
+    if cfg.variant == "pancreas":
+        with torch.no_grad():
+            pred = (torch.softmax(logits.float(), dim=1)[:, 1]
+                    >= 0.5).float()
+            labf = lab.float()
+            out["train_dice"] = 2.0 * (pred * labf).sum() / (
+                pred.sum() + labf.sum() + 1e-6)
     _update(state, loss, cfg, "pre")
-    return {"loss": loss.detach(), "loss_dice": dice.detach(),
-            "loss_ce": ce.detach()}
+    return out
 
 
 @torch.no_grad()
@@ -119,11 +131,14 @@ def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
 def mixed_inputs(variant: str, batch: Dict[str, torch.Tensor],
                  mask: torch.Tensor):
     """The two bidirectionally mixed student inputs (`steps.py:115-126`):
-    LA mix(a, ua), mix(ub, b); ACDC mix(ua, a), mix(b, ub)."""
+    LA mix(a, ua), mix(ub, b); ACDC mix(ua, a), mix(b, ub); pancreas
+    mix(ua, b), mix(a, ub) (`train_pancreas.py:152-154`)."""
     a, b = batch["img_a"], batch["img_b"]
     ua, ub = batch["uimg_a"], batch["uimg_b"]
     if variant == "acdc":
         return mix(ua, a, mask), mix(b, ub, mask)
+    if variant == "pancreas":
+        return mix(ua, b, mask), mix(a, ub, mask)
     return mix(a, ua, mask), mix(ub, b, mask)
 
 
@@ -155,6 +170,14 @@ def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
             u_weight=cfg.u_weight)
         loss = ((unl_d + l_d) + (unl_c + l_c)) / 2.0
         parts = {"loss_dice": unl_d + l_d, "loss_ce": unl_c + l_c}
+    elif cfg.variant == "pancreas":
+        # `steps.py:253-263`, `train_pancreas.py:155-166`
+        loss_1 = losses.mix_loss_volume(logits[:n], plab_a, lab_b, lmask,
+                                        u_weight=cfg.u_weight, unlab=True)
+        loss_2 = losses.mix_loss_volume(logits[n:], lab_a, plab_b, lmask,
+                                        u_weight=cfg.u_weight)
+        loss = loss_1 + loss_2
+        parts = {"loss_l": loss_1, "loss_u": loss_2}
     else:
         loss_l = losses.mix_loss_volume(logits[:n], lab_a, plab_a, lmask,
                                         u_weight=cfg.u_weight)

@@ -1,5 +1,5 @@
-"""The two-stage BCP trainer: ``bcp_tpu/train/trainer.py``'s LA and ACDC
-paths for the port.
+"""The two-stage BCP trainer: ``bcp_tpu/train/trainer.py``'s LA, ACDC and
+pancreas paths for the port.
 
 Copy-paste pre-training, then bidirectional copy-paste mean-teacher
 self-training from the pre-train stage's best checkpoint, with validation
@@ -8,10 +8,15 @@ validation when a stage saved no best model (`trainer.py:271-590`). LA
 validates with the sliding-window evaluator on the test split (mean Dice,
 as the reference does), ACDC with the per-slice evaluator on the val split
 (per-class Dice and HD95; the score is the mean Dice over the classes,
-`trainer.py:238-256`). The self-train stage starts from the pre-train
-best's weights (LA) or from its weights and optimizer (ACDC,
+`trainer.py:238-256`), pancreas with the sliding-window evaluator's
+argmax rule on the test list, each volume centre-cropped to the patch
+(`trainer.py:209-231,259-267`). The self-train stage starts from the
+pre-train best's weights (LA) or from its weights and optimizer (ACDC's
+momentum buffers, pancreas' Adam moments and step count;
 ``cfg.load_opt_state``). Step losses are read back one step late, so the
-host enqueues step i+1 before it waits for step i's numbers.
+host enqueues step i+1 before it waits for step i's numbers; pancreas
+feeds them to its per-epoch meters (`trainer.py:414-447`) from that same
+read-back.
 
 With ``cfg.async_val`` (the default, as in the JAX package) validations
 and checkpoint writes run on background workers in submission order
@@ -50,13 +55,16 @@ import numpy as np
 import torch
 
 from bcp_tpu_torch.config import Config
-from bcp_tpu_torch.data.datasets import ACDCDataset, LAHeartDataset
+from bcp_tpu_torch.data.datasets import (ACDCDataset, LAHeartDataset,
+                                         PancreasDataset)
 from bcp_tpu_torch.data.feed import BCPBatchFeeder
+from bcp_tpu_torch.data.transforms import pancreas_test_transform
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.convert import load_reference_checkpoint
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
-from bcp_tpu_torch.ops.masks import cuboid_mask, cuboid_starts
+from bcp_tpu_torch.ops.masks import (cuboid_mask, cuboid_mask_fixed,
+                                     cuboid_starts, fixed_starts)
 from bcp_tpu_torch.ops.ramps import sigmoid_rampup
 from bcp_tpu_torch.train.checkpoints import (STATE_FILE, best_model_path,
                                              load_optimizer_state,
@@ -66,7 +74,8 @@ from bcp_tpu_torch.train.checkpoints import (STATE_FILE, best_model_path,
 from bcp_tpu_torch.train.state import (TrainState, build_model, init_state,
                                        load_weights_only, load_with_opt)
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
-from bcp_tpu_torch.utils.logging import MetricWriter, setup_logging
+from bcp_tpu_torch.utils.logging import (MetricWriter, cut_pre_measures,
+                                         cutmix_ft_measures, setup_logging)
 
 
 def iteration_draws(stage_seed: int, it: int,
@@ -79,6 +88,22 @@ def iteration_draws(stage_seed: int, it: int,
         1, np.uint64)[0]
     dropout_gen.manual_seed(int(seed >> 1))
     return np.random.default_rng([stage_seed, it, 0])
+
+
+def copy_paste_mask(cfg: Config, rng: np.random.Generator, device=None):
+    """The iteration's copy-paste mask (`steps.py:85-98`): pancreas' fixed
+    ``mask_patch`` cube, or the ``mask_ratio`` cuboid of LA and ACDC."""
+    patch = cfg.patch_size
+    if cfg.mask_kind == "fixed":
+        return cuboid_mask_fixed(
+            patch, fixed_starts(rng, patch, cfg.mask_patch), cfg.mask_patch,
+            device)
+    if cfg.mask_kind != "ratio":
+        raise NotImplementedError(
+            f"mask_kind {cfg.mask_kind!r}: the port has the 'ratio' and "
+            f"'fixed' masks, the ones the CLIs use")
+    return cuboid_mask(patch, cuboid_starts(rng, patch, cfg.mask_ratio),
+                       cfg.mask_ratio, device)
 
 
 class _ValWorker:
@@ -145,10 +170,13 @@ class _ValWorker:
 
 
 class BCPTrainer:
-    """``train_dataset`` (``len`` + ``sample_train``) and ``val_cases``
-    ((image, label) pairs) default to the variant's train split and its
-    validation split (LA's test list, ACDC's val list) under
-    ``cfg.root_path``. ``on_step(stage, iteration)``, when given, is called
+    """``train_dataset`` (``len`` + ``sample_train``; for pancreas a
+    (labelled, unlabelled) pair of ``PancreasDataset`` or ``PancreasList``)
+    and ``val_cases`` ((image, label) pairs; pancreas' are centre-cropped
+    here, as the test volumes read from disk) default to the variant's
+    train split and its validation split (LA's and pancreas' test list,
+    ACDC's val list) under ``cfg.root_path``. ``on_step(stage,
+    iteration)``, when given, is called
     after each iteration has enqueued its step and read back the step
     before it, ahead of that iteration's validation; ``chip_smoke.py``
     times and traces the loop's steps with it."""
@@ -157,10 +185,8 @@ class BCPTrainer:
                  val_cases: Optional[List[Tuple[np.ndarray, np.ndarray]]]
                  = None,
                  on_step: Optional[Callable[[str, int], None]] = None):
-        if cfg.variant not in ("la", "acdc"):
-            raise NotImplementedError(
-                f"variant {cfg.variant!r}: the port's trainer runs LA and "
-                f"ACDC (pancreas is ROADMAP A3)")
+        if cfg.variant not in ("la", "acdc", "pancreas"):
+            raise ValueError(f"unknown variant {cfg.variant!r}")
         if cfg.debug_nans or cfg.profile_dir is not None:
             raise NotImplementedError(
                 "debug_nans and profile_dir (with profile_steps) are not "
@@ -170,7 +196,8 @@ class BCPTrainer:
         self.pre_dir = snapshot_dir(cfg, "pre_train")
         self.self_dir = snapshot_dir(cfg, "self_train")
         self.train_dataset = train_dataset
-        self._val_cases = val_cases
+        self._val_cases = (None if val_cases is None
+                           else self._val_prepared(val_cases))
         self.on_step = on_step
         self.eval_model = build_model(cfg, "test", self.device)
         if cfg.dims == 3:
@@ -191,13 +218,25 @@ class BCPTrainer:
 
     # ---------------- validation ----------------
     def _load_val_cases(self):
+        cfg = self.cfg
         if self._val_cases is None:
-            if self.cfg.variant == "acdc":
-                ds = ACDCDataset(self.cfg.root_path, "val")
+            if cfg.variant == "acdc":
+                ds = ACDCDataset(cfg.root_path, "val")
+            elif cfg.variant == "pancreas":
+                ds = PancreasDataset(cfg.root_path, "test", cache=False)
             else:
-                ds = LAHeartDataset(self.cfg.root_path, "test")
-            self._val_cases = [ds.load(i) for i in range(len(ds))]
+                ds = LAHeartDataset(cfg.root_path, "test")
+            self._val_cases = self._val_prepared(
+                [ds.load(i) for i in range(len(ds))])
         return self._val_cases
+
+    def _val_prepared(self, cases):
+        """Pancreas validates on centre-cropped volumes
+        (`trainer.py:223-230`); LA and ACDC on the volumes as read."""
+        if self.cfg.variant != "pancreas":
+            return cases
+        return [pancreas_test_transform(img, lab, self.cfg.patch_size)
+                for img, lab in cases]
 
     def validate(self, state: TrainState) -> float:
         """The student's validation score (`var_all_case_LA`, or ACDC's
@@ -250,7 +289,7 @@ class BCPTrainer:
         logger.info("config: %s", cfg)
         state = init_state(cfg, self.device)
         if init_from is not None:
-            weights = load_reference_checkpoint(init_from)
+            weights = load_reference_checkpoint(init_from, cfg.net_type)
             if cfg.load_opt_state:
                 # student and optimizer (`ACDC_BCP_train.py:335-336`)
                 load_with_opt(state, weights, load_optimizer_state(init_from))
@@ -268,7 +307,10 @@ class BCPTrainer:
             logger.info("resumed from %s at step %d (best dice so far "
                         "%.4f)", state_path, state.step, resumed_best)
         dataset = self.train_dataset
-        if dataset is None:
+        if dataset is None and cfg.variant == "pancreas":
+            dataset = (PancreasDataset(cfg.root_path, "train_lab"),
+                       PancreasDataset(cfg.root_path, "train_unlab"))
+        elif dataset is None:
             dataset = (ACDCDataset if cfg.variant == "acdc" else
                        LAHeartDataset)(cfg.root_path, "train", cache=True)
         feeder = BCPBatchFeeder(cfg, stage, dataset, self.device,
@@ -283,9 +325,15 @@ class BCPTrainer:
         # the reference's scalar tags: LA `pre/*`, `Self/*`
         # (`LA_BCP_train.py:164-166,261-263`), ACDC `info/*`
         # (`ACDC_BCP_train.py:259-261,392-394`; `trainer.py:592-630`)
+        meters = None
         if cfg.variant == "acdc":
             tags = {"loss": "info/total_loss", "loss_dice": "info/mix_dice",
                     "loss_ce": "info/mix_ce"}
+        elif cfg.variant == "pancreas":
+            # scalars through the meters (`pancreas_utils.py:146-149`)
+            tags = {}
+            meters = (cut_pre_measures if stage == "pre" else
+                      cutmix_ft_measures)(writer, logger)
         elif stage == "pre":
             tags = {"loss_dice": "pre/loss_dice", "loss_ce": "pre/loss_ce",
                     "loss": "pre/loss_all"}
@@ -296,7 +344,21 @@ class BCPTrainer:
 
         def emit(it: int, metrics: Dict[str, torch.Tensor]) -> None:
             host = {k: float(v) for k, v in metrics.items()}
-            if it % cfg.log_every == 0:
+            if meters is not None:
+                # every step, averaged per epoch (`trainer.py:432-447`)
+                if (it - 1) % feeder.steps_per_epoch == 0:
+                    meters.reset()
+                if stage == "pre":
+                    meters.update(ce_loss=host["loss_ce"],
+                                  dice_loss=host["loss_dice"],
+                                  loss_all=host["loss"],
+                                  train_dice=host["train_dice"])
+                else:
+                    meters.update(mix_loss_lab=host["loss_l"],
+                                  mix_loss_unlab=host["loss_u"],
+                                  loss_all=host["loss"])
+                meters.log((it - 1) // feeder.steps_per_epoch + 1, it)
+            elif it % cfg.log_every == 0:
                 for k, tag in tags.items():
                     writer.scalar(tag, host[k], it)
                 logger.info("iteration %d : %s", it, " ".join(
@@ -332,6 +394,10 @@ class BCPTrainer:
                     writer.scalar(f"info/val_{c}_dice", float(c_dice), it)
                     writer.scalar(f"info/val_{c}_hd95", float(c_hd95), it)
                 writer.scalar("info/val_mean_dice", dice, it)
+            elif cfg.variant == "pancreas":
+                # `train_pancreas.py:77,136`
+                writer.scalar("test_dice" if stage == "pre" else "val_dice",
+                              dice, it)
             else:
                 writer.scalar("4_Var_dice/Dice", dice, it)
                 writer.scalar("4_Var_dice/Best_dice", best, it)
@@ -363,11 +429,9 @@ class BCPTrainer:
         try:
             for it in range(start + 1, max_iterations + 1):
                 batch = next(feeder)
-                mask_rng = iteration_draws(stage_seed, it, dropout_gen)
-                mask = cuboid_mask(cfg.patch_size,
-                                   cuboid_starts(mask_rng, cfg.patch_size,
-                                                 cfg.mask_ratio),
-                                   cfg.mask_ratio, self.device)
+                mask = copy_paste_mask(
+                    cfg, iteration_draws(stage_seed, it, dropout_gen),
+                    self.device)
                 if stage == "pre":
                     metrics = pretrain_step(state, batch, mask, cfg,
                                             dropout_gen)

@@ -158,6 +158,27 @@ ACDC_TRAIN_SHAPES = ((256, 216), (232, 256), (208, 224))
 ACDC_TRAIN_SLICES = 64
 ACDC_VAL_VOLUME = (10, 232, 256)
 ACDC_TEST_VOLUME = (10, 256, 216)
+# the pancreas phases: VNet_pancreas n_filters 16 at a 96^3 patch, whose
+# 20 kernel convs a forward run at these (channels, X, Y, Z); the f32 step
+# card against CPU at STEP_PATCH with a 16^3 copy-paste cube (64^3 does
+# not fit) and its limit on a cancelling bias' gradient over its module's
+# weight gradient (rounding leaves them at 1e-7 to 3e-5 on the CPU);
+# train_pancreas at the CLI's full width on 6 labelled and 10 unlabelled
+# volumes of mixed shapes (one side below 96) and 2 validation volumes;
+# test_pancreas on 2 volumes
+PANC_PATCH = (96, 96, 96)
+PANC_STAGES = [((32, 48, 48, 48), 4), ((64, 24, 24, 24), 6),
+               ((128, 12, 12, 12), 6), ((256, 6, 6, 6), 3),
+               ((16, 96, 96, 96), 1)]
+PANC_STEP_CUBE = 16
+BIAS_NOISE = 1e-3
+# the share of the f32 step's pseudo-label voxels that may flip between
+# card and CPU (2 of 131072 on an H100; a faulty teacher flips ~half)
+FLIP_SHARE = 1e-3
+PANC_TRAIN_SHAPES = ((128, 128, 112), (136, 120, 104), (120, 136, 90))
+PANC_LAB = 6
+PANC_UNLAB = 10
+PANC_TEST_VOLUME = (176, 144, 112)
 # NVIDIA data sheets, dense: (bf16 tensor FLOP/s, f32 FLOP/s, HBM bytes/s)
 PEAKS = {"H100 PCIe": (756e12, 51e12, 2.0e12),
          "H100 NVL": (835e12, 60e12, 3.9e12),
@@ -1785,6 +1806,482 @@ def phase_acdc_test(torch, best: str, workdir: str):
     return launches
 
 
+def phase_pancreas_kernels(torch, rates):
+    """Kernels B (forward and as dx) and C at the pancreas V-Net's stage
+    shapes (a 96^3 patch: planes of 96^2 down to 6^2): the forward at batch
+    2 (the pre-train student), 4 (the teacher and the concatenated student)
+    and 16 (the evaluator's chunk), dx and dW at batch 2 and 4; bf16, and
+    f32 at batch 4; phase 2's limits and the same bits on a second run.
+    Then the device time (CUDA graphs) of B, B-as-dx and C at batch 4
+    beside ``F.conv3d``, ``conv3d_input`` and ``conv3d_weight`` and each
+    one's bound, summed over the 20 launches of a forward or backward.
+    Returns {kernel name: those sums and the per-shape rows}."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv3d_input, conv3d_weight
+    from bcp_tpu_torch.ops.conv3d import (conv_variant, conv3x3x3_dw,
+                                          conv3x3x3_dw_reference,
+                                          conv3x3x3_dx, conv3x3x3_same,
+                                          conv3x3x3_same_reference,
+                                          dw_variant, flip_transpose)
+    bf16_peak, f32_peak, hbm = rates
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def rand(dt, *shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def check(what, k, k2, p, rel):
+        """Phase 2's limits: f32 forward and dx to rtol = atol = 1e-4, bf16
+        to max|k - p| <= rel max|p| (rel 1e-2), dW to 1e-3 max|p|."""
+        torch.cuda.synchronize()
+        if not torch.equal(k, k2):
+            fail(f"pancreas {what}: two runs differ")
+        err = float((k.float() - p.float()).abs().max().item())
+        if (rel is None and not torch.allclose(k, p, rtol=1e-4, atol=1e-4))\
+                or (rel is not None
+                    and err > rel * float(p.float().abs().max().item())):
+            fail(f"pancreas {what}: max err {err}")
+        return err
+
+    rows, per = [], {"conv3x3x3_same": [], "conv3x3x3_dx": [],
+                     "conv3x3x3_dw": []}
+    for (c, X, Y, Z), n in PANC_STAGES:
+        for B, dtypes, backward in ((2, (torch.bfloat16,), True),
+                                    (4, (torch.float32, torch.bfloat16),
+                                     True),
+                                    (16, (torch.bfloat16,), False)):
+            row = {"shape": f"{B}x{c}@{X}x{Y}x{Z}", "per_pass": n,
+                   "conv_variant": conv_variant(B, X, Y, Z, c, c,
+                                                sms)._asdict()}
+            if backward:
+                row["dw_variant"] = str(tuple(dw_variant(B, X, Y, Z, c, c,
+                                                         sms)))
+            for dt in dtypes:
+                name = "f32" if dt == torch.float32 else "bf16"
+                rel = None if dt == torch.float32 else 1e-2
+                x = rand(dt, B, c, X, Y, Z).contiguous(
+                    memory_format=torch.channels_last_3d)
+                w = (rand(torch.float32, c, c, 3, 3, 3)
+                     / (27 * c) ** 0.5).to(dt)
+                row[f"{name}_fwd_max_abs_err"] = check(
+                    f"B {name} {row['shape']}", conv3x3x3_same(x, w),
+                    conv3x3x3_same(x, w), conv3x3x3_same_reference(x, w),
+                    rel)
+                if backward:
+                    dy = rand(dt, B, c, X, Y, Z).contiguous(
+                        memory_format=torch.channels_last_3d)
+                    row[f"{name}_dx_max_abs_err"] = check(
+                        f"B-as-dx {name} {row['shape']}",
+                        conv3x3x3_dx(dy, w), conv3x3x3_dx(dy, w),
+                        conv3x3x3_same_reference(dy, flip_transpose(w)),
+                        rel)
+                    row[f"{name}_dw_max_abs_err"] = check(
+                        f"C {name} {row['shape']}", conv3x3x3_dw(x, dy),
+                        conv3x3x3_dw(x, dy), conv3x3x3_dw_reference(x, dy),
+                        1e-3)
+                if B == 4 and dt == torch.bfloat16:
+                    M, es = B * X * Y * Z, x.element_size()
+                    flop = 2 * M * 27 * c * c
+                    for kind, nbytes, fn, lib in (
+                            ("conv3x3x3_same", (2 * M * c + 27 * c * c) * es,
+                             lambda: conv3x3x3_same(x, w),
+                             lambda: F.conv3d(x, w, padding=1)),
+                            ("conv3x3x3_dx", (2 * M * c + 27 * c * c) * es,
+                             lambda: conv3x3x3_dx(dy, w),
+                             lambda: conv3d_input(x.shape, w, dy,
+                                                  padding=1)),
+                            ("conv3x3x3_dw", 2 * M * c * es + 27 * c * c * 4,
+                             lambda: conv3x3x3_dw(x, dy),
+                             lambda: conv3d_weight(x, w.shape, dy,
+                                                   padding=1))):
+                        t = {"shape": row["shape"], "per_pass": n,
+                             "device_ms": device_ms(torch, fn),
+                             "library_device_ms": device_ms(torch, lib),
+                             "bound_ms": max(flop / bf16_peak,
+                                             nbytes / hbm) * 1e3,
+                             "bound_by": ("operations" if flop / bf16_peak
+                                          >= nbytes / hbm else "bytes")}
+                        per[kind].append(t)
+                        row[f"{kind}_device_ms"] = t["device_ms"]
+                        row[f"{kind}_library_device_ms"] = \
+                            t["library_device_ms"]
+                del x, w
+                if backward:
+                    del dy
+            rows.append(row)
+            print(f"pancreas kernels {row['shape']}: " + json.dumps(
+                {k: v for k, v in row.items() if k != "shape"}), flush=True)
+    out = {}
+    for kind, ts in per.items():
+        tot = {key: sum(t[key] * t["per_pass"] for t in ts)
+               for key in ("device_ms", "library_device_ms", "bound_ms")}
+        ops = sum(t["per_pass"] * t["bound_ms"] for t in ts
+                  if t["bound_by"] == "operations")
+        key = {"conv3x3x3_same": "bf16_fwd", "conv3x3x3_dx": "bf16_dx",
+               "conv3x3x3_dw": "bf16_dw"}[kind] + "_max_abs_err"
+        errs = [r[key] for r in rows if key in r]
+        what = "forward" if kind == "conv3x3x3_same" else "backward"
+        out[kind] = {"per": f"the 20 bf16 launches of a batch-4 {what} at "
+                            f"the pancreas 96^3 patch",
+                     **tot, "bound_by": "operations"
+                     if ops >= tot["bound_ms"] / 2 else "bytes",
+                     "max_abs_err": max(errs), "shapes": ts}
+        print(f"pancreas {kind} over a batch-4 pass: {tot['device_ms']:.4f} "
+              f"ms on the device (library {tot['library_device_ms']:.4f}, "
+              f"bound {tot['bound_ms']:.4f})", flush=True)
+    return out
+
+
+def phase_pancreas_step(torch):
+    """Pancreas' pre-train and self-train updates in f32 on the card
+    against the CPU: the instance-norm V-Net at n_filters 16 on STEP_PATCH
+    patches, batch 8 (2 + 2 labelled, 2 + 2 unlabelled), Adam, the same
+    start, batch and PANC_STEP_CUBE copy-paste cube; the self-train update
+    on the CPU's pseudo-labels on both sides, as phases 3 and 6 do (the
+    flips of the card's own pseudo-labels are printed: the random
+    teacher's probabilities sit near the 0.5 threshold, so f32 rounding
+    flips a few voxels; more than FLIP_SHARE of them is a fault). Adam's first update is lr * g / (|g| + eps), so the biases in front
+    of an instance norm, whose gradient is 0 up to rounding, move by about
+    lr with a sign the rounding picks: the updates are not comparable in
+    f32, the gradients are. Each gradient within STEP_REL of its module's
+    largest on the CPU (phase 3's rule), except those cancelling biases,
+    which must stay below BIAS_NOISE of their module's weight gradient on
+    both sides (rounding leaves them at 1e-7 to 3e-5 of it; a norm that failed
+    to take out the mean would leave them near 1). Adam itself is held in
+    f64 on the CPU (``tests/test_torch_pancreas_ops.py``). The teacher
+    must have moved by the EMA of the new student: alpha * start + (1 -
+    alpha) * student on the card. Losses and ``train_dice`` to 1e-4
+    relative."""
+    import copy
+    from bcp_tpu_torch.config import pancreas_config
+    from bcp_tpu_torch.data.synthetic import pancreas_cases
+    from bcp_tpu_torch.ops.masks import cuboid_mask_fixed, fixed_starts
+    from bcp_tpu_torch.train.state import (TrainState, build_model,
+                                           build_optimizer)
+    from bcp_tpu_torch.train.steps import (pretrain_step, pseudo_labels,
+                                           selftrain_update)
+    cfg = pancreas_config(n_filters=16, patch_size=STEP_PATCH,
+                          mask_patch=PANC_STEP_CUBE, compute_dtype="float32")
+    lab, unlab, _ = pancreas_cases(4, 4, 0, (STEP_PATCH,), seed=SEED + 14)
+    img = np.stack([c[0] for c in lab + unlab])[:, None]
+    labs = np.stack([c[1] for c in lab]).astype(np.uint8)
+    host = {"img_a": img[0:2], "img_b": img[2:4], "uimg_a": img[4:6],
+            "uimg_b": img[6:8], "lab_a": labs[0:2], "lab_b": labs[2:4]}
+    starts = fixed_starts(np.random.default_rng(SEED + 15), STEP_PATCH,
+                          PANC_STEP_CUBE)
+    # torch's default init from SEED: instance norm has no statistics to
+    # calibrate
+    start = build_model(cfg, "train", "cpu", seed=SEED).state_dict()
+
+    def run(dev, plab=None):
+        def state():
+            m = build_model(cfg, "train", dev)
+            m.load_state_dict(start)
+            t = copy.deepcopy(m)
+            for p in t.parameters():
+                p.requires_grad_(False)
+            return TrainState(m, t, build_optimizer(cfg, m.parameters()))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        mask = cuboid_mask_fixed(STEP_PATCH, starts, PANC_STEP_CUBE, dev)
+        pre = state()
+        m_pre = pretrain_step(pre, batch, mask, cfg)
+        st = state()
+        own = pseudo_labels(st, batch, cfg)
+        plab = own if plab is None else plab.to(dev)
+        m_self = selftrain_update(st, batch, plab, mask, cfg)
+        grads = {f"{tag}.{n}": p.grad.cpu().double()
+                 for tag, s in (("pre", pre), ("self", st))
+                 for n, p in s.model.named_parameters()}
+        ema = max(float((t.cpu().double() - (
+            cfg.ema_alpha * start[n].double() + (1 - cfg.ema_alpha)
+            * st.model.state_dict()[n].cpu().double())).abs().max())
+            for n, t in st.teacher.state_dict().items())
+        moved = sum(not torch.equal(t.cpu(), start[n])
+                    for n, t in st.teacher.state_dict().items())
+        losses = {f"pre.{n}": float(v) for n, v in m_pre.items()}
+        losses.update({f"self.{n}": float(v) for n, v in m_self.items()})
+        return grads, losses, own.cpu(), ema, moved
+
+    t0 = time.perf_counter()
+    want, want_loss, plab, _, _ = run("cpu")
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, got_loss, card_plab, ema_err, moved = run(DEVICE, plab)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+
+    def cancelling(n):      # a conv bias in front of an instance norm
+        return n.endswith(".bias") and ".branchs.0.1." not in n
+    scale = {}
+    for n, g in want.items():
+        mod = n.rsplit(".", 1)[0]
+        if not cancelling(n):
+            scale[mod] = max(scale.get(mod, 0.0), g.abs().max().item())
+    n_moving = sum(n.startswith("self.") and not cancelling(n) for n in want)
+    ratios, noise = [], []
+    for n, g in want.items():
+        s = scale[n.rsplit(".", 1)[0]]
+        if cancelling(n):
+            noise.append((max(got[n].abs().max().item(),
+                              g.abs().max().item()) / s, n))
+        else:
+            ratios.append(((got[n] - g).abs().max().item()
+                           / (STEP_REL * s), n))
+    ratios.sort(reverse=True)
+    noise.sort(reverse=True)
+    lworst = max((abs(got_loss[n] - want_loss[n]) / max(abs(want_loss[n]),
+                                                        1e-12), n)
+                 for n in want_loss)
+    flips = int((card_plab != plab).sum().item())
+    result = {"variant": "pancreas", "patch": list(STEP_PATCH),
+              "tensors": len(want), "rel_limit": STEP_REL,
+              "worst_grad_err_over_limit": ratios[0][0],
+              "worst_tensor": ratios[0][1],
+              "next_worst": [[r, n] for r, n in ratios[1:4]],
+              "cancelling_biases": len(noise),
+              "worst_bias_grad_over_weight_grad": noise[0][0],
+              "worst_bias": noise[0][1], "bias_noise_limit": BIAS_NOISE,
+              "max_rel_loss_err": lworst[0],
+              "pseudo_label_flips": flips,
+              "pseudo_label_voxels": int(plab.numel()),
+              "pseudo_label_foreground": int(plab.sum().item()),
+              "teacher_tensors_moved": moved,
+              "teacher_max_abs_err_vs_ema": ema_err,
+              "cpu_s": t_cpu, "card_s": t_card}
+    print("pancreas f32 train step card vs cpu: " + json.dumps(result),
+          flush=True)
+    if not all(np.isfinite(v) for v in got_loss.values()):
+        fail(f"pancreas f32 step: non-finite losses {got_loss}")
+    if ratios[0][0] > 1.0 or noise[0][0] > BIAS_NOISE or lworst[0] > 1e-4 \
+            or flips > FLIP_SHARE * plab.numel() or moved < n_moving \
+            or ema_err > 1e-6:
+        fail(f"pancreas f32 step on the card differs from the CPU: {result}")
+    return result
+
+
+def pancreas_flags(workdir: str, *extra):
+    """``cli.train_pancreas``'s flags: the CLI's defaults (96^3, four
+    streams of 2, Adam 1e-3, bf16, the device store); one pre-train epoch
+    (6 labelled x5 / 2 = 15 iterations) and three self-train epochs
+    (min(15, 10 / 2) = 5 each)."""
+    return ["--data_root", workdir, "--snapshot_root", workdir, "--device",
+            DEVICE, "--pretraining_epochs", "1", "--self_training_epochs",
+            "3", *extra]
+
+
+def phase_pancreas_training(torch, workdir: str):
+    """The pancreas training path: ``cli.train_pancreas``'s core at full
+    width (VNet_pancreas n_filters 16, 96^3, batch 8 as four streams of 2,
+    Adam 1e-3, bf16, the fixed 64^3 cube, binary pseudo-labels with
+    largest-CC NMS at connectivity 2, the device store, background
+    validation, ``fused_bwd`` off) on PANC_LAB + PANC_UNLAB synthetic
+    volumes of PANC_TRAIN_SHAPES (one side below 96: the +1 padding) and
+    two PANC_TEST_VOLUME validation volumes (centre-cropped: one window
+    each), STAGE_ITERS iterations a stage with a validation at the last.
+    Timed and traced inside the trainer's loop by ``StepClock``; launches
+    per step and per path exact; the self-train stage must start from the
+    pre-train best's weights and Adam state (read at its first step)."""
+    from bcp_tpu_torch.cli import train_pancreas
+    from bcp_tpu_torch.cli.train_la import run_stages
+    from bcp_tpu_torch.convert import load_reference_checkpoint
+    from bcp_tpu_torch.data.datasets import PancreasList
+    from bcp_tpu_torch.data.synthetic import pancreas_cases
+    from bcp_tpu_torch.models import create_model
+    from bcp_tpu_torch.train import trainer as trainer_mod
+    from bcp_tpu_torch.train.checkpoints import load_optimizer_state
+    os.makedirs(workdir)
+    lab, unlab, val = pancreas_cases(PANC_LAB, PANC_UNLAB, 2,
+                                     PANC_TRAIN_SHAPES, PANC_TEST_VOLUME,
+                                     seed=SEED + 16)
+    train = (PancreasList(lab), PancreasList(unlab, "train_unlab"))
+    args = train_pancreas.build_parser().parse_args(pancreas_flags(workdir))
+    first = {}
+    step = trainer_mod.selftrain_step
+
+    def spy(state, *a, **k):
+        if not first:
+            first["opt"] = {i: {n: v.to("cpu", copy=True) for n, v in
+                                s.items()} for i, s in
+                            state.optimizer.state_dict()["state"].items()}
+            first["model"] = {n: v.to("cpu", copy=True) for n, v in
+                              state.model.state_dict().items()}
+            first["step"] = state.step
+        return step(state, *a, **k)
+
+    counters = kernel_counters()
+    out = io.StringIO()
+    trainer_mod.selftrain_step = spy
+    try:
+        with contextlib.redirect_stdout(out):
+            trainer = train_pancreas.build_trainer(
+                args, train_dataset=train, val_cases=val,
+                eval_every=STAGE_ITERS)
+            clock = StepClock(torch, counters, workdir, trainer)
+            trainer.on_step = clock
+            read_launches(counters, reset=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stages = run_stages(trainer, args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches(counters)
+    finally:
+        trainer_mod.selftrain_step = step
+    cfg = trainer.cfg
+    if not (cfg.device_data_cache and cfg.async_val and cfg.load_opt_state)\
+            or cfg.fused_bwd or cfg.ema_full_state \
+            or cfg.optimizer != "adam" or cfg.batch_size != 8 \
+            or cfg.patch_size != PANC_PATCH or cfg.n_filters is not None \
+            or cfg.compute_dtype != "bfloat16" \
+            or (cfg.pre_iterations, cfg.self_iterations) != (STAGE_ITERS,) * 2:
+        fail(f"the pancreas CLI's defaults changed: {cfg}")
+    convs = sum(n for _, n in PANC_STAGES)
+    v = trainer.validations
+    want = {"scatter_add_windows": 0,
+            "softmax_scatter_add_windows": 2 * v,
+            "conv3x3x3_same": convs * (3 * STAGE_ITERS + 2 * v),
+            "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
+            "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
+            "conv3x3x3_dxdw": 0}
+    print(f"pancreas training path launches {launches} (expected {want}: "
+          f"{STAGE_ITERS} pre-train and {STAGE_ITERS} self-train steps, {v} "
+          f"validations of 2 one-window volumes, warm-ups included)",
+          flush=True)
+    if launches != want or v < 4:
+        fail(f"pancreas training path launches {launches}, expected {want} "
+             f"with at least 4 validations")
+    losses = {}
+    for stage, (dice, path) in stages.items():
+        log = open(os.path.join(os.path.dirname(path), "log.txt")).read()
+        found = re.findall(r"Epoch : \d+, .*loss_all: ([^,\s]+)", log)
+        losses[stage] = [float(x) for x in found]
+        if len(found) != STAGE_ITERS or not np.isfinite(losses[stage]).all() \
+                or len(clock.times.get(stage, ())) != STAGE_ITERS:
+            fail(f"pancreas {stage}-train meters {found}")
+        model = create_model("VNet_pancreas", 2, device=DEVICE)
+        model.load_state_dict(load_reference_checkpoint(path,
+                                                        "VNet_pancreas"),
+                              strict=True)
+        print(f"pancreas {stage}-train: best dice {dice}, {path} loads "
+              f"strictly into the eval model", flush=True)
+    pre_opt = load_optimizer_state(stages["pre"][1])["state"]
+    pre_net = load_reference_checkpoint(stages["pre"][1], "VNet_pancreas")
+    if first.get("step") != 0 or len(first["opt"]) != len(pre_opt) \
+            or not pre_opt or not all(
+                int(first["opt"][i]["step"]) == int(s["step"]) == STAGE_ITERS
+                and torch.equal(first["opt"][i]["exp_avg"], s["exp_avg"])
+                and torch.equal(first["opt"][i]["exp_avg_sq"],
+                                s["exp_avg_sq"])
+                for i, s in pre_opt.items()) or not all(
+                torch.equal(first["model"][n], t.cpu())
+                for n, t in pre_net.items()):
+        fail("the pancreas self-train stage did not start from the pre-train "
+             "best's weights and Adam state")
+    print(f"pancreas self-train stage starts from {stages['pre'][1]}: its "
+          f"weights and the Adam state of {len(pre_opt)} tensors at step "
+          f"{STAGE_ITERS}", flush=True)
+    for stage in ("pre", "self"):
+        steady = steady_step(clock, cfg, stage, fused=False)
+        steady["volumes_per_step"] = steady.pop("patches_per_step")
+        steady["volumes_per_s"] = steady.pop("patches_per_s")
+        print(f"steady pancreas {stage}-train step: " + json.dumps(steady),
+              flush=True)
+    result = {"train_volumes": [PANC_LAB, PANC_UNLAB],
+              "volume_shapes": [list(s) for s in PANC_TRAIN_SHAPES],
+              "val_volumes": [list(PANC_TEST_VOLUME)] * 2,
+              "iterations_per_stage": STAGE_ITERS, "validations": v,
+              "cli_s": wall, "losses": losses,
+              "best_dice": {s: d for s, (d, _) in stages.items()}}
+    print("pancreas training path: " + json.dumps(result), flush=True)
+    return launches, stages["self"][1]
+
+
+def phase_pancreas_test(torch, best: str, workdir: str):
+    """The pancreas inference path: ``cli.test_pancreas``'s core from the
+    self-train stage's best file on 2 synthetic PANC_TEST_VOLUME volumes
+    (centre-cropped to 96^3: one window each, stride 16/4, argmax, bf16),
+    launch counts reset before and read after: kernel A's fused entry once
+    a volume, 20 kernel-B convs a volume; four finite metrics. Then the
+    evaluator's steady s/volume, a trace of one volume (busy, idle), and
+    the card's bf16 labels against the CPU's f32 labels of the same weights
+    on one volume (at least 0.9 of the voxels agree)."""
+    from bcp_tpu_torch.cli import test_pancreas
+    from bcp_tpu_torch.cli.common import load_eval_model
+    from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.data.synthetic import pancreas_cases
+    from bcp_tpu_torch.data.transforms import pancreas_test_transform
+    from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
+    _, _, cases = pancreas_cases(0, 0, 2, test_shape=PANC_TEST_VOLUME,
+                                 seed=SEED + 17)
+    args = test_pancreas.build_parser().parse_args(
+        ["--torch_ckpt", best, "--snapshot_root", workdir, "--device",
+         DEVICE])
+    counters = kernel_counters()
+    read_launches(counters, reset=True)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        avg = test_pancreas.test_calculate_metric(args,
+                                                  dataset=VolumeList(cases))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    print(out.getvalue(), end="")
+    convs = sum(n for _, n in PANC_STAGES)
+    want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": 2,
+            "conv3x3x3_same": 2 * convs, "conv3x3x3_dx": 0,
+            "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0}
+    print(f"pancreas test path launches {launches} (expected {want})",
+          flush=True)
+    if launches != want:
+        fail(f"pancreas test path launches {launches}, expected {want}")
+    rows = re.findall(r"^\d\d,\t(\S+), (\S+), (\S+), (\S+)$", out.getvalue(),
+                      re.M)
+    if np.array(rows, np.float64).shape != (2, 4) \
+            or not np.isfinite(np.array(rows, np.float64)).all() \
+            or avg.shape != (4,) or not np.isfinite(avg).all():
+        fail(f"test_pancreas: expected 2 case lines of 4 finite metrics, "
+             f"{rows}, {avg}")
+    cfg, evaluator = test_pancreas.build_evaluator(args)
+    cropped = [pancreas_test_transform(img, lab, cfg.patch_size)
+               for img, lab in cases]
+    list(evaluator.infer_cases((img for img, _ in cropped), rule="argmax"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = list(evaluator.infer_cases((img for img, _ in cropped),
+                                       rule="argmax"))
+    steady = (time.perf_counter() - t0) / 2
+    if [p.shape for p in preds] != [PANC_PATCH] * 2:
+        fail(f"test_pancreas label volumes {[p.shape for p in preds]}")
+    trace = os.path.join(workdir, "pancreas_trace.json")
+    prof = device_profile(torch, lambda: evaluator.infer(
+        cropped[1][0], rule="argmax", return_score=False), trace)
+    cpu_model = load_eval_model(cfg.replace(compute_dtype="float32"), best,
+                                device="cpu")
+    cpu_ev = SlidingWindowEvaluator(cpu_model, cfg.patch_size, 2,
+                                    cfg.stride_xy, cfg.stride_z, batch=1,
+                                    device="cpu")
+    cpu_label = cpu_ev.infer(cropped[0][0], rule="argmax",
+                             return_score=False)[0]
+    agree = float((cpu_label == preds[0]).mean())
+    print(f"pancreas bf16 labels on the card vs f32 on the CPU (one "
+          f"{PANC_PATCH} volume): {agree:.6f} agree (foreground: card "
+          f"{int(preds[0].sum())}, cpu {int(cpu_label.sum())} voxels)",
+          flush=True)
+    if agree < 0.9:
+        fail(f"pancreas bf16 labels agree with f32 on {agree} of the voxels")
+    result = {"volumes": 2, "volume": list(PANC_TEST_VOLUME),
+              "cli_s": wall, "cli_s_per_volume": wall / 2,
+              "steady_s_per_volume": steady,
+              "average_metric": avg.tolist(),
+              "bf16_label_agreement": agree,
+              "profile_one_volume": prof}
+    print("pancreas test path: " + json.dumps(result), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1815,6 +2312,7 @@ def main() -> int:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
         entries += phase_backward_kernels(torch, rates)
+        pancreas = phase_pancreas_kernels(torch, rates)
         pth = os.path.join(workdir, "VNet_best_model.pth")
         torch.save(seeded_vnet(torch, DEVICE, SEED).state_dict(), pth)
         phase_slice(torch, pth)
@@ -1829,7 +2327,15 @@ def main() -> int:
         launches["train_acdc"], acdc_best = phase_acdc_training(
             torch, os.path.join(workdir, "acdc"))
         launches["test_acdc"] = phase_acdc_test(torch, acdc_best, workdir)
+        phase_pancreas_step(torch)
+        launches["train_pancreas"], panc_best = phase_pancreas_training(
+            torch, os.path.join(workdir, "pancreas"))
+        launches["test_pancreas"] = phase_pancreas_test(torch, panc_best,
+                                                        workdir)
     for e in entries:
+        if e["name"] in pancreas:
+            # B's, B-as-dx's and C's device times at the 96^3 stage shapes
+            e["pancreas"] = pancreas[e["name"]]
         if e["name"] == "softmax_scatter_add_windows":
             # device ms a launch inside the evaluator (phase 4's trace)
             e["main_path_device_ms"] = a_ms

@@ -8,6 +8,13 @@
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --dxdw [--out F.json]
     PYTHONPATH=. python3 scripts/torch_conv_variants.py --dw [--out F.json] \
         [--old DIR]
+    PYTHONPATH=. python3 scripts/torch_conv_variants.py --pancreas --check \
+        --sweep --dw --dxdw
+
+``--pancreas`` runs any of the others at the pancreas V-Net's stage shapes
+(a 96^3 patch: 16@96^3 down to 256@6^3) instead of the LA V-Net's
+(112x112x80), with the forward at batch 16 (the evaluator's chunk), 4 and
+2.
 
 ``--check`` holds the kernel against the plain version
 (``conv3x3x3_same_reference``; bf16 max|k - p| <= 1e-2 max|p|) with the
@@ -74,6 +81,11 @@ from bcp_tpu_torch.ops import conv3d as C
 
 STAGES = [(16, 112, 112, 80), (32, 56, 56, 40), (64, 28, 28, 20),
           (128, 14, 14, 10), (256, 7, 7, 5)]
+PANCREAS_STAGES = [(16, 96, 96, 96), (32, 48, 48, 48), (64, 24, 24, 24),
+                   (128, 12, 12, 12), (256, 6, 6, 6)]
+#: the forward's batches: the evaluator's chunk, the student's forward;
+#: ``--pancreas`` sets the pancreas evaluator's 16, then 4 and 2
+BATCHES = [8, 4]
 
 
 def cuda_ms(fn, n: int = 10) -> float:
@@ -151,7 +163,8 @@ def close(k, p, tol=1e-2):
 def check() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bad = 0
-    shapes = [(B, c, c, X, Y, Z) for B in (8, 4) for c, X, Y, Z in STAGES[1:]]
+    shapes = [(B, c, c, X, Y, Z) for B in BATCHES
+              for c, X, Y, Z in STAGES[1:]]
     shapes += [(2, 16, 16, 112, 112, 80), (2, 16, 16, 6, 5, 7),
                (1, 32, 64, 4, 4, 3), (2, 256, 256, 3, 5, 4),
                (1, 32, 48, 9, 11, 13), (1, 48, 16, 23, 19, 21),
@@ -191,7 +204,7 @@ def check() -> int:
 def sweep(out_path: str) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for B in (8, 4):
+    for B in BATCHES:
         for c, X, Y, Z in STAGES:
             x, w = case(B, c, c, X, Y, Z)
             lib = device_ms(lambda: F.conv3d(x, w, padding=1))
@@ -213,7 +226,7 @@ def sweep(out_path: str) -> int:
                          "variants": [dict(v._asdict(), ms=ms)
                                       for ms, v in timed]})
     per_forward = {16: 1, 32: 4, 64: 6, 128: 6, 256: 3}
-    for B in (8, 4):
+    for B in BATCHES:
         mine = [r for r in rows if r["shape"].startswith(f"{B}x")]
         count = [per_forward[int(r["shape"].split("x")[1].split("@")[0])]
                  for r in mine]
@@ -313,7 +326,7 @@ def dxdw(out_path: str) -> int:
     return 1 if bad else 0
 
 
-DW_SHAPES = [(4, c, c, X, Y, Z) for c, X, Y, Z in STAGES] + [
+ODD_DW_SHAPES = [
     (2, 16, 16, 6, 5, 7), (1, 32, 64, 4, 4, 3), (2, 256, 256, 3, 5, 4),
     (1, 32, 48, 9, 11, 13), (2, 256, 256, 7, 7, 5), (1, 16, 16, 20, 18, 16),
     (1, 48, 64, 9, 11, 13)]
@@ -351,9 +364,10 @@ def dw_variants(B, X, Y, Z, ci, co, sms):
 
 def old_dw_times() -> int:
     """Device and event times of this checkout's ``conv3x3x3_dw`` (bf16)
-    at DW_SHAPES, as one JSON line (the ``--old`` child)."""
+    at the ``--dw`` shapes, as one JSON line (the ``--old`` child)."""
     rows = {}
-    for B, ci, co, X, Y, Z in DW_SHAPES:
+    shapes = [(4, c, c, X, Y, Z) for c, X, Y, Z in STAGES] + ODD_DW_SHAPES
+    for B, ci, co, X, Y, Z in shapes:
         x, dy = dw_case(B, ci, co, X, Y, Z)
         rows[f"{B}x{ci}->{co}@{X}x{Y}x{Z}"] = {
             "device_ms": device_ms(lambda: C.conv3x3x3_dw(x, dy)),
@@ -368,14 +382,17 @@ def dw(out_path: str, old: str) -> int:
     old_rows = {}
     if old:
         run = subprocess.run(
-            [sys.executable, __file__, "--old-dw-times"], capture_output=True,
+            [sys.executable, __file__, "--old-dw-times"]
+            + (["--pancreas"] if STAGES == PANCREAS_STAGES else []),
+            capture_output=True,
             text=True, env={**os.environ, "PYTHONPATH": os.path.abspath(old)})
         if run.returncode != 0:
             print(run.stdout + run.stderr, flush=True)
             return 1
         old_rows = json.loads(run.stdout.strip().splitlines()[-1])
     rows, bad = [], 0
-    for B, ci, co, X, Y, Z in DW_SHAPES:
+    shapes = [(4, c, c, X, Y, Z) for c, X, Y, Z in STAGES] + ODD_DW_SHAPES
+    for B, ci, co, X, Y, Z in shapes:
         shape = f"{B}x{ci}->{co}@{X}x{Y}x{Z}"
         x, dy = dw_case(B, ci, co, X, Y, Z)
         want = C.conv3x3x3_dw_reference(x, dy)
@@ -443,7 +460,7 @@ def profile() -> int:
     """Device time by kernel name of the wrapper call with the picked
     variant and of ``F.conv3d``, 10 calls each under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    for B in (8, 4):
+    for B in BATCHES:
         for c, X, Y, Z in STAGES:
             x, w = case(B, c, c, X, Y, Z)
             for name, fn in (("kernel", lambda: C._launch_conv(x, w, "p")),
@@ -475,7 +492,12 @@ def main() -> int:
     ap.add_argument("--old-dw-times", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--out", default="")
+    ap.add_argument("--pancreas", action="store_true",
+                    help="the pancreas V-Net's 96^3 stage shapes")
     args = ap.parse_args()
+    if args.pancreas:
+        STAGES[:] = PANCREAS_STAGES
+        BATCHES[:] = [16, 4, 2]
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2

@@ -5,8 +5,8 @@ strictly, and starts the self-train stage from the pre-train best's
 weights and optimizer; ``--resume`` goes on from the saved step, and a
 resumed stage repeats none of its draws; ``test_acdc`` reads the best file
 and writes ``performance.txt``; the flags the port lacks are refused and
-the rest are the JAX CLIs'. Each refusal of what the port still lacks
-(pancreas, Adam, ``fuse_subbatches=False``) is pinned."""
+the rest are the JAX CLIs'. The refusal of what the port still lacks
+(``fuse_subbatches=False``) is pinned."""
 
 import re
 import shutil
@@ -18,7 +18,7 @@ import torch
 from bcp_tpu.cli import test_acdc as jax_test_acdc
 from bcp_tpu.cli import train_acdc as jax_train_acdc
 from bcp_tpu_torch.cli import test_acdc, train_acdc
-from bcp_tpu_torch.config import acdc_config, pancreas_config
+from bcp_tpu_torch.config import acdc_config
 from bcp_tpu_torch.convert import load_reference_checkpoint
 from bcp_tpu_torch.data import feed
 from bcp_tpu_torch.data.datasets import SliceList, VolumeList
@@ -28,7 +28,7 @@ from bcp_tpu_torch.models import create_model
 from bcp_tpu_torch.models.layers import Dropout
 from bcp_tpu_torch.train import trainer as trainer_mod
 from bcp_tpu_torch.train.checkpoints import STATE_FILE, load_optimizer_state
-from bcp_tpu_torch.train.state import build_optimizer, init_state
+from bcp_tpu_torch.train.state import init_state
 from bcp_tpu_torch.train.steps import pretrain_step
 from bcp_tpu_torch.utils.logging import MetricWriter
 
@@ -324,18 +324,9 @@ def test_flags_are_the_jax_clis():
     assert port == _flags(jax_test_acdc.build_parser())
 
 
-@pytest.mark.parametrize("what", ["trainer", "steps", "optimizer"])
+@pytest.mark.parametrize("what", ["steps"])
 def test_refusals_name_what_is_still_missing(tmp_path, what):
-    if what == "trainer":
-        with pytest.raises(NotImplementedError, match="pancreas.*ROADMAP A3"):
-            trainer_mod.BCPTrainer(pancreas_config(), device="cpu")
-    elif what == "steps":
-        cfg = acdc_config(**TINY, fuse_subbatches=False)
-        with pytest.raises(NotImplementedError,
-                           match="fuse_subbatches=False.*ROADMAP A1"):
-            pretrain_step(init_state(acdc_config(**TINY), "cpu"), {}, None,
-                          cfg)
-    else:
-        with pytest.raises(NotImplementedError, match="Adam.*ROADMAP A3"):
-            build_optimizer(acdc_config(optimizer="adam"),
-                            [torch.zeros(1, requires_grad=True)])
+    cfg = acdc_config(**TINY, fuse_subbatches=False)
+    with pytest.raises(NotImplementedError,
+                       match="fuse_subbatches=False.*ROADMAP A1"):
+        pretrain_step(init_state(acdc_config(**TINY), "cpu"), {}, None, cfg)

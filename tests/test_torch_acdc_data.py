@@ -247,9 +247,3 @@ def test_slice_list_feeds_without_h5_and_stages_share_the_store(
     assert isinstance(cache["store"], DeviceSliceStore)
     assert next(self_)["uimg_a"].shape == (2, 1, *OUT)
     assert feed.labeled_count(cfg) == 8
-
-
-def test_feed_refuses_pancreas():
-    from bcp_tpu_torch.config import pancreas_config
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        BCPBatchFeeder(pancreas_config(), "pre", SliceList([]), device="cpu")

@@ -111,6 +111,12 @@ def test_halo_box_fills_the_vnet_stages():
 STAGE_SHAPES = [(b, c, c, *vol) for b in (8, 4) for c, vol in (
     (16, (112, 112, 80)), (32, (56, 56, 40)), (64, (28, 28, 20)),
     (128, (14, 14, 10)), (256, (7, 7, 5)))]
+#: the pancreas V-Net's stages at a 96^3 patch: batch 2 (the pre-train
+#: forward), 4 (the teacher's and the concatenated student's) and 16 (the
+#: evaluator's chunk)
+PANCREAS_SHAPES = [(b, c, c, *vol) for b in (2, 4, 16) for c, vol in (
+    (16, (96, 96, 96)), (32, (48, 48, 48)), (64, (24, 24, 24)),
+    (128, (12, 12, 12)), (256, (6, 6, 6)))]
 ODD_SHAPES = [(2, 16, 16, 6, 5, 7), (1, 32, 64, 4, 4, 3),
               (2, 256, 256, 3, 5, 4), (1, 32, 48, 9, 11, 13),
               (1, 48, 16, 23, 19, 21), (1, 16, 16, 1, 1, 1),
@@ -119,7 +125,8 @@ ODD_SHAPES = [(2, 16, 16, 6, 5, 7), (1, 32, 64, 4, 4, 3),
 
 
 @pytest.mark.parametrize("sms", [132, 108])
-@pytest.mark.parametrize("shape", STAGE_SHAPES + ODD_SHAPES)
+@pytest.mark.parametrize("shape", STAGE_SHAPES + PANCREAS_SHAPES
+                         + ODD_SHAPES)
 def test_conv_variant_fits_covers_and_fills(shape, sms):
     """Kernel B's variant is a pure function of shape and SM count; it fits
     the kernel's limits, its boxes cover the volume, its K split divides the

@@ -144,7 +144,11 @@ def test_layer_carries_the_flag_to_the_function():
 #: 8, Z not a multiple of the box's 3 planes
 DXDW_SHAPES = [(4, 32, 56, 56, 40), (4, 64, 28, 28, 20),
                (4, 128, 14, 14, 10), (4, 256, 7, 7, 5),
-               (4, 16, 112, 112, 80), (2, 16, 13, 11, 7),
+               (4, 16, 112, 112, 80),
+               # the pancreas stages at a 96^3 patch (batch-4 backward)
+               (4, 16, 96, 96, 96), (4, 32, 48, 48, 48),
+               (4, 64, 24, 24, 24), (4, 128, 12, 12, 12),
+               (4, 256, 6, 6, 6), (2, 16, 13, 11, 7),
                (1, 48, 9, 20, 4), (3, 64, 7, 5, 11)]
 
 

@@ -20,10 +20,16 @@ SM_REGISTERS = 65536
 OTHER_REGISTERS = 24
 
 #: (B, X, Y, Z, Ci, Co): the V-Net's five 3^3 conv stages at batch 4 (the
-#: self-train student's backward) and 8, then the card-only tests' shapes
+#: self-train student's backward) and 8, the pancreas stages at batch 2
+#: (pre-train) and 4 (self-train), then the card-only tests' shapes
 STAGES = [(32, 56, 56, 40), (64, 28, 28, 20), (128, 14, 14, 10),
           (256, 7, 7, 5), (16, 112, 112, 80)]
+#: the pancreas V-Net's five stages at a 96^3 patch
+PANCREAS_STAGES = [(16, 96, 96, 96), (32, 48, 48, 48), (64, 24, 24, 24),
+                   (128, 12, 12, 12), (256, 6, 6, 6)]
 SHAPES = ([(B, X, Y, Z, c, c) for B in (4, 8) for c, X, Y, Z in STAGES]
+          + [(B, X, Y, Z, c, c) for B in (2, 4)
+             for c, X, Y, Z in PANCREAS_STAGES]
           + [(2, 6, 5, 7, 16, 16), (1, 4, 4, 3, 32, 64),
              (2, 3, 5, 4, 256, 256), (1, 9, 11, 13, 32, 48),
              (2, 7, 7, 5, 256, 256), (1, 20, 18, 16, 16, 16),
