@@ -7,11 +7,12 @@ The JAX CLI's defaults: the 2-D U-Net on 256x256 slices, batch 24 with
 ``labeled_bs`` 12, bf16, SGD at a constant rate, an EMA of the whole
 state, the pre-train stage's optimizer carried into self-train, the train
 slices on the device (``--device_data_cache 1``), validation in the
-background; ``--resume`` goes on from each stage's last saved state.
+background; ``--resume`` goes on from each stage's last saved state;
+``--steps_per_dispatch K`` makes K updates per host visit, as CUDA graph
+replays on the card (``train.graphs``).
 
-Not ported yet, and refused with the ROADMAP item that brings them: more
-than one device (``--num_devices``, ``--sp_devices``) and K-step dispatch
-(``--steps_per_dispatch`` > 1).
+Not ported yet, and refused with the ROADMAP item that brings it: more
+than one device (``--num_devices``, ``--sp_devices``).
 """
 
 from __future__ import annotations
@@ -50,8 +51,10 @@ def build_parser():
     p.add_argument("--num_devices", type=int, default=1,
                    help="the port trains on one device (ROADMAP A4)")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="the port dispatches one step at a time (ROADMAP "
-                        "A1: steps_per_dispatch)")
+                   help="K updates per host visit, run as CUDA graph "
+                        "replays on the card (K eager steps on the CPU); "
+                        "eval_every and each stage's iterations must be "
+                        "multiples of K")
     p.add_argument("--sp_devices", type=int, default=1,
                    help="the port trains on one device (ROADMAP A4)")
     p.add_argument("--device_data_cache", type=int, default=1,
@@ -67,8 +70,6 @@ def _refuse(args) -> None:
          "trains on one device (ROADMAP A4, multi-GPU)"),
         (args.sp_devices != 1, "--sp_devices != 1: spatial partitioning is "
          "not ported (ROADMAP A4, multi-GPU)"),
-        (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1 is not "
-         "ported (ROADMAP A1, steps_per_dispatch)"),
     ]
     for bad, why in refused:
         if bad:
@@ -87,7 +88,8 @@ def config_from_args(args, **overrides):
         u_weight=args.u_weight, consistency=args.consistency,
         consistency_rampup=args.consistency_rampup,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        device_data_cache=bool(args.device_data_cache)).replace(**overrides)
+        device_data_cache=bool(args.device_data_cache),
+        steps_per_dispatch=args.steps_per_dispatch).replace(**overrides)
 
 
 def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,

@@ -7,11 +7,12 @@ As in the JAX CLI the training volumes live on the device
 (``--device_data_cache 1``) and validation runs in the background;
 ``--resume`` goes on from each stage's last saved state. ``--fused_bwd 1``
 (the JAX package's ``BCP_FUSED_BWD=1``) computes every eligible 3^3 conv's
-dx and dW in the one fused backward kernel.
+dx and dW in the one fused backward kernel. ``--steps_per_dispatch K``
+makes K updates per host visit, as CUDA graph replays on the card
+(``train.graphs``).
 
 Not ported yet, and refused with the ROADMAP item that brings them: more
-than one device (``--num_devices``, ``--sp_devices``), ``--remat 1`` and
-K-step dispatch (``--steps_per_dispatch`` > 1).
+than one device (``--num_devices``, ``--sp_devices``) and ``--remat 1``.
 """
 
 from __future__ import annotations
@@ -59,8 +60,10 @@ def build_parser():
                    help="keep the training volumes on the device and crop/"
                         "augment there (~2-3 GB in bf16); 0 = host feed")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="the port dispatches one step at a time (ROADMAP "
-                        "A1: steps_per_dispatch)")
+                   help="K updates per host visit, run as CUDA graph "
+                        "replays on the card (K eager steps on the CPU); "
+                        "eval_every and each stage's iterations must be "
+                        "multiples of K")
     p.add_argument("--fused_bwd", type=int, default=0, choices=[0, 1],
                    help="1: dx and dW of every Ci == Co 3^3 conv from the "
                         "one fused backward kernel; 0: the conv kernel on dy "
@@ -81,8 +84,6 @@ def _refuse(args) -> None:
         (args.sp_devices != 1, "--sp_devices != 1: spatial partitioning is "
          "not ported (ROADMAP A4, multi-GPU)"),
         (bool(args.remat), "--remat 1 is not ported (ROADMAP A4, remat)"),
-        (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1 is not "
-         "ported (ROADMAP A1, steps_per_dispatch)"),
     ]
     for bad, why in refused:
         if bad:
@@ -103,6 +104,7 @@ def config_from_args(args, **overrides):
         u_weight=args.u_weight, mask_ratio=args.mask_ratio,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
         device_data_cache=bool(args.device_data_cache),
+        steps_per_dispatch=args.steps_per_dispatch,
         fused_bwd=bool(args.fused_bwd)).replace(**overrides)
 
 

@@ -12,11 +12,11 @@ volumes on the device (``--device_data_cache 1``), validation in the
 background. Epochs become iterations through the feed's epoch length
 (``--pretraining_epochs`` x 30 and ``--self_training_epochs`` x 25 on the
 reference's lists at 20 %); ``--resume`` goes on from each stage's last
-saved state.
+saved state; ``--steps_per_dispatch K`` makes K updates per host visit, as
+CUDA graph replays on the card (``train.graphs``).
 
 Not ported yet, and refused with the ROADMAP item that brings them: more
-than one device (``--num_devices``, ``--sp_devices``), ``--remat 1`` and
-K-step dispatch (``--steps_per_dispatch`` > 1).
+than one device (``--num_devices``, ``--sp_devices``) and ``--remat 1``.
 """
 
 from __future__ import annotations
@@ -52,8 +52,10 @@ def build_parser():
     p.add_argument("--num_devices", type=int, default=1,
                    help="the port trains on one device (ROADMAP A4)")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="the port dispatches one step at a time (ROADMAP "
-                        "A1: steps_per_dispatch)")
+                   help="K updates per host visit, run as CUDA graph "
+                        "replays on the card (K eager steps on the CPU); "
+                        "eval_every and each stage's iterations must be "
+                        "multiples of K")
     p.add_argument("--sp_devices", type=int, default=1,
                    help="the port trains on one device (ROADMAP A4)")
     p.add_argument("--remat", type=int, default=0,
@@ -75,7 +77,8 @@ def config_from_args(args, train_dataset=None, **overrides):
         root_path=args.data_root, base_lr=args.lr, seed=args.seed,
         batch_size=4 * args.batch_size, labeled_bs=2 * args.batch_size,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        device_data_cache=bool(args.device_data_cache))
+        device_data_cache=bool(args.device_data_cache),
+        steps_per_dispatch=args.steps_per_dispatch)
     lists = train_dataset or tuple(
         PancreasDataset(cfg.root_path, split, cache=False)
         for split in ("train_lab", "train_unlab"))

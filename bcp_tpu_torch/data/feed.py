@@ -24,8 +24,14 @@ interpreter with the training thread's own.) Both stages of a run share
 one store through ``store_cache``.
 
 On either path the same seed gives the JAX package's batches bit for bit,
-images as (N, 1, *S) in the compute dtype, labels (N, *S) uint8. K-step
-stacking (``steps_per_dispatch``) is not ported yet.
+images as (N, 1, *S) in the compute dtype, labels (N, *S) uint8. With
+``stack=K`` (``steps_per_dispatch``, `feed.py:60-100`) a batch holds K
+consecutive iterations' batches, leading-stacked ((K, N, 1, *S) images):
+the index streams and the generator are consumed in the K = 1 order
+(every labelled draw of an iteration, then its unlabelled ones, then the
+next iteration's), so sub-batch j is the K = 1 feed's batch j. The host
+path stacks K built batches into one copy; the store path cuts the K
+iterations' crops in one pass per stream, as the JAX feeder does.
 """
 
 from __future__ import annotations
@@ -68,6 +74,17 @@ def pancreas_steps_per_epoch(cfg: Config, stage: str, dataset) -> int:
     return max(n, 1)
 
 
+def _concat(params):
+    """One crop pass's draws from K iterations' ``draw_params``."""
+    return tuple(np.concatenate([p[i] for p in params])
+                 for i in range(len(params[0])))
+
+
+def _per_step(t: torch.Tensor, K: int) -> torch.Tensor:
+    """(K * n, ...) -> (K, n, ...), a view."""
+    return t.view(K, t.shape[0] // K, *t.shape[1:])
+
+
 class BCPBatchFeeder:
     """Endless train batches of one stage: ``stage="pre"`` the labelled pair
     (``img_a``, ``img_b``, ``lab_a``, ``lab_b``), ``"self"`` also the two
@@ -81,14 +98,16 @@ class BCPBatchFeeder:
     dataset
     also needs ``load(i)``; ``store_cache`` is a dict shared by the feeders
     of one run, so the second stage reuses the first stage's store instead
-    of uploading it again (`feed.py:71-76`)."""
+    of uploading it again (`feed.py:71-76`). ``stack=K`` yields K
+    iterations' batches a call, leading-stacked."""
 
     def __init__(self, cfg: Config, stage: str, dataset, device=None,
-                 store_cache: Optional[dict] = None):
+                 store_cache: Optional[dict] = None, stack: int = 1):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
         self.cfg = cfg
         self.stage = stage
+        self.stack = max(int(stack), 1)
         self.dataset = dataset
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
@@ -220,6 +239,67 @@ class BCPBatchFeeder:
                 [nu - (i % nu) - 1 for i in unlab_idx])[0]
         return batch
 
+    def build_device_stacked(self) -> Dict[str, torch.Tensor]:
+        """K iterations' batches from the device store, leading-stacked
+        (`feed.py:303-448`): the K iterations' draws in the K = 1 order,
+        then one crop pass per stream over all of them."""
+        cfg, K = self.cfg, self.stack
+        if cfg.variant == "pancreas":
+            return self._build_device_stacked_pancreas()
+        if cfg.variant == "acdc":
+            def draw(idx):
+                return self._store.draw_params(idx, self.rng)
+            cut = self._store.aug_batch
+        else:
+            def draw(idx):
+                return self._store.draw_params(idx, self.rng, rotflip=True)
+
+            def cut(params):
+                return self._store.crop_batch(params, rotflip=True)
+        lab_p, unlab_p = [], []
+        for _ in range(K):
+            lab_idx, unlab_idx = next(self._index_stream)
+            lab_p.append(draw(lab_idx))
+            if self.stage == "self":
+                unlab_p.append(draw(unlab_idx))
+        sub, usub = cfg.labeled_sub_bs, cfg.unlabeled_sub_bs
+        img, lab = (_per_step(t, K) for t in cut(_concat(lab_p)))
+        batch = {"img_a": img[:, :sub], "img_b": img[:, sub:],
+                 "lab_a": lab[:, :sub], "lab_b": lab[:, sub:]}
+        if self.stage == "self":
+            uimg = _per_step(cut(_concat(unlab_p))[0], K)
+            batch["uimg_a"], batch["uimg_b"] = uimg[:, :usub], uimg[:, usub:]
+        return batch
+
+    def _build_device_stacked_pancreas(self) -> Dict[str, torch.Tensor]:
+        """`feed.py:383-448`: per iteration the ``lab_a`` crops' draws,
+        then the ``lab_b`` crops'; the unlabelled centre crops draw
+        nothing."""
+        K = self.stack
+        n = self._store.shapes.shape[0]
+        a_p, b_p, ua, ub = [], [], [], []
+        for _ in range(K):
+            lab_idx, unlab_idx = next(self._index_stream)
+            a_p.append(self._store.draw_params([i % n for i in lab_idx],
+                                               self.rng, rotflip=False))
+            b_p.append(self._store.draw_params(
+                [n - (i % n) - 1 for i in lab_idx], self.rng, rotflip=False))
+            if self.stage == "self":
+                nu = self._unlab_store.shapes.shape[0]
+                ua += [i % nu for i in unlab_idx]
+                ub += [nu - (i % nu) - 1 for i in unlab_idx]
+        batch = {}
+        for key, params in (("a", a_p), ("b", b_p)):
+            img, lab = self._store.crop_batch(_concat(params), rotflip=False)
+            batch[f"img_{key}"] = _per_step(img, K)
+            batch[f"lab_{key}"] = _per_step(lab, K)
+        if self.stage == "self":
+            batch["uimg_a"] = _per_step(self._unlab_store.center_batch(ua)[0],
+                                        K)
+            batch["uimg_b"] = _per_step(self._unlab_store.center_batch(ub)[0],
+                                        K)
+        return batch
+
     def _build_pancreas(self, lab_idx, unlab_idx) -> Dict[str, np.ndarray]:
         """`feed.py:283-300`: every ``lab_a`` crop, then every ``lab_b``
         crop, then the centre-cropped unlabelled pair."""
@@ -269,10 +349,16 @@ class BCPBatchFeeder:
             out[k] = t.pin_memory() if self.device.type == "cuda" else t
         return out
 
+    def build_stacked(self) -> Dict[str, np.ndarray]:
+        """K batches of :meth:`build`, leading-stacked (`feed.py:455-459`)."""
+        built = [self.build() for _ in range(self.stack)]
+        return {k: np.stack([b[k] for b in built]) for k in built[0]}
+
     def _worker(self):
+        build = self.build if self.stack == 1 else self.build_stacked
         try:
             while not self._stop.is_set():
-                self._queue.put(self._host_tensors(self.build()))
+                self._queue.put(self._host_tensors(build()))
         except Exception as e:  # surfaced in the consumer
             self._queue.put(e)
 
@@ -281,7 +367,8 @@ class BCPBatchFeeder:
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         if self._store is not None:
-            return self.build_device()
+            return (self.build_device() if self.stack == 1
+                    else self.build_device_stacked())
         item = self._queue.get()
         if isinstance(item, Exception):
             raise item

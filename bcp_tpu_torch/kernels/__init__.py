@@ -144,6 +144,8 @@ def check(code: int, what: str) -> None:
 
 
 _COUNT_LOCK = threading.Lock()
+#: every wrapper that has counted a launch, by name
+_COUNTED: Dict[str, object] = {}
 
 
 def count_launch(wrapper) -> None:
@@ -152,6 +154,23 @@ def count_launch(wrapper) -> None:
     read-add-write is taken under a lock."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        _COUNTED[wrapper.__name__] = wrapper
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launch count of every wrapper that has counted one."""
+    with _COUNT_LOCK:
+        return {name: w.launches for name, w in _COUNTED.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (name -> n, n may be negative) to the wrappers'
+    counts. A CUDA graph launches its kernels without their wrappers: its
+    capture's counts are taken back (a capture records, it runs nothing)
+    and added again at each replay (``train.graphs``)."""
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            _COUNTED[name].launches += n
 
 
 def stream_handle(device) -> int:

@@ -13,7 +13,7 @@ any rank.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -316,3 +316,48 @@ def dropout_draws(model: nn.Module,
         for m in drops:
             m.keep = None
             m.generator = None
+
+
+@contextlib.contextmanager
+def record_dropout_shapes(model: nn.Module) -> Iterator[List[torch.Size]]:
+    """Yield a list that fills, in call order, with the keep-mask shape of
+    every train-mode dropout call of ``model`` inside the block: the shapes
+    :func:`draw_keep_masks` draws for one forward."""
+    shapes: List[torch.Size] = []
+
+    def hook(module, args):
+        if module.training:
+            shapes.append(module.mask_shape(args[0]))
+    handles = [m.register_forward_pre_hook(hook)
+               for m in _modules(model, Dropout)]
+    try:
+        yield shapes
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def draw_keep_masks(model: nn.Module, shapes: Sequence[Sequence[int]],
+                    generator: Optional[torch.Generator], device=None,
+                    out: Optional[Sequence[torch.Tensor]] = None
+                    ) -> List[torch.Tensor]:
+    """The keep masks of one train-mode forward of ``model``, drawn ahead
+    of it: for each dropout in module order (the order the port's models
+    call them, which ``dropout_draws(keep=...)`` assumes too), the call its
+    forward would make, ``torch.rand(shape, generator=generator) < 1 - p``,
+    so the masks and the generator's state after them are the forward's
+    own. ``shapes`` are the forward's mask shapes
+    (:func:`record_dropout_shapes`); with ``out`` the masks are written
+    into those bool tensors (a CUDA graph's static inputs)."""
+    drops = _modules(model, Dropout)
+    if len(shapes) != len(drops):
+        raise ValueError(f"{len(shapes)} mask shapes for {len(drops)} "
+                         f"dropouts")
+    if generator is not None:
+        device = generator.device
+    keep = []
+    for i, (m, shape) in enumerate(zip(drops, shapes)):
+        u = torch.rand(tuple(shape), generator=generator, device=device)
+        keep.append(u < 1.0 - m.p if out is None
+                    else torch.lt(u, 1.0 - m.p, out=out[i]))
+    return keep

@@ -28,6 +28,7 @@ from typing import Any, Dict, Sequence
 import torch
 
 from bcp_tpu_torch.config import Config
+from bcp_tpu_torch.train.state import load_optimizer
 
 STATE_FILE = "last_state.pt"
 
@@ -107,7 +108,7 @@ def restore_state(path: str, state):
     saved = torch.load(path, map_location="cpu")
     state.model.load_state_dict(saved["model"], strict=True)
     state.teacher.load_state_dict(saved["teacher"], strict=True)
-    state.optimizer.load_state_dict(saved["optimizer"])
+    load_optimizer(state.optimizer, saved["optimizer"])
     state.step = int(saved["step"])
     return state
 

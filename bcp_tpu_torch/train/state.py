@@ -48,10 +48,17 @@ def build_optimizer(cfg: Config,
     decay, which is ``optax.adam``: optax's ``m_hat / (sqrt(v_hat) + eps)``
     and torch's ``(m / bc1) / (sqrt(v) / sqrt(bc2) + eps)`` are the same
     function. Its state (moments and step count) travels with the
-    pre-train best to the self stage, as optax's ``count`` does."""
+    pre-train best to the self stage, as optax's ``count`` does. On the
+    card Adam is ``capturable``: its step count stays on the device and
+    its bias corrections are computed there, so a CUDA graph can capture
+    the update (``train.graphs``); on the CPU it is not (the CPU is no
+    capturable device)."""
+    params = list(params)
     if cfg.optimizer == "adam":
+        capturable = bool(params) and params[0].device.type == "cuda"
         return torch.optim.Adam(params, lr=cfg.base_lr, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=cfg.weight_decay)
+                                eps=1e-8, weight_decay=cfg.weight_decay,
+                                capturable=capturable)
     if cfg.optimizer != "sgd":
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return torch.optim.SGD(params, lr=cfg.base_lr, momentum=cfg.momentum,
@@ -101,5 +108,26 @@ def load_with_opt(state: TrainState, state_dict, opt_state) -> TrainState:
     Adam's moments and step count) from the checkpoint, the teacher from
     the same weights; the stage's step stays fresh."""
     load_weights_only(state, state_dict)
-    state.optimizer.load_state_dict(opt_state)
+    load_optimizer(state.optimizer, opt_state)
     return state
+
+
+def load_optimizer(opt: torch.optim.Optimizer, opt_state) -> None:
+    """``opt.load_state_dict(opt_state)``, keeping ``opt``'s own
+    ``capturable``: torch takes the saved groups' flag, and a state from
+    an eager CPU run or a reference ``.pth`` says ``capturable: False``
+    with Adam's ``step`` on the CPU, which a capturable Adam on the card
+    cannot step (and the other way round). The flag is set back and each
+    ``step`` moved beside its parameter (capturable) or to the CPU."""
+    own = [g.get("capturable") for g in opt.param_groups]
+    opt.load_state_dict(opt_state)
+    for group, flag in zip(opt.param_groups, own):
+        if flag is None:
+            continue
+        group["capturable"] = flag
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            step = st.get("step")
+            if isinstance(step, torch.Tensor):
+                st["step"] = (step.to(p.device, torch.float32) if flag
+                              else step.to("cpu"))

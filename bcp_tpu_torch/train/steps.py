@@ -7,12 +7,14 @@ port.
 copy-paste mean-teacher update on the fused-sub-batch path
 (`steps.py:228-341`, `LA_BCP_train.py:234-270`,
 `ACDC_BCP_train.py:354-390`, `train_pancreas.py:146-174`): the teacher's
-pseudo-labels
-(:func:`pseudo_labels`) then the student's update
-(:func:`selftrain_update`), which a caller may also run on pseudo-labels of
-its own. ``cfg.variant`` picks the pipeline's losses, mix order and
-pseudo-label rule; ``cfg.ema_full_state`` (ACDC) makes the EMA move the
-teacher's BN running statistics too.
+pseudo-labels (:func:`pseudo_labels`: the teacher's forward and threshold
+or argmax, :func:`teacher_masks`, then the NMS, :func:`clean_masks`), then
+the student's update (:func:`selftrain_update`), which a caller may also
+run on pseudo-labels of its own (``train.graphs`` captures the teacher's
+part and the update as two CUDA graphs around the NMS). ``cfg.variant``
+picks the pipeline's losses, mix order and pseudo-label rule;
+``cfg.ema_full_state`` (ACDC) makes the EMA move the teacher's BN running
+statistics too.
 
 Batches are dicts of tensors on the device: ``img_a``, ``img_b``,
 ``uimg_a``, ``uimg_b`` (N, 1, *S) and ``lab_a``, ``lab_b`` (N, *S) integer.
@@ -107,14 +109,14 @@ def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
+def teacher_masks(state: TrainState, batch: Dict[str, torch.Tensor],
                   cfg: Config, dropout=None) -> torch.Tensor:
-    """The teacher's pseudo-labels of concat(uimg_a, uimg_b): one forward in
-    train mode with live dropout and 2-group BatchNorm whose running-stat
-    updates are discarded (`steps.py:63-68,298-303`), then the mask of
-    ``cfg.pseudo_label`` (`steps.py:101-106`): the thresholded,
-    largest-CC-cleaned class 1 (``"binary"``, LA) or the argmax cleaned
-    class by class (``"argmax"``, ACDC)."""
+    """The teacher's masks of concat(uimg_a, uimg_b) before the NMS: one
+    forward in train mode with live dropout and 2-group BatchNorm whose
+    running-stat updates are discarded (`steps.py:63-68,298-303`), then
+    the mask of ``cfg.pseudo_label`` (`steps.py:101-106`): class 1's
+    probability thresholded at 0.5 (``"binary"``, LA, pancreas) or the
+    argmax (``"argmax"``, ACDC); int32."""
     _check(cfg)
     teacher = state.teacher
     x = torch.cat([batch["uimg_a"], batch["uimg_b"]])
@@ -122,10 +124,31 @@ def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
             _draws(teacher, dropout):
         logits = teacher(x)[0]
     if cfg.pseudo_label == "argmax":
-        return cc.get_multiclass_mask(logits, cfg.num_classes, nms=cfg.nms,
-                                      connectivity=cfg.cc_connectivity)
-    return cc.get_cut_mask(logits, nms=cfg.nms,
-                           connectivity=cfg.cc_connectivity)
+        return cc.get_multiclass_mask(logits, cfg.num_classes)
+    return cc.get_cut_mask(logits)
+
+
+def clean_masks(masks: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """With ``cfg.nms`` each sample's largest component (``"binary"``) or
+    each class's (``"argmax"``) of :func:`teacher_masks`; else the masks.
+    The NMS reads a flag back every round (``ops.cc``), so a CUDA graph
+    step runs it between its two graphs."""
+    if not cfg.nms:
+        return masks
+    if cfg.pseudo_label == "argmax":
+        return cc.largest_cc_per_class(masks, cfg.num_classes,
+                                       cfg.cc_connectivity)
+    return cc.largest_cc_batch(masks, cfg.cc_connectivity)
+
+
+def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
+                  cfg: Config, dropout=None) -> torch.Tensor:
+    """The teacher's pseudo-labels of concat(uimg_a, uimg_b):
+    :func:`teacher_masks` cleaned by :func:`clean_masks`, the thresholded,
+    largest-CC-cleaned class 1 (LA, pancreas) or the argmax cleaned class
+    by class (ACDC)."""
+    with torch.no_grad():
+        return clean_masks(teacher_masks(state, batch, cfg, dropout), cfg)
 
 
 def mixed_inputs(variant: str, batch: Dict[str, torch.Tensor],

@@ -37,13 +37,29 @@ masks) depend on (seed, stage, iteration) alone, as the JAX package's
 at step s draws at s + 1, s + 2, ... what the uninterrupted stage draws
 there. The numbers are numpy's and torch's, not ``jax.random``'s.
 
-``cfg.debug_nans`` and ``cfg.profile_dir`` are not honoured yet (ROADMAP
-A1): the trainer refuses them rather than ignore them.
+``cfg.steps_per_dispatch`` = K > 1 makes K updates per host visit
+(`trainer.py:319-325,457-531`; ``train.graphs``): the feed yields K
+iterations' batches at once, each sub-step draws what K = 1 draws at its
+iteration, and the group's losses are read back once, a group late. On
+the card the groups after a stage's first run as CUDA graph replays; on
+the CPU as K eager steps. ``eval_every`` and a stage's remaining
+iterations must be multiples of K; validation runs at a group's end.
+
+``cfg.profile_dir`` traces the steps of ``cfg.profile_steps`` = (a, b),
+counted from the stage's first step, as `trainer.py:459-460,528-531`
+does: from before the group that holds step a to after the group that
+holds step b has been enqueued, with ``torch.profiler`` (CPU and, on the
+card, CUDA activity) into ``<profile_dir>/<stage>_steps_<a>_<b>.json``.
+``cfg.debug_nans`` checks every step's losses when they are read back and
+raises ``FloatingPointError`` naming the first step whose losses are not
+finite. Unlike ``jax_debug_nans``, which re-runs the op that made a NaN,
+it sees the step's outputs only, and a group (K steps) later.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import queue
 import threading
@@ -63,14 +79,15 @@ from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.convert import load_reference_checkpoint
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
-from bcp_tpu_torch.ops.masks import (cuboid_mask, cuboid_mask_fixed,
-                                     cuboid_starts, fixed_starts)
+from bcp_tpu_torch.ops.masks import (box_mask, cuboid_sizes, cuboid_starts,
+                                     fixed_starts)
 from bcp_tpu_torch.ops.ramps import sigmoid_rampup
 from bcp_tpu_torch.train.checkpoints import (STATE_FILE, best_model_path,
                                              load_optimizer_state,
                                              restore_state, save_many,
                                              scan_best_dice, snapshot,
                                              snapshot_dir)
+from bcp_tpu_torch.train.graphs import DispatchGroups, check_dispatch
 from bcp_tpu_torch.train.state import (TrainState, build_model, init_state,
                                        load_weights_only, load_with_opt)
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
@@ -90,20 +107,26 @@ def iteration_draws(stage_seed: int, it: int,
     return np.random.default_rng([stage_seed, it, 0])
 
 
-def copy_paste_mask(cfg: Config, rng: np.random.Generator, device=None):
-    """The iteration's copy-paste mask (`steps.py:85-98`): pancreas' fixed
-    ``mask_patch`` cube, or the ``mask_ratio`` cuboid of LA and ACDC."""
+def copy_paste_box(cfg: Config, rng: np.random.Generator):
+    """(starts, sizes) of the iteration's copy-paste box (`steps.py:85-98`):
+    pancreas' fixed ``mask_patch`` cube, or the ``mask_ratio`` cuboid of LA
+    and ACDC."""
     patch = cfg.patch_size
     if cfg.mask_kind == "fixed":
-        return cuboid_mask_fixed(
-            patch, fixed_starts(rng, patch, cfg.mask_patch), cfg.mask_patch,
-            device)
+        return (fixed_starts(rng, patch, cfg.mask_patch),
+                (int(cfg.mask_patch),) * len(patch))
     if cfg.mask_kind != "ratio":
         raise NotImplementedError(
             f"mask_kind {cfg.mask_kind!r}: the port has the 'ratio' and "
             f"'fixed' masks, the ones the CLIs use")
-    return cuboid_mask(patch, cuboid_starts(rng, patch, cfg.mask_ratio),
-                       cfg.mask_ratio, device)
+    return (cuboid_starts(rng, patch, cfg.mask_ratio),
+            cuboid_sizes(patch, cfg.mask_ratio))
+
+
+def copy_paste_mask(cfg: Config, rng: np.random.Generator, device=None):
+    """The iteration's copy-paste mask: 0 in :func:`copy_paste_box`, 1
+    elsewhere (``cuboid_mask_fixed`` / ``cuboid_mask``)."""
+    return box_mask(cfg.patch_size, *copy_paste_box(cfg, rng), device)
 
 
 class _ValWorker:
@@ -178,19 +201,20 @@ class BCPTrainer:
     ACDC's val list) under ``cfg.root_path``. ``on_step(stage,
     iteration)``, when given, is called
     after each iteration has enqueued its step and read back the step
-    before it, ahead of that iteration's validation; ``chip_smoke.py``
-    times and traces the loop's steps with it."""
+    before it, ahead of that iteration's validation (with K steps a
+    dispatch, once for each of a group's iterations after the group is
+    enqueued); ``chip_smoke.py`` times and traces the loop's steps with it.
+    ``on_metrics(stage, iteration, losses)``, when given, is called with
+    each step's losses (host floats) as they are read back."""
 
     def __init__(self, cfg: Config, device=None, train_dataset=None,
                  val_cases: Optional[List[Tuple[np.ndarray, np.ndarray]]]
                  = None,
-                 on_step: Optional[Callable[[str, int], None]] = None):
+                 on_step: Optional[Callable[[str, int], None]] = None,
+                 on_metrics: Optional[Callable[[str, int, Dict[str, float]],
+                                               None]] = None):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
-        if cfg.debug_nans or cfg.profile_dir is not None:
-            raise NotImplementedError(
-                "debug_nans and profile_dir (with profile_steps) are not "
-                "honoured by the port's trainer yet (ROADMAP A1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pre_dir = snapshot_dir(cfg, "pre_train")
@@ -199,6 +223,9 @@ class BCPTrainer:
         self._val_cases = (None if val_cases is None
                            else self._val_prepared(val_cases))
         self.on_step = on_step
+        self.on_metrics = on_metrics
+        #: stage -> its CUDA graph captures and replays (K > 1 on the card)
+        self.graph_counts: Dict[str, Dict[str, int]] = {}
         self.eval_model = build_model(cfg, "test", self.device)
         if cfg.dims == 3:
             self.evaluator = SlidingWindowEvaluator(
@@ -306,6 +333,7 @@ class BCPTrainer:
             resumed_best = scan_best_dice(out_dir)
             logger.info("resumed from %s at step %d (best dice so far "
                         "%.4f)", state_path, state.step, resumed_best)
+        K = check_dispatch(cfg, max_iterations - state.step)
         dataset = self.train_dataset
         if dataset is None and cfg.variant == "pancreas":
             dataset = (PancreasDataset(cfg.root_path, "train_lab"),
@@ -314,7 +342,7 @@ class BCPTrainer:
             dataset = (ACDCDataset if cfg.variant == "acdc" else
                        LAHeartDataset)(cfg.root_path, "train", cache=True)
         feeder = BCPBatchFeeder(cfg, stage, dataset, self.device,
-                                store_cache=self.feed_store_cache)
+                                store_cache=self.feed_store_cache, stack=K)
         logger.info("%d iterations per epoch (device-store init %.1fs)",
                     feeder.steps_per_epoch, feeder.store_init_s)
         stage_seed = cfg.seed + (0 if stage == "pre" else 1)
@@ -342,8 +370,15 @@ class BCPTrainer:
                     "loss": "Self/loss_all"}
         with_opt = cfg.load_opt_state
 
-        def emit(it: int, metrics: Dict[str, torch.Tensor]) -> None:
+        def emit(it: int, metrics) -> None:
             host = {k: float(v) for k, v in metrics.items()}
+            bad = sorted(k for k, v in host.items() if not math.isfinite(v))
+            if cfg.debug_nans and bad:
+                raise FloatingPointError(
+                    f"{stage}-train step {it}: non-finite {', '.join(bad)} "
+                    f"({host})")
+            if self.on_metrics is not None:
+                self.on_metrics(stage, it, host)
             if meters is not None:
                 # every step, averaged per epoch (`trainer.py:432-447`)
                 if (it - 1) % feeder.steps_per_epoch == 0:
@@ -422,41 +457,72 @@ class BCPTrainer:
             warm_job = partial(self._validate_weights, warm_snap["model"],
                                warm_ready)
 
+        def draws(it: int):
+            """Iteration ``it``'s copy-paste box and dropout generator."""
+            rng = iteration_draws(stage_seed, it, dropout_gen)
+            return copy_paste_box(cfg, rng), dropout_gen
+
+        def emit_group(first: int, group) -> None:
+            names, values = group
+            for j, row in enumerate(values.tolist()):
+                emit(first + j, dict(zip(names, row)))
+
+        groups = None
+        if K > 1:
+            groups = DispatchGroups(state, cfg, stage, K, draws,
+                                    before_capture=self.wait_for_validations)
+        profile = None
         t0 = time.time()
         start = state.step
         val_seconds = 0.0   # exposed validation + checkpoint pauses (wall)
         pending = None
         try:
-            for it in range(start + 1, max_iterations + 1):
+            for itk in range(start + 1, max_iterations + 1, K):
+                it = itk + K - 1      # the group's last iteration
+                if cfg.profile_dir and itk <= cfg.profile_steps[0] + start \
+                        <= it:
+                    profile = self._start_profile()
                 batch = next(feeder)
-                mask = copy_paste_mask(
-                    cfg, iteration_draws(stage_seed, it, dropout_gen),
-                    self.device)
-                if stage == "pre":
-                    metrics = pretrain_step(state, batch, mask, cfg,
-                                            dropout_gen)
+                if groups is not None:
+                    done = partial(emit_group, itk, groups.run(batch, itk))
                 else:
-                    metrics = selftrain_step(state, batch, mask, cfg,
-                                             dropout_gen, dropout_gen)
-                    # computed and logged, never applied (reference parity,
-                    # `LA_BCP_train.py:246,260`); ACDC's helper carries a
-                    # factor 5 (`ACDC_BCP_train.py:119-121`)
-                    cw = cfg.consistency * sigmoid_rampup(
-                        it // 150, cfg.consistency_rampup)
-                    if cfg.variant == "acdc":
-                        writer.scalar("info/consistency_weight", 5.0 * cw, it)
+                    mask = copy_paste_mask(
+                        cfg, iteration_draws(stage_seed, it, dropout_gen),
+                        self.device)
+                    if stage == "pre":
+                        metrics = pretrain_step(state, batch, mask, cfg,
+                                                dropout_gen)
                     else:
-                        writer.scalar("Self/consistency", cw, it)
+                        metrics = selftrain_step(state, batch, mask, cfg,
+                                                 dropout_gen, dropout_gen)
+                    done = partial(emit, it, metrics)
+                if stage == "self":
+                    for j in range(itk, it + 1):
+                        # computed and logged, never applied (reference
+                        # parity, `LA_BCP_train.py:246,260`); ACDC's helper
+                        # carries a factor 5 (`ACDC_BCP_train.py:119-121`)
+                        cw = cfg.consistency * sigmoid_rampup(
+                            j // 150, cfg.consistency_rampup)
+                        if cfg.variant == "acdc":
+                            writer.scalar("info/consistency_weight",
+                                          5.0 * cw, j)
+                        else:
+                            writer.scalar("Self/consistency", cw, j)
                 if warm_job is not None:
                     val_worker.submit(warm_job)
                     warm_job = None
                 if pending is not None:
-                    emit(*pending)
-                pending = (it, metrics)
+                    pending()
+                pending = done
                 if self.on_step is not None:
-                    self.on_step(stage, it)
+                    for j in range(itk, it + 1):
+                        self.on_step(stage, j)
+                if profile is not None and itk <= cfg.profile_steps[1] \
+                        + start <= it:
+                    self._stop_profile(profile, stage, logger)
+                    profile = None
                 if it % cfg.eval_every == 0:
-                    emit(*pending)
+                    pending()
                     pending = None
                     tv0 = time.time()
                     job = partial(run_validation, it, *self._snapshot(state))
@@ -468,7 +534,7 @@ class BCPTrainer:
                     # slot (background), or the whole validation (inline)
                     val_seconds += time.time() - tv0
             if pending is not None:
-                emit(*pending)
+                pending()
             if val_worker is not None:
                 tv0 = time.time()
                 val_worker.drain()      # may still submit checkpoint jobs,
@@ -483,9 +549,13 @@ class BCPTrainer:
                 logger.info("end-of-stage save (dice %.4f) to %s", best_dice,
                             best_path)
         finally:
+            if profile is not None:   # a range past the stage's end
+                self._stop_profile(profile, stage, logger)
             for worker in self._workers:
                 worker.close()
             self._workers = []
+            if groups is not None:
+                self.graph_counts[stage] = groups.close()
             feeder.close()
             writer.close()
         dt = time.time() - t0
@@ -495,6 +565,28 @@ class BCPTrainer:
                     stage, done, dt, dt / max(done, 1), val_seconds,
                     100.0 * val_seconds / max(dt, 1e-9), best_dice)
         return best_dice, best_path
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.device)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, stage: str, logger) -> None:
+        cfg = self.cfg
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        path = os.path.join(cfg.profile_dir, f"{stage}_steps_"
+                            f"{cfg.profile_steps[0]}_{cfg.profile_steps[1]}"
+                            f".json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
 
     def pretrain(self, resume: bool = False) -> Tuple[float, str]:
         return self._run_stage("pre", self.cfg.pre_iterations, resume=resume)

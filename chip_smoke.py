@@ -101,6 +101,24 @@ Phases, each of which fails the run (non-zero exit, no final line):
    best on two 10x256x216 volumes, no launch of A-D, then the evaluator's
    steady s/volume and a trace of one volume.
 
+(Phases 9-11, the pancreas kernels, step, training and test paths, are
+described by their functions.)
+
+12. ``--steps_per_dispatch 4`` (``phase_dispatch``), once per pipeline at
+    its CLI's defaults (LA V-Net 112x112x80 batch 8, ACDC U-Net 256x256
+    batch 24, pancreas 96^3 batch 8). First each graph step beside an
+    eager step from the same state (``dispatch_lockstep``): losses and BN
+    statistics bit for bit, the updates bit for bit where a second eager
+    step is, else within STEP_REL of their module's largest. Then the
+    train CLI's core four times from one seed, K = 1 (eager), K = 4 (the
+    groups after each stage's first as CUDA graph replays), K = 1, K = 4,
+    24 iterations a stage with a validation at the last: where the two
+    eager runs agree bit for bit the graph runs must too; the graphs'
+    captures and replays are counted, and their launches of A-D a step
+    are the eager run's. Each run's steady step (host ms, device busy ms,
+    idle share, host launches with a replay as one, synchronisations) is
+    printed beside the card's name and power limit.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -1015,8 +1033,10 @@ def kernels_by_name(spans):
 def host_summary(trace_path: str):
     """What the host spent in an exported trace of CPU and CUDA activity:
     CUDA runtime calls (kernel launches, synchronisations, their summed
-    time) and the span of the traced CPU ops. Host tracing slows the host,
-    so idle shares come from a device-only trace instead."""
+    time) and the span of the traced CPU ops. A CUDA graph's replay counts
+    as one launch (``graph_launches`` counts them alone). Host tracing
+    slows the host, so idle shares come from a device-only trace
+    instead."""
     with open(trace_path) as f:
         events = [e for e in json.load(f).get("traceEvents", [])
                   if e.get("ph") == "X"]
@@ -1024,7 +1044,10 @@ def host_summary(trace_path: str):
     ops = [e for e in events if e.get("cat") == "cpu_op"]
     if not ops:
         return None
-    return {"kernel_launches": sum("LaunchKernel" in e["name"] for e in api),
+    graphs = sum("GraphLaunch" in e["name"] for e in api)
+    return {"kernel_launches": graphs + sum("LaunchKernel" in e["name"]
+                                            for e in api),
+            "graph_launches": graphs,
             "synchronizations": sum("Synchronize" in e["name"]
                                     for e in api),
             "runtime_api_ms": sum(e["dur"] for e in api) / 1e3,
@@ -2282,6 +2305,524 @@ def phase_pancreas_test(torch, best: str, workdir: str):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# steps_per_dispatch: K updates a host visit as CUDA graph replays
+
+#: iterations a stage of the dispatch phases: 6 groups of DISPATCH_K, with
+#: a validation at the last; groups 1-2 warm up (eager, then the captures),
+#: 3-4 are timed, 5 is traced on the device and 6 on the host
+DISPATCH_K = 4
+DISPATCH_ITERS = 6 * DISPATCH_K
+#: the LA dispatch phases validate on one small volume (4 windows)
+DISPATCH_LA_VAL = (130, 130, 84)
+
+
+class DispatchClock:
+    """The trainer's ``on_step`` hook for the dispatch phases: the host
+    time each iteration is reported, launches and peak memory over
+    iterations 9-16 (groups 3-4), a device-only trace of iterations 17-20
+    and a host trace of 21-24, each between two synchronisations. At
+    iteration 4 it waits for the stage's evaluator warm-up, so that no
+    background work falls into the window. With K = 4 the trainer calls
+    it four times after each group is enqueued; with K = 1 after each
+    step: the same iterations bound the same windows either way."""
+
+    def __init__(self, torch, counters, workdir: str, trainer, tag: str):
+        self.torch, self.counters, self.workdir = torch, counters, workdir
+        self.trainer, self.tag = trainer, tag
+        self.times, self.launches, self.peak_gib = {}, {}, {}
+        self.reserved_gib, self.traces, self._prof = {}, {}, None
+        w = DISPATCH_K
+        self.marks = {w: "drain", 2 * w: "window", 4 * w: "device",
+                      5 * w: "host", 6 * w: "end"}
+
+    def __call__(self, stage: str, it: int) -> None:
+        torch = self.torch
+        self.times.setdefault(stage, {})[it] = time.perf_counter()
+        mark = self.marks.get(it)
+        if mark == "drain":
+            self.trainer.wait_for_validations()
+        elif mark == "window":
+            self.launches[stage] = read_launches(self.counters)
+            torch.cuda.reset_peak_memory_stats()
+        elif mark is not None:
+            if mark == "device":
+                now = read_launches(self.counters)
+                self.launches[stage] = {k: v - self.launches[stage][k]
+                                        for k, v in now.items()}
+                self.peak_gib[stage] = (torch.cuda.max_memory_allocated()
+                                        / 2**30)
+                # a graph's pool is reserved, not allocated, between replays
+                self.reserved_gib[stage] = torch.cuda.memory_reserved() / 2**30
+            self._trace(stage, None if mark == "end" else mark)
+
+    def _trace(self, stage: str, what):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch.cuda.synchronize()
+        if self._prof is not None:
+            prof, path = self._prof
+            prof.stop()
+            prof.export_chrome_trace(path)
+            self._prof = None
+        if what is not None:
+            acts = [ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if what == "host" else [])
+            path = os.path.join(self.workdir,
+                                f"dispatch_{self.tag}_{what}_{stage}.json")
+            self.traces[(stage, what)] = path
+            self._prof = (profile(activities=acts), path)
+            self._prof[0].start()
+
+    def steady(self, stage: str):
+        """Per step over the timed groups: host ms, launches of A-D; over
+        the traced ones: device busy ms, idle share, host launches (a
+        replay counts as one) and synchronisations."""
+        w = DISPATCH_K
+        t = self.times[stage]
+        n = 2 * w
+        dev = device_summary(self.traces[(stage, "device")])
+        host = host_summary(self.traces[(stage, "host")])
+        return {"ms_per_step": (t[4 * w] - t[2 * w]) / n * 1e3,
+                "kernel_launches_per_step": {
+                    k: v / n for k, v in self.launches[stage].items() if v},
+                "peak_mem_gib": self.peak_gib[stage],
+                "reserved_gib": self.reserved_gib[stage],
+                "busy_ms_per_step": dev["busy_ms"] / w if dev else None,
+                "idle_share": dev["idle_share"] if dev else None,
+                "device_ops_per_step": dev["device_ops"] / w if dev else None,
+                "host_launches_per_step":
+                    host["kernel_launches"] / w if host else None,
+                "graph_launches_per_step":
+                    host["graph_launches"] / w if host else None,
+                "synchronizations_per_step":
+                    host["synchronizations"] / w if host else None}
+
+
+def dispatch_data(variant: str):
+    """The synthetic train and validation data of a dispatch phase: the
+    training phases' data (LA with one small validation volume)."""
+    if variant == "la":
+        from bcp_tpu_torch.data.datasets import VolumeList
+        from bcp_tpu_torch.data.synthetic import la_cases
+        return (VolumeList(la_cases(TRAIN_VOLUMES, TRAIN_VOLUME,
+                                    seed=SEED + 3)),
+                la_cases(1, DISPATCH_LA_VAL, seed=SEED + 4))
+    if variant == "acdc":
+        from bcp_tpu_torch.data.datasets import SliceList
+        from bcp_tpu_torch.data.synthetic import acdc_cases
+        slices, val = acdc_cases(ACDC_TRAIN_SLICES, ACDC_TRAIN_SHAPES, 2,
+                                 ACDC_VAL_VOLUME, seed=SEED + 11)
+        return SliceList(slices), val
+    from bcp_tpu_torch.data.datasets import PancreasList
+    from bcp_tpu_torch.data.synthetic import pancreas_cases
+    lab, unlab, val = pancreas_cases(PANC_LAB, PANC_UNLAB, 2,
+                                     PANC_TRAIN_SHAPES, PANC_TEST_VOLUME,
+                                     seed=SEED + 16)
+    return (PancreasList(lab), PancreasList(unlab, "train_unlab")), val
+
+
+def dispatch_cli(variant: str, root: str, K: int):
+    """(CLI module, parsed flags, config overrides) of a dispatch run: the
+    CLI's defaults, DISPATCH_ITERS iterations a stage, ``--steps_per_dispatch
+    K``."""
+    n = str(DISPATCH_ITERS)
+    if variant == "la":
+        from bcp_tpu_torch.cli import train_la as cli
+        flags = ["--labelnum", "4", "--root_path", root, "--snapshot_root",
+                 root, "--device", DEVICE, "--pre_max_iteration", n,
+                 "--self_max_iteration", n]
+        over = {"patch_size": PATCH}
+    elif variant == "acdc":
+        from bcp_tpu_torch.cli import train_acdc as cli
+        flags = acdc_flags(root, "--pre_iterations", n, "--max_iterations",
+                           n)
+        over = {}
+    else:
+        from bcp_tpu_torch.cli import train_pancreas as cli
+        flags = pancreas_flags(root)
+        over = {"pre_iterations": DISPATCH_ITERS,
+                "self_iterations": DISPATCH_ITERS}
+    args = cli.build_parser().parse_args(
+        flags + ["--steps_per_dispatch", str(K)])
+    return cli, args, dict(over, eval_every=DISPATCH_ITERS)
+
+
+def dispatch_lockstep(torch, variant: str, data, root: str):
+    """Each graph step held to an eager step from the same state, at the
+    CLI's widths: per stage, a ``DispatchGroups`` group of DISPATCH_K eager
+    steps (the warm-up), then DISPATCH_K graph steps, each beside an eager
+    step (``pretrain_step`` / ``selftrain_step``, K = 1's) on a copy of the
+    state the graph step started from, with the same batch and draws. The
+    forward is deterministic, so the losses and the BN statistics must be
+    the same bit for bit; the updates (student, teacher, optimizer state)
+    bit for bit where a second eager step from that state is, else within
+    STEP_REL of their module's largest eager update. Returns the worst
+    ratio of update error to limit and whether the eager steps were
+    bit-identical."""
+    from bcp_tpu_torch.data.feed import BCPBatchFeeder
+    from bcp_tpu_torch.train.checkpoints import snapshot
+    from bcp_tpu_torch.train.graphs import DispatchGroups
+    from bcp_tpu_torch.train.state import init_state, load_optimizer
+    from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
+    from bcp_tpu_torch.train.trainer import (copy_paste_box,
+                                             copy_paste_mask,
+                                             iteration_draws)
+    cli, args, over = dispatch_cli(variant, root, DISPATCH_K)
+    cfg = cli.config_from_args(args, **over) if variant != "pancreas" else \
+        cli.config_from_args(args, data[0], **over)
+    K, dev = DISPATCH_K, torch.device(DEVICE)
+    ulp = float(np.finfo(np.float32).eps)
+    out = {}
+    for stage in ("pre", "self"):
+        seed = cfg.seed + (stage == "self")
+        feeder = BCPBatchFeeder(cfg, stage, data[0], dev, stack=K)
+        try:
+            groups_in = [next(feeder) for _ in range(2)]
+        finally:
+            feeder.close()
+        graph = init_state(cfg, dev)
+        gen = torch.Generator(device=dev)
+
+        def draws(it, g=gen):
+            return copy_paste_box(cfg, iteration_draws(seed, it, g)), g
+        groups = DispatchGroups(graph, cfg, stage, K, draws, static=True)
+        groups.run(groups_in[0], 1)
+        step = groups.graph_step
+        eager = [init_state(cfg, dev) for _ in range(2)]
+        egen = torch.Generator(device=dev)
+        worst, exact = (0.0, ""), True
+        for j in range(K):
+            it = K + 1 + j
+            sub = {k: v[j] for k, v in groups_in[1].items()}
+            start = snapshot(graph)
+            got = step.step(sub, draws(it))
+            got = dict(zip(step.names, got.tolist()))
+            after = {}
+            for which, e in enumerate(eager[:2 if j == 0 else 1]):
+                e.model.load_state_dict(start["model"])
+                e.teacher.load_state_dict(start["teacher"])
+                load_optimizer(e.optimizer, {
+                    "state": {i: {k: v.clone() for k, v in st.items()}
+                              for i, st in start["optimizer"]["state"]
+                              .items()},
+                    "param_groups": start["optimizer"]["param_groups"]})
+                e.step = start["step"]
+                mask = copy_paste_mask(cfg, iteration_draws(seed, it, egen),
+                                       dev)
+                m = pretrain_step(e, sub, mask, cfg, egen) \
+                    if stage == "pre" else selftrain_step(
+                        e, sub, mask, cfg, egen, egen)
+                after[which] = ({k: float(v) for k, v in m.items()},
+                                snapshot(e))
+            want_loss, want = after[0]
+            if got != want_loss:
+                fail(f"dispatch {variant} {stage}-train step {it}: graph "
+                     f"losses {got}, eager {want_loss} from one state")
+            have = snapshot(graph)
+            if j == 0:
+                exact = _state_equal(after[1][1], want)
+            ratio = _lockstep_ratio(start, have, want, exact, ulp)
+            worst = max(worst, (ratio[0], f"{stage}@{it}.{ratio[1]}"))
+        groups.close()
+        out[stage] = {"worst": worst, "eager_bit_identical": exact}
+    return out
+
+
+def _flat(snap):
+    """name -> tensor of a ``checkpoints.snapshot``: the student, the
+    teacher and the optimizer state, the latter by its parameter's name
+    (the state_dict's parameters in order: the model holds no buffer
+    between them that the optimizer counts)."""
+    out = {f"model.{k}": v for k, v in snap["model"].items()}
+    out.update({f"teacher.{k}": v for k, v in snap["teacher"].items()})
+    names = [k for k, v in snap["model"].items()
+             if v.is_floating_point() and not k.endswith(
+                 ("running_mean", "running_var"))]
+    for i, st in snap["optimizer"]["state"].items():
+        out.update({f"opt.{names[i]}.{k}": v for k, v in st.items()})
+    return out
+
+
+def _state_equal(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return sorted(fa) == sorted(fb) and all(
+        fa[k].shape == fb[k].shape and bool((fa[k] == fb[k]).all())
+        for k in fa)
+
+
+def _lockstep_ratio(start, got, want, exact: bool, ulp: float):
+    """Worst (error / limit, tensor) of one step's updates, ``got``'s
+    against ``want``'s from the same ``start``: bit for bit when ``exact``
+    and for the running statistics (the forward is deterministic); else
+    each update within STEP_REL of the largest eager update of its module
+    and kind (an optimizer statistic shares its parameter's module) plus
+    4 f32 ulps of its start."""
+    s, g, w = _flat(start), _flat(got), _flat(want)
+
+    def kind(k):
+        # (module, what): a bias shares its module's scale, as in phase 3
+        if k.startswith("opt."):
+            name, stat = k.rsplit(".", 1)
+            return name.rsplit(".", 1)[0], stat
+        return k.rsplit(".", 1)[0], "running" in k
+
+    def upd(t, k):
+        return t[k].double() - s[k].double()
+    scale = {}
+    for k, v in w.items():
+        if v.is_floating_point():
+            scale[kind(k)] = max(scale.get(kind(k), 0.0),
+                                 upd(w, k).abs().max().item())
+    worst = (0.0, "")
+    for k, v in w.items():
+        err = (g[k].double() - v.double()).abs().max().item()
+        if exact or not v.is_floating_point() or "running" in k:
+            ratio = 0.0 if err == 0 else np.inf
+        else:
+            limit = (STEP_REL * scale[kind(k)]
+                     + 4 * ulp * s[k].double().abs().max().item())
+            ratio = err / limit if limit else (0.0 if err == 0 else np.inf)
+        worst = max(worst, (ratio, k))
+    return worst
+
+
+def dispatch_run(torch, variant: str, K: int, root: str, data, tag: str):
+    """One run of the variant's train CLI core at the CLI's defaults with
+    ``--steps_per_dispatch K``, DISPATCH_ITERS iterations a stage and a
+    validation at the last, timed by :class:`DispatchClock`, its losses
+    recorded by the trainer's ``on_metrics`` hook, its launch counts set to
+    0 just before the stages and read just after."""
+    from bcp_tpu_torch.cli.train_la import run_stages
+    cli, args, over = dispatch_cli(variant, root, K)
+    counters = kernel_counters()
+    losses = {}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer = cli.build_trainer(args, train_dataset=data[0],
+                                    val_cases=data[1], **over)
+        clock = DispatchClock(torch, counters, root, trainer, tag)
+        trainer.on_step = clock
+        trainer.on_metrics = lambda stage, it, m: losses.setdefault(
+            stage, {}).__setitem__(it, m)
+        read_launches(counters, reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stages = run_stages(trainer, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(counters)
+    cfg = trainer.cfg
+    if cfg.steps_per_dispatch != K or cfg.fused_bwd \
+            or not (cfg.device_data_cache and cfg.async_val):
+        fail(f"dispatch {variant}: the CLI's defaults changed: {cfg}")
+    for stage in ("pre", "self"):
+        seen = sorted(losses.get(stage, {}))
+        if seen != list(range(1, DISPATCH_ITERS + 1)) \
+                or sorted(clock.times[stage]) != seen \
+                or not all(np.isfinite(v) for m in losses[stage].values()
+                           for v in m.values()):
+            fail(f"dispatch {variant} K={K} {stage}-train: losses of "
+                 f"iterations {seen}: {losses.get(stage)}")
+    return {"trainer": trainer, "stages": stages, "clock": clock,
+            "losses": losses, "launches": launches, "wall": wall,
+            "cfg": cfg, "root": root}
+
+
+def dispatch_state(torch, run, stage: str):
+    """(end, start) tensors of a run's stage, by name: the student, the
+    teacher and the optimizer state of its ``last_state.pt`` (the state at
+    the last iteration's validation), and where the stage started: the
+    seeded initial weights (pre-train) or the pre-train best's weights and,
+    with ``load_opt_state``, its optimizer state (self-train)."""
+    from bcp_tpu_torch.convert import load_reference_checkpoint
+    from bcp_tpu_torch.train.checkpoints import load_optimizer_state
+    from bcp_tpu_torch.train.state import build_model
+    cfg = run["cfg"]
+    path = os.path.join(os.path.dirname(run["stages"][stage][1]),
+                        "last_state.pt")
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    # optimizer state by its parameter's name: a bias shares its module's
+    # scale (its gradient may be rounding noise in front of a norm)
+    names = [n for n, _ in build_model(cfg, "train", "cpu").named_parameters()]
+    end = {}
+    for part in ("model", "teacher"):
+        end.update({f"{part}.{k}": v for k, v in saved[part].items()})
+    for i, st in saved["optimizer"]["state"].items():
+        end.update({f"opt.{names[i]}.{k}": v for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    if stage == "pre":
+        weights = build_model(cfg, "train", "cpu").state_dict()
+        opt = {}
+    else:
+        pre = run["stages"]["pre"][1]
+        weights = load_reference_checkpoint(pre, cfg.net_type)
+        opt = (load_optimizer_state(pre)["state"] if cfg.load_opt_state
+               else {})
+    start = {}
+    for part in ("model", "teacher"):
+        start.update({f"{part}.{k}": v for k, v in weights.items()})
+    for i, st in opt.items():
+        start.update({f"opt.{names[i]}.{k}": v for k, v in st.items()
+                      if isinstance(v, torch.Tensor)})
+    return end, start
+
+
+def dispatch_hold(torch, got, want, exact: bool):
+    """``got`` (a run's (end, start) per stage and losses) held to
+    ``want``'s: bit for bit when ``exact``; else every tensor's update
+    (end - start; optimizer state without a start counts from 0) within
+    STEP_REL of the largest update of ``want``'s among its module's
+    tensors of the same kind (parameters, running statistics, each
+    optimizer statistic), plus 4 f32 ulps of its start, and every loss
+    within STEP_REL of how far ``want``'s losses of that stage moved.
+    Returns the worst ratio of error to limit (0 when bit for bit) and
+    where, by stage and kind ("pre.param", "self.running", "pre.opt",
+    "self.loss", ...)."""
+    ulp = float(np.finfo(np.float32).eps)
+    worst = {}
+
+    def note(ratio, where):
+        kind = ("loss" if ".loss." in where else "opt" if ".opt." in where
+                else "running" if "running" in where else "param")
+        key = f"{where.split('.', 1)[0]}.{kind}"
+        worst[key] = max(worst.get(key, (0.0, "")), (ratio, where))
+    for stage in ("pre", "self"):
+        (g_end, g_start), (w_end, w_start) = got[stage], want[stage]
+        if sorted(g_end) != sorted(w_end):
+            fail(f"dispatch: {stage}-train states hold other tensors")
+
+        def upd(end, start, k):
+            d = end[k].double()
+            return d - start[k].double() if k in start else d
+
+        def kind(k):
+            # (module, what): parameters, running statistics, or one
+            # optimizer statistic (momentum, Adam's two moments, its step)
+            if k.startswith("opt."):
+                name, stat = k.rsplit(".", 1)
+                return name.rsplit(".", 1)[0], stat
+            return k.rsplit(".", 1)[0], "running" in k
+        scale = {}
+        for k, v in w_end.items():
+            if v.is_floating_point():
+                scale[kind(k)] = max(scale.get(kind(k), 0.0), upd(
+                    w_end, w_start, k).abs().max().item())
+        for k, v in w_end.items():
+            if exact or not v.is_floating_point():
+                err = (g_end[k].double() - v.double()).abs().max().item()
+                ratio = 0.0 if err == 0 else np.inf
+            else:
+                base = w_start[k].double().abs().max().item() \
+                    if k in w_start else 0.0
+                limit = STEP_REL * scale[kind(k)] + 4 * ulp * base
+                err = (upd(g_end, g_start, k)
+                       - upd(w_end, w_start, k)).abs().max().item()
+                ratio = err / limit if limit else (0.0 if err == 0
+                                                   else np.inf)
+            note(ratio, f"{stage}.{k}")
+        wl, gl = want["losses"][stage], got["losses"][stage]
+        for name in wl[1]:
+            series = [wl[i][name] for i in sorted(wl)]
+            moved = max(series) - min(series)
+            for i in sorted(wl):
+                err = abs(gl[i][name] - wl[i][name])
+                limit = 0.0 if exact else STEP_REL * moved
+                ratio = err / limit if limit else (0.0 if err == 0
+                                                   else np.inf)
+                note(ratio, f"{stage}.loss.{name}@{i}")
+    return worst
+
+
+def phase_dispatch(torch, workdir: str, variant: str, smi: str):
+    """``--steps_per_dispatch 4`` on one pipeline at the CLI's defaults
+    (LA: V-Net n_filters 16, 112x112x80, batch 8; ACDC: U-Net, 256x256,
+    batch 24; pancreas: 96^3, batch 8, Adam): four runs of the train CLI's
+    core from one seed, K = 1 (eager), K = 4 (CUDA graphs), K = 1, K = 4,
+    each DISPATCH_ITERS iterations a stage with a validation at the last,
+    both stages. First each graph step is held to an eager step from the
+    same state (:func:`dispatch_lockstep`). Then the runs: where the two
+    eager runs agree bit for bit, each graph run must too. Where they do
+    not (ACDC: its bilinear upsample adds gradients with atomics, in bf16,
+    and in the self-train stage a flipped pseudo-label pixel can move a
+    whole component in or out of the NMS's pick), two independent runs of
+    48 steps lie further apart than STEP_REL, eager against eager too, so
+    :func:`dispatch_hold`'s ratios of both are printed and the lockstep
+    comparison is what holds the graphs. Each graph run
+    captures once per stage and program (pre-train: one graph; self-train:
+    T and S) and replays from its second group on, and its launches of
+    A-D a timed step are the eager run's. The steady step of each run (ms,
+    device busy ms, idle share, host launches and synchronisations) is
+    printed beside the card's name and power limit. Returns the launches
+    of the eager and the graph runs."""
+    data = dispatch_data(variant)
+    lockstep = dispatch_lockstep(torch, variant, data,
+                                 os.path.join(workdir, f"lockstep_{variant}"))
+    runs = []
+    for i, K in enumerate((1, DISPATCH_K, 1, DISPATCH_K)):
+        root = os.path.join(workdir, f"dispatch_{variant}_{i}")
+        os.makedirs(root)
+        runs.append(dispatch_run(torch, variant, K, root, data,
+                                 f"{variant}{i}"))
+    held = []
+    for run in runs:
+        run["state"] = {stage: dispatch_state(torch, run, stage)
+                        for stage in ("pre", "self")}
+        run["state"]["losses"] = run["losses"]
+    ref = runs[0]["state"]
+    exact = all(r == 0 for r, _ in dispatch_hold(
+        torch, runs[2]["state"], ref, exact=True).values())
+    # the second eager run under the rule: the card's own run-to-run noise
+    eager_ratio = dispatch_hold(torch, runs[2]["state"], ref, exact=False)
+    for run in (runs[1], runs[3]):
+        held.append(dispatch_hold(torch, run["state"], ref, exact=False))
+    steady = {}
+    for i, run in enumerate(runs):
+        K = run["cfg"].steps_per_dispatch
+        way = "graphs" if K > 1 else "eager"
+        counts = run["trainer"].graph_counts
+        if K > 1:
+            groups = DISPATCH_ITERS // K
+            want = {"pre": {"captures": 1, "replays": (groups - 1) * K},
+                    "self": {"captures": 2,
+                             "replays": 2 * (groups - 1) * K}}
+            if counts != want:
+                fail(f"dispatch {variant} run {i}: graph counts {counts}, "
+                     f"expected {want}")
+        for stage in ("pre", "self"):
+            s = run["clock"].steady(stage)
+            steady.setdefault(stage, {}).setdefault(way, []).append(s)
+            if s["kernel_launches_per_step"] != runs[0]["clock"].steady(
+                    stage)["kernel_launches_per_step"]:
+                fail(f"dispatch {variant} run {i} {stage}-train: launches "
+                     f"a step {s['kernel_launches_per_step']}, the eager "
+                     f"run's {runs[0]['clock'].steady(stage)}")
+    result = {"card": smi, "K": DISPATCH_K, "iterations": DISPATCH_ITERS,
+              "runs": ["eager", "graphs", "eager", "graphs"],
+              "eager_vs_eager_bit_identical": exact,
+              "eager_vs_eager_worst": eager_ratio,
+              "graphs_vs_eager_worst": held,
+              "lockstep": lockstep,
+              "graph_counts": runs[1]["trainer"].graph_counts,
+              "cli_s": [r["wall"] for r in runs]}
+    print(f"dispatch {variant}: " + json.dumps(result), flush=True)
+    for stage in ("pre", "self"):
+        print(f"dispatch {variant} steady {stage}-train step ({smi}): "
+              + json.dumps(steady[stage]), flush=True)
+    if exact and any(r > 0 for h in held for r, _ in h.values()):
+        fail(f"dispatch {variant}: the eager runs agree bit for bit and a "
+             f"graph run does not: {result}")
+    if any(v["worst"][0] > 1.0 for v in lockstep.values()):
+        fail(f"dispatch {variant}: a graph step differs from the eager step "
+             f"from its state: {lockstep}")
+    launches = {}
+    for tag, picks in (("k1", (0, 2)), (f"k{DISPATCH_K}", (1, 3))):
+        launches[f"train_{variant}_{tag}"] = {
+            k: sum(runs[i]["launches"][k] for i in picks)
+            for k in runs[0]["launches"]}
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2332,6 +2873,9 @@ def main() -> int:
             torch, os.path.join(workdir, "pancreas"))
         launches["test_pancreas"] = phase_pancreas_test(torch, panc_best,
                                                         workdir)
+        for variant in ("la", "acdc", "pancreas"):
+            launches.update(phase_dispatch(
+                torch, os.path.join(workdir, "dispatch"), variant, smi))
     for e in entries:
         if e["name"] in pancreas:
             # B's, B-as-dx's and C's device times at the 96^3 stage shapes

@@ -270,11 +270,34 @@ def test_test_acdc_reads_the_best_file_and_writes_performance(run, data,
 
 @pytest.mark.parametrize("flag,item", [
     (["--num_devices", "2"], "multi-GPU"),
-    (["--sp_devices", "2"], "multi-GPU"),
-    (["--steps_per_dispatch", "2"], "steps_per_dispatch")])
+    (["--sp_devices", "2"], "multi-GPU")])
 def test_train_acdc_refuses_what_the_port_lacks(tmp_path, flag, item):
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP.*{item}"):
         train_acdc.train(_args(tmp_path, *flag))
+
+
+def test_steps_per_dispatch_two_equals_one(run, data, tmp_path):
+    """``--steps_per_dispatch 2`` runs both stages in one group each (K
+    eager steps a group on the CPU) and ends each stage in the module
+    run's state (K = 1, the same flags), bit for bit: student, teacher,
+    momentum buffers and step."""
+    calls = []
+    trainer, out = train_acdc.train(
+        _args(tmp_path, "--steps_per_dispatch", "2"),
+        train_dataset=data[0], val_cases=data[1],
+        on_step=lambda *a: calls.append(a), **TINY)
+    assert trainer.cfg.steps_per_dispatch == 2
+    assert calls == run[3]
+    for stage in ("pre_train", "self_train"):
+        want = torch.load(run[0] / "ACDC_BCP_1_labeled" / stage / STATE_FILE)
+        got = torch.load(tmp_path / "ACDC_BCP_1_labeled" / stage / STATE_FILE)
+        assert got["step"] == want["step"] == 2
+        for part in ("model", "teacher"):
+            for k, v in want[part].items():
+                assert torch.equal(got[part][k], v), (stage, part, k)
+        for i, st in want["optimizer"]["state"].items():
+            assert torch.equal(got["optimizer"]["state"][i][
+                "momentum_buffer"], st["momentum_buffer"]), (stage, i)
 
 
 @pytest.mark.parametrize("flag,what", [(["--save_result", "1"], "NIfTI"),

@@ -30,7 +30,8 @@ from bcp_tpu_torch.eval import sliding_window
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
 from bcp_tpu_torch.models import create_model
 from bcp_tpu_torch.train import trainer as trainer_mod
-from bcp_tpu_torch.train.checkpoints import load_optimizer_state
+from bcp_tpu_torch.train.checkpoints import (STATE_FILE,
+                                             load_optimizer_state)
 from bcp_tpu_torch.utils.logging import MetricWriter
 from test_torch_pancreas_model import flax_pancreas, port_pancreas
 
@@ -233,12 +234,35 @@ def test_flags_are_the_jax_clis():
 @pytest.mark.parametrize("flag,item", [
     (["--num_devices", "2"], "A4, multi-GPU"),
     (["--sp_devices", "2"], "A4, multi-GPU"),
-    (["--remat", "1"], "A4, remat"),
-    (["--steps_per_dispatch", "2"], "A1, steps_per_dispatch")])
+    (["--remat", "1"], "A4, remat")])
 def test_train_pancreas_refuses_what_the_port_lacks(root, tmp_path, flag,
                                                     item):
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP {item}"):
         train_pancreas.train(_args(root, tmp_path, *flag))
+
+
+def test_steps_per_dispatch_two_equals_one(run, root, tmp_path):
+    """``--steps_per_dispatch 2`` runs both stages in one group each (K
+    eager steps a group on the CPU) and ends each stage in the module
+    run's state (K = 1, the same flags), bit for bit: student, teacher,
+    Adam's moments and step count."""
+    calls = []
+    trainer, out = train_pancreas.train(
+        _args(root, tmp_path, "--steps_per_dispatch", "2"),
+        on_step=lambda *a: calls.append(a), **TINY)
+    assert trainer.cfg.steps_per_dispatch == 2
+    assert calls == run[3]
+    for stage in ("pre_train", "self_train"):
+        want = torch.load(next(run[0].glob(f"*/{stage}/{STATE_FILE}")))
+        got = torch.load(next(tmp_path.glob(f"*/{stage}/{STATE_FILE}")))
+        assert got["step"] == want["step"] == 2
+        for part in ("model", "teacher"):
+            for k, v in want[part].items():
+                assert torch.equal(got[part][k], v), (stage, part, k)
+        for i, st in want["optimizer"]["state"].items():
+            for k, v in st.items():
+                assert torch.equal(got["optimizer"]["state"][i][k], v), (
+                    stage, i, k)
 
 
 @pytest.mark.parametrize("flag,item", [(["--save_result", "1"], "A5"),

@@ -384,8 +384,47 @@ def test_draws_differ_by_stage_and_seed(data, tmp_path, monkeypatch,
     assert [s for s, _ in base] != [s for s, _ in other]
 
 
-@pytest.mark.parametrize("field", [{"debug_nans": True},
-                                   {"profile_dir": "trace"}])
-def test_trainer_refuses_fields_it_does_not_honour(data, tmp_path, field):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        _trainer(_cfg(tmp_path, **field), data)
+@pytest.mark.parametrize("K", [1, 2])
+def test_debug_nans_names_the_first_non_finite_step(data, tmp_path,
+                                                    monkeypatch, K):
+    """With ``debug_nans`` the losses read back are checked: batches that
+    turn NaN from iteration 3 on stop the stage with a
+    ``FloatingPointError`` naming step 3, one step (K = 1) or one group
+    (K = 2) later; without it the stage runs on."""
+    from bcp_tpu_torch.train import trainer as trainer_mod
+
+    class PoisonedFeeder(trainer_mod.BCPBatchFeeder):
+        calls = 0
+
+        def __next__(self):
+            batch = super().__next__()
+            first = self.calls * self.stack + 1    # its first iteration
+            type(self).calls += 1
+            if first + self.stack - 1 >= 3 and self.stage == "pre":
+                batch = dict(batch, img_a=torch.full_like(batch["img_a"],
+                                                          float("nan")))
+            return batch
+    monkeypatch.setattr(trainer_mod, "BCPBatchFeeder", PoisonedFeeder)
+    cfg = _cfg(tmp_path / "nan", steps_per_dispatch=K, debug_nans=True)
+    with pytest.raises(FloatingPointError, match="pre-train step 3: "
+                       "non-finite loss"):
+        _trainer(cfg, data).pretrain()
+    PoisonedFeeder.calls = 0
+    _trainer(_cfg(tmp_path / "on", steps_per_dispatch=K), data).pretrain()
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_profile_dir_writes_a_trace_of_the_step_range(data, tmp_path, K):
+    """``profile_dir`` with ``profile_steps`` (1, 3): a ``torch.profiler``
+    trace of the CPU's ops over the groups that hold steps 1 to 3, written
+    as ``pre_steps_1_3.json`` and named in the stage's log."""
+    trace_dir = tmp_path / "trace"
+    cfg = _cfg(tmp_path, steps_per_dispatch=K, profile_dir=str(trace_dir),
+               profile_steps=(1, 3))
+    _trainer(cfg, data).pretrain()
+    path = trace_dir / "pre_steps_1_3.json"
+    import json
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    log = (tmp_path / "LA_BCP_4_labeled" / "pre_train" / "log.txt")
+    assert f"profiler trace written to {path}" in log.read_text()

@@ -2,8 +2,9 @@
 through the trainer with the CLI's defaults (device store, background
 validation), call its per-iteration hook, hand off through the pre-train
 stage's best .pth and write reference-layout checkpoints that load
-strictly into the eval model; the flags the port lacks are refused with
-the ROADMAP item that brings them, the ported ones reach the config."""
+strictly into the eval model, also in groups of ``--steps_per_dispatch``;
+the flags the port lacks are refused with the ROADMAP item that brings
+them, the ported ones reach the config."""
 
 import os
 import re
@@ -58,11 +59,34 @@ def test_two_stages_hand_off_and_write_strict_checkpoints(tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--num_devices", "2"], "multi-GPU"), (["--sp_devices", "2"],
                                            "multi-GPU"),
-    (["--remat", "1"], "remat"),
-    (["--steps_per_dispatch", "2"], "steps_per_dispatch")])
+    (["--remat", "1"], "remat")])
 def test_refuses_what_the_port_lacks(tmp_path, flag, item):
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP.*{item}"):
         train_la.train(_args(tmp_path, *flag))
+
+
+def test_steps_per_dispatch_two_runs_both_stages(tmp_path):
+    """``--steps_per_dispatch 2`` reaches the config and runs both stages
+    in groups of two (K eager steps a group on the CPU): the hook sees
+    every iteration, every step logs a finite loss and the checkpoints
+    load strictly."""
+    calls = []
+    trainer, out = train_la.train(
+        _args(tmp_path, "--steps_per_dispatch", "2"),
+        train_dataset=VolumeList(la_cases(8, (20, 20, 18), seed=11)),
+        val_cases=la_cases(1, (24, 22, 20), seed=12),
+        on_step=lambda *a: calls.append(a), **TINY)
+    assert trainer.cfg.steps_per_dispatch == 2
+    assert calls == [("pre", 1), ("pre", 2), ("self", 1), ("self", 2)]
+    run = tmp_path / "LA_BCP_4_labeled"
+    for stage, (dice, path) in out.items():
+        model = create_model("VNet", 2, device="cpu", n_filters=4)
+        model.load_state_dict(torch.load(path), strict=True)
+        assert torch.load(run / f"{stage}_train" / "last_state.pt")[
+            "step"] == 2
+        log = (run / f"{stage}_train" / "log.txt").read_text()
+        losses = [float(v) for v in re.findall(r"loss: (\S+)", log)]
+        assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 @pytest.mark.parametrize("flag,field,want", [
