@@ -18,7 +18,8 @@ import os
 
 import numpy as np
 
-from bcp_tpu_torch.cli.common import load_eval_model
+from bcp_tpu_torch.cli.common import (ResultWriter, case_name,
+                                      load_eval_model)
 from bcp_tpu_torch.config import acdc_config
 from bcp_tpu_torch.data.datasets import ACDCDataset
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
@@ -36,7 +37,6 @@ def build_parser():
     # a reference-layout torch .pth (overrides --snapshot_root)
     p.add_argument("--torch_ckpt", type=str, default=None)
     p.add_argument("--snapshot_root", type=str, default="./model/BCP")
-    # NIfTI dumps need the writer of data/preprocess.py, a later slice
     p.add_argument("--save_result", type=int, default=0)
     # multi-GPU evaluation comes with a later slice
     p.add_argument("--num_devices", type=int, default=1)
@@ -50,9 +50,6 @@ def build_parser():
 
 def build_evaluator(args, device=None):
     """(cfg, evaluator) of the parsed flags, weights loaded."""
-    if args.save_result:
-        raise SystemExit("error: --save_result needs the NIfTI writer, which "
-                         "the port does not have yet")
     if args.num_devices not in (0, 1):
         raise SystemExit("error: the port evaluates on one device; "
                          "--num_devices > 1 comes with the multi-GPU slice")
@@ -72,11 +69,20 @@ def build_evaluator(args, device=None):
 def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
     """Evaluate the test list (or ``dataset``: anything with ``len`` and
     ``load(i) -> (image, label)`` volumes), print and write the averages,
-    and return the (classes - 1, 4) average metrics."""
+    and return the (classes - 1, 4) average metrics. With
+    ``--save_result 1`` each volume's prediction, image and label go to
+    ``<model>_predictions/{case}_{pred,img,gt}.nii.gz`` beside the stage's
+    snapshot directory (float32, spacing (1, 1, 10), `test_ACDC.py:70-75`;
+    a case without a name is its index, ``%02d``), written in the
+    background, complete when this returns."""
     cfg, evaluator = build_evaluator(args, device)
     ds = dataset if dataset is not None else ACDCDataset(cfg.root_path,
                                                          "test")
     totals = np.zeros((cfg.num_classes - 1, 4))
+    pred_dir = os.path.join(
+        os.path.dirname(snapshot_dir(cfg, args.stage_name)),
+        f"{args.model}_predictions")
+    os.makedirs(pred_dir, exist_ok=True)
     loaded = []
 
     def _images():
@@ -84,16 +90,21 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
             loaded.append(ds.load(i))
             yield loaded[-1][0]
 
-    # the device runs volumes i+1..i+3 while the host scores volume i
-    for i, pred in enumerate(evaluator.predict_volumes(_images())):
-        totals += np.asarray(evaluator.metrics_for(pred, loaded[i][1]))
+    dumps = ResultWriter(args.save_result)
+    try:
+        # the device runs volumes i+1..i+3 while the host scores volume i
+        for i, pred in enumerate(evaluator.predict_volumes(_images())):
+            image, label = loaded[i]
+            totals += np.asarray(evaluator.metrics_for(pred, label))
+            name = case_name(ds, i)
+            dumps.write([os.path.join(pred_dir, f"{name}_{t}.nii.gz")
+                         for t in ("pred", "img", "gt")],
+                        (pred, image, label), spacing=(1.0, 1.0, 10.0))
+    finally:
+        dumps.close()
     avg = totals / len(ds)
     print([avg[c] for c in range(avg.shape[0])])
     print(avg.mean(axis=0))
-    pred_dir = os.path.join(
-        os.path.dirname(snapshot_dir(cfg, args.stage_name)),
-        f"{args.model}_predictions")
-    os.makedirs(pred_dir, exist_ok=True)
     with open(os.path.join(pred_dir, "..", "performance.txt"), "w") as f:
         f.write(f"metric is {avg} \n")
         f.write(f"average metric is {avg.mean(axis=0)}\n")

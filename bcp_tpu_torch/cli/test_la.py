@@ -15,7 +15,7 @@ import os
 
 import numpy as np
 
-from bcp_tpu_torch.cli.common import load_eval_model
+from bcp_tpu_torch.cli.common import ResultWriter, load_eval_model
 from bcp_tpu_torch.config import la_config
 from bcp_tpu_torch.data.datasets import LAHeartDataset
 from bcp_tpu_torch.eval.metrics import (calculate_metric_percase,
@@ -31,7 +31,6 @@ def build_parser():
     p.add_argument("--model", type=str, default="VNet")
     p.add_argument("--detail", type=int, default=1)
     p.add_argument("--nms", type=int, default=1)
-    # NIfTI dumps need the writer of data/preprocess.py, a later slice
     p.add_argument("--save_result", type=int, default=0)
     p.add_argument("--labelnum", type=int, default=4)
     p.add_argument("--stage_name", type=str, default="self_train")
@@ -53,9 +52,6 @@ def build_parser():
 
 def build_evaluator(args, device=None):
     """(cfg, evaluator) of the parsed flags, weights loaded."""
-    if args.save_result:
-        raise SystemExit("error: --save_result needs the NIfTI writer, which "
-                         "the port does not have yet")
     if args.num_devices not in (0, 1):
         raise SystemExit("error: the port evaluates on one device; "
                          "--num_devices > 1 comes with the multi-GPU slice")
@@ -77,7 +73,11 @@ def build_evaluator(args, device=None):
 
 def test_calculate_metric(args, dataset=None, device=None):
     """Evaluate the test split (or ``dataset``: anything with ``len`` and
-    ``load(i) -> (image, label)``) and return the average metrics."""
+    ``load(i) -> (image, label)``) and return the average metrics. With
+    ``--save_result 1`` each case's NMS'd prediction, image and label go
+    to ``<snapshot>/<model>_predictions/%02d_{pred,img,gt}.nii.gz``
+    (float32, `utils/test_3d_patch.py:67-72`), written in the background
+    while the next volume is evaluated, complete when this returns."""
     cfg, evaluator = build_evaluator(args, device)
     ds = dataset if dataset is not None else LAHeartDataset(cfg.root_path,
                                                             "test")
@@ -91,19 +91,26 @@ def test_calculate_metric(args, dataset=None, device=None):
             loaded.append(ds.load(ith))
             yield loaded[-1][0]
 
-    # the device runs volume ith+1 while the host scores volume ith
-    for ith, pred in enumerate(evaluator.infer_cases(_images(),
-                                                     rule=cfg.eval_rule)):
-        label = loaded[ith][1]
-        if args.nms:
-            pred = host_largest_cc(pred)
-        if pred.sum() == 0:
-            m = (0.0, 0.0, 0.0, 0.0)
-        else:
-            m = calculate_metric_percase(pred, label)
-        if args.detail:
-            print("%02d,\t%.5f, %.5f, %.5f, %.5f" % (ith, *m))
-        total += np.asarray(m)
+    dumps = ResultWriter(args.save_result)
+    try:
+        # the device runs volume ith+1 while the host scores volume ith
+        for ith, pred in enumerate(evaluator.infer_cases(
+                _images(), rule=cfg.eval_rule)):
+            image, label = loaded[ith]
+            if args.nms:
+                pred = host_largest_cc(pred)
+            if pred.sum() == 0:
+                m = (0.0, 0.0, 0.0, 0.0)
+            else:
+                m = calculate_metric_percase(pred, label)
+            if args.detail:
+                print("%02d,\t%.5f, %.5f, %.5f, %.5f" % (ith, *m))
+            dumps.write([os.path.join(out_dir, "%02d_%s.nii.gz" % (ith, t))
+                         for t in ("pred", "img", "gt")],
+                        (pred, image, label))
+            total += np.asarray(m)
+    finally:
+        dumps.close()
     avg = total / len(ds)
     print(f"average metric is {avg}")
     with open(os.path.join(out_dir, "..", "performance.txt"), "w") as f:

@@ -15,10 +15,11 @@ returned. Runs on the card by default.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
-from bcp_tpu_torch.cli.common import load_eval_model
+from bcp_tpu_torch.cli.common import ResultWriter, load_eval_model
 from bcp_tpu_torch.config import pancreas_config
 from bcp_tpu_torch.data.datasets import PancreasDataset
 from bcp_tpu_torch.data.transforms import pancreas_test_transform
@@ -38,7 +39,6 @@ def build_parser():
     p.add_argument("--stride_xy", type=int, default=16)
     p.add_argument("--stride_z", type=int, default=4)
     p.add_argument("--detail", type=int, default=1)
-    # NIfTI dumps need the writer of data/preprocess.py (ROADMAP A5)
     p.add_argument("--save_result", type=int, default=0)
     # multi-GPU evaluation comes with ROADMAP A4
     p.add_argument("--num_devices", type=int, default=1)
@@ -48,9 +48,6 @@ def build_parser():
 
 def build_evaluator(args, device=None):
     """(cfg, evaluator) of the parsed flags, weights loaded."""
-    if args.save_result:
-        raise SystemExit("error: --save_result needs the NIfTI writer, which "
-                         "the port does not have yet (ROADMAP A5)")
     if args.num_devices not in (0, 1):
         raise SystemExit("error: the port evaluates on one device; "
                          "--num_devices > 1 comes with the multi-GPU slice "
@@ -71,11 +68,18 @@ def build_evaluator(args, device=None):
 def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
     """Evaluate the test list (or ``dataset``: anything with ``len`` and
     ``load(i) -> (image, label)`` volumes as read) and return the average
-    (dice, jc, hd95, asd)."""
+    (dice, jc, hd95, asd). With ``--save_result 1`` each centre-cropped
+    volume's prediction, image and label go to
+    ``<snapshot>/predictions/%02d_{pred,img,gt}.nii.gz`` (float32),
+    written in the background, complete when this returns."""
     cfg, evaluator = build_evaluator(args, device)
     ds = dataset if dataset is not None else PancreasDataset(
         cfg.root_path, "test", cache=False)
     total = np.zeros(4)
+    pred_dir = os.path.join(snapshot_dir(cfg, args.stage_name),
+                            "predictions")
+    if args.save_result:
+        os.makedirs(pred_dir, exist_ok=True)
     loaded = []
 
     def _images():
@@ -84,14 +88,22 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
                                                   cfg.patch_size))
             yield loaded[-1][0]
 
-    # the device runs the next volumes while the host scores volume i
-    for i, pred in enumerate(evaluator.infer_cases(_images(), rule="argmax",
-                                                   depth=3)):
-        m = ((0.0, 0.0, 0.0, 0.0) if pred.sum() == 0
-             else calculate_metric_percase(pred, loaded[i][1]))
-        if args.detail:
-            print("%02d,\t%.5f, %.5f, %.5f, %.5f" % (i, *m))
-        total += np.asarray(m)
+    dumps = ResultWriter(args.save_result)
+    try:
+        # the device runs the next volumes while the host scores volume i
+        for i, pred in enumerate(evaluator.infer_cases(
+                _images(), rule="argmax", depth=3)):
+            image, label = loaded[i]
+            m = ((0.0, 0.0, 0.0, 0.0) if pred.sum() == 0
+                 else calculate_metric_percase(pred, label))
+            if args.detail:
+                print("%02d,\t%.5f, %.5f, %.5f, %.5f" % (i, *m))
+            dumps.write([os.path.join(pred_dir, "%02d_%s.nii.gz" % (i, t))
+                         for t in ("pred", "img", "gt")],
+                        (pred, image, label))
+            total += np.asarray(m)
+    finally:
+        dumps.close()
     avg = total / len(ds)
     print(f"average metric is {avg}")
     return avg

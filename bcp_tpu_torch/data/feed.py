@@ -32,6 +32,11 @@ the index streams and the generator are consumed in the K = 1 order
 next iteration's), so sub-batch j is the K = 1 feed's batch j. The host
 path stacks K built batches into one copy; the store path cuts the K
 iterations' crops in one pass per stream, as the JAX feeder does.
+
+With ``side_labels`` an ACDC self-train batch also holds ``ulab_a`` /
+``ulab_b``, the unlabelled slices' true labels (uint8, K-stacked too;
+`feed.py:233-237,286-296,388-396`), for the trainer's image snapshots;
+off (the default) the feed builds and copies nothing more.
 """
 
 from __future__ import annotations
@@ -99,14 +104,18 @@ class BCPBatchFeeder:
     also needs ``load(i)``; ``store_cache`` is a dict shared by the feeders
     of one run, so the second stage reuses the first stage's store instead
     of uploading it again (`feed.py:71-76`). ``stack=K`` yields K
-    iterations' batches a call, leading-stacked."""
+    iterations' batches a call, leading-stacked. ``side_labels`` adds ACDC's
+    ``ulab_a`` / ``ulab_b`` to self-train batches."""
 
     def __init__(self, cfg: Config, stage: str, dataset, device=None,
-                 store_cache: Optional[dict] = None, stack: int = 1):
+                 store_cache: Optional[dict] = None, stack: int = 1,
+                 side_labels: bool = False):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
         self.cfg = cfg
         self.stage = stage
+        self.side_labels = (side_labels and cfg.variant == "acdc"
+                            and stage == "self")
         self.stack = max(int(stack), 1)
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -214,9 +223,11 @@ class BCPBatchFeeder:
         batch = {"img_a": img[:sub], "img_b": img[sub:],
                  "lab_a": lab[:sub], "lab_b": lab[sub:]}
         if self.stage == "self":
-            uimg, _ = self._sample_device(unlab_idx)
+            uimg, ulab = self._sample_device(unlab_idx)
             usub = cfg.unlabeled_sub_bs
             batch["uimg_a"], batch["uimg_b"] = uimg[:usub], uimg[usub:]
+            if self.side_labels:
+                batch["ulab_a"], batch["ulab_b"] = ulab[:usub], ulab[usub:]
         return batch
 
     def _build_device_pancreas(self, lab_idx, unlab_idx):
@@ -267,8 +278,11 @@ class BCPBatchFeeder:
         batch = {"img_a": img[:, :sub], "img_b": img[:, sub:],
                  "lab_a": lab[:, :sub], "lab_b": lab[:, sub:]}
         if self.stage == "self":
-            uimg = _per_step(cut(_concat(unlab_p))[0], K)
+            uimg, ulab = (_per_step(t, K) for t in cut(_concat(unlab_p)))
             batch["uimg_a"], batch["uimg_b"] = uimg[:, :usub], uimg[:, usub:]
+            if self.side_labels:
+                batch["ulab_a"] = ulab[:, :usub]
+                batch["ulab_b"] = ulab[:, usub:]
         return batch
 
     def _build_device_stacked_pancreas(self) -> Dict[str, torch.Tensor]:
@@ -333,11 +347,16 @@ class BCPBatchFeeder:
                 np.uint8)
         if self.stage == "self":
             usub = cfg.unlabeled_sub_bs
-            uimgs = [self.dataset.sample_train(i, cfg.patch_size,
-                                               self.rng)[0]
-                     for i in unlab_idx]
-            batch["uimg_a"] = np.stack(uimgs[:usub])[:, None]
-            batch["uimg_b"] = np.stack(uimgs[usub:])[:, None]
+            usamples = [self.dataset.sample_train(i, cfg.patch_size,
+                                                  self.rng)
+                        for i in unlab_idx]
+            for key, part in (("a", usamples[:usub]),
+                              ("b", usamples[usub:])):
+                uimg = np.stack([s[0] for s in part])
+                batch[f"uimg_{key}"] = uimg[:, None]
+                if self.side_labels:
+                    batch[f"ulab_{key}"] = np.stack(
+                        [s[1] for s in part]).astype(np.uint8)
         return batch
 
     def _host_tensors(self, batch) -> Dict[str, torch.Tensor]:

@@ -14,15 +14,17 @@ read once a group.
 
 What a graph would freeze runs outside it, eagerly, into static buffers
 the graph reads: the sub-step's batch (copied from the stacked batch), the
-copy-paste mask (its box is drawn from Python integers), the dropout keep
-masks (drawn ahead of the forward from the iteration's generator,
-``layers.draw_keep_masks``). The pre-train step is one graph (mix,
+copy-paste mask (its boxes are drawn as Python integers; :func:`write_box`),
+the dropout keep masks (drawn ahead of the forward from the iteration's
+generator, ``layers.draw_keep_masks``). The pre-train step is one graph (mix,
 forward, loss, backward, optimizer step). The self-train step is two
 graphs around an eager NMS, whose fixpoint reads a flag back every round
 (``ops.cc``): graph T, the teacher's forward and its threshold or argmax
 (``steps.teacher_masks``); the NMS (``steps.clean_masks``) into a static
 buffer; graph S, the student's update (``steps.selftrain_update``: mix,
-concat forward, losses, backward, optimizer step, EMA).
+concat forward, losses, backward, optimizer step, EMA). A caller's
+``before_update`` hook (the trainer's image snapshots) runs between the
+NMS and graph S, on the pre-update state and the sub-step's own buffers.
 
 The first group of a stage runs eagerly: real updates, the same as K = 1,
 which build every kernel library, pick every kernel variant, create the
@@ -54,15 +56,21 @@ import torch
 from bcp_tpu_torch import kernels
 from bcp_tpu_torch.config import Config
 from bcp_tpu_torch.models.layers import draw_keep_masks, record_dropout_shapes
-from bcp_tpu_torch.ops.masks import box_mask
+from bcp_tpu_torch.ops.masks import Box, boxes_mask, paint_boxes
 from bcp_tpu_torch.train.state import TrainState, lr_at
 from bcp_tpu_torch.train.steps import (clean_masks, pretrain_step,
                                        selftrain_step, selftrain_update,
                                        teacher_masks)
 
-#: a sub-step's draws: ((box starts, box sizes) of the copy-paste mask, the
-#: generator its dropouts draw from, seeded for the iteration, or None)
-Draws = Tuple[Tuple[Sequence[int], Sequence[int]], Optional[torch.Generator]]
+#: a sub-step's draws: (the copy-paste mask's boxes, each (starts, sizes),
+#: the generator its dropouts draw from, seeded for the iteration, or None)
+Draws = Tuple[Sequence[Box], Optional[torch.Generator]]
+
+#: ``before_update(it, batch, mask, plab)``: called before a sub-step's
+#: update with its iteration, sub-batch, mask and pseudo-labels (None in
+#: pre-train); what it keeps it copies, the buffers are reused
+BeforeUpdate = Callable[[int, Dict[str, torch.Tensor], torch.Tensor,
+                         Optional[torch.Tensor]], None]
 
 
 def check_dispatch(cfg: Config, remaining: int) -> int:
@@ -83,10 +91,43 @@ def _stack_metrics(metrics: Dict[str, torch.Tensor],
     return torch.stack([metrics[n].to(torch.float64) for n in names])
 
 
-def write_box(mask: torch.Tensor, starts: Sequence[int],
-              sizes: Sequence[int]) -> torch.Tensor:
-    """``ops.masks.box_mask`` written into ``mask`` (int32 of the patch's
-    shape): 1 everywhere, 0 inside the box."""
+class PinnedMask:
+    """Two pinned host buffers of a copy-paste mask, used in turn, each
+    with the event of the last copy made from it. A mask of several boxes
+    (a grid's 27) is painted into one and copied to the card, and the
+    copy returns at once, queued behind whatever the stream holds; a
+    buffer is painted again only once its copy of two masks ago has run,
+    so the host may run two masks ahead of the card."""
+
+    def __init__(self, shape: Sequence[int]):
+        self.bufs = [torch.empty(tuple(shape), dtype=torch.int32,
+                                 pin_memory=True) for _ in range(2)]
+        self.copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self.turn = 0
+
+    def write(self, mask: torch.Tensor, boxes: Sequence[Box]) -> None:
+        i, self.turn = self.turn, self.turn ^ 1
+        if self.copied[i] is not None:
+            self.copied[i].synchronize()
+        mask.copy_(torch.from_numpy(paint_boxes(self.bufs[i].numpy(),
+                                                boxes)), non_blocking=True)
+        self.copied[i] = torch.cuda.Event()
+        self.copied[i].record()
+
+
+def write_box(mask: torch.Tensor, boxes: Sequence[Box],
+              pinned: Optional[PinnedMask] = None) -> torch.Tensor:
+    """``ops.masks.boxes_mask`` written into ``mask`` (int32 of the patch's
+    shape): 1 everywhere, 0 inside each box. One box is two launches (a
+    fill, a slice fill); several (a grid's 27) are painted on the host and
+    copied in once, not one launch a box: through ``pinned`` when given
+    (the card), else with a blocking copy."""
+    if len(boxes) > 1:
+        if pinned is not None:
+            pinned.write(mask, boxes)
+            return mask
+        return mask.copy_(boxes_mask(mask.shape, boxes))
+    (starts, sizes), = boxes
     mask.fill_(1)
     mask[tuple(slice(int(s), int(s) + int(n))
                for s, n in zip(starts, sizes))] = 0
@@ -115,6 +156,9 @@ class GraphStep:
         self.batch = {k: torch.empty_like(v) for k, v in like.items()}
         self.mask = torch.empty(tuple(cfg.patch_size), dtype=torch.int32,
                                 device=dev)
+        # a mask of several boxes goes through pinned buffers on the card
+        self.pinned = (PinnedMask(cfg.patch_size)
+                       if self.cuda and cfg.mask_kind == "grid" else None)
         self.keep_t = [torch.empty(tuple(s), dtype=torch.bool, device=dev)
                        for s in shapes[0]]
         self.keep_s = [torch.empty(tuple(s), dtype=torch.bool, device=dev)
@@ -186,13 +230,15 @@ class GraphStep:
         self.captures += 1
 
     # ---------------- one sub-step ----------------
-    def step(self, sub: Dict[str, torch.Tensor], draws: Draws
+    def step(self, sub: Dict[str, torch.Tensor], draws: Draws,
+             it: int = 0, before_update: Optional[BeforeUpdate] = None
              ) -> torch.Tensor:
-        """One update from the sub-batch ``sub`` with ``draws``; returns
-        the metrics (float64, in ``names`` order), a graph's static output
-        on the card: copy it before the next step."""
-        (starts, sizes), gen = draws
-        write_box(self.mask, starts, sizes)
+        """One update from the sub-batch ``sub`` with ``draws`` at
+        iteration ``it``; returns the metrics (float64, in ``names``
+        order), a graph's static output on the card: copy it before the
+        next step."""
+        boxes, gen = draws
+        write_box(self.mask, boxes, self.pinned)
         dev = self.mask.device
         if self.stage == "self":
             # the teacher's forward draws first, as in ``selftrain_step``
@@ -205,6 +251,8 @@ class GraphStep:
             v.copy_(sub[k])
         if self.stage == "self":
             self.plab.copy_(clean_masks(self._run("teacher"), self.cfg))
+        if before_update is not None:
+            before_update(it, self.batch, self.mask, self.plab)
         return self._run("update")
 
     def close(self) -> None:
@@ -235,18 +283,23 @@ class DispatchGroups:
         self._bufs: List[torch.Tensor] = []
         self._next = 0
 
-    def _eager(self, sub, draws: Draws, record: bool):
-        (starts, sizes), gen = draws
+    def _eager(self, sub, draws: Draws, record: bool, it: int,
+               before_update: Optional[BeforeUpdate]):
+        boxes, gen = draws
         state, cfg = self.state, self.cfg
-        mask = box_mask(cfg.patch_size, starts, sizes, self.device)
+        mask = boxes_mask(cfg.patch_size, boxes, self.device)
         with contextlib.ExitStack() as rec:
             if record:
                 self._shapes = (
                     rec.enter_context(record_dropout_shapes(state.teacher)),
                     rec.enter_context(record_dropout_shapes(state.model)))
             if self.stage == "pre":
+                if before_update is not None:
+                    before_update(it, sub, mask, None)
                 return pretrain_step(state, sub, mask, cfg, gen)
-            return selftrain_step(state, sub, mask, cfg, gen, gen)
+            hook = (None if before_update is None else
+                    lambda plab: before_update(it, sub, mask, plab))
+            return selftrain_step(state, sub, mask, cfg, gen, gen, hook)
 
     def _buffer(self, n_metrics: int, device) -> torch.Tensor:
         # two buffers in turn: a group's metrics are read after the next
@@ -259,22 +312,25 @@ class DispatchGroups:
         self._next ^= 1
         return out
 
-    def run(self, batch: Dict[str, torch.Tensor], first_it: int
+    def run(self, batch: Dict[str, torch.Tensor], first_it: int,
+            before_update: Optional[BeforeUpdate] = None
             ) -> Tuple[List[str], torch.Tensor]:
         """K updates at iterations first_it .. first_it + K - 1 from the
-        leading-stacked ``batch``: (metric names, (K, metrics) float64)."""
+        leading-stacked ``batch``: (metric names, (K, metrics) float64).
+        ``before_update`` is called before each sub-step's update."""
         out = None
         eager = self.graph_step is None
         for j in range(self.K):
             sub = {k: v[j] for k, v in batch.items()}
-            draws = self.draws(first_it + j)
+            it = first_it + j
+            draws = self.draws(it)
             if eager:
-                metrics = self._eager(sub, draws, record=j == 0)
+                metrics = self._eager(sub, draws, j == 0, it, before_update)
                 if self.names is None:
                     self.names = list(metrics)
                 vec = _stack_metrics(metrics, self.names)
             else:
-                vec = self.graph_step.step(sub, draws)
+                vec = self.graph_step.step(sub, draws, it, before_update)
             if out is None:
                 out = self._buffer(len(self.names), vec.device)
             out[j].copy_(vec)

@@ -16,19 +16,33 @@ picks the pipeline's losses, mix order and pseudo-label rule;
 ``cfg.ema_full_state`` (ACDC) makes the EMA move the teacher's BN running
 statistics too.
 
+``cfg.fuse_subbatches`` is honoured by one route: each network runs
+once a step on the two sub-batches concatenated, its BatchNorms in two
+groups (`steps.py:71-81`). The reference's other route (``False``: two
+forwards a network, one a sub-batch, the student's running statistics
+threaded from the first into the second, `steps.py:267-289,298-311`)
+computes the same function: grouped BN normalises each sub-batch by its
+own statistics and folds the groups' running-stat updates in order,
+counting one ``num_batches_tracked`` a group, as two forwards do; a model
+without BatchNorm (pancreas' instance-norm V-Net) has nothing to thread.
+``tests/test_torch_steps.py`` holds the two routes together in f64 to
+1e-10, and the port's step against the JAX package's two-forward step.
+Only the order of the dropout draws differs, and the port's draws come
+from torch generators, never the JAX package's keys.
+
 Batches are dicts of tensors on the device: ``img_a``, ``img_b``,
 ``uimg_a``, ``uimg_b`` (N, 1, *S) and ``lab_a``, ``lab_b`` (N, *S) integer.
 The random draws come from the caller: the copy-paste ``mask``
-(``ops.masks.cuboid_mask``, pancreas' ``cuboid_mask_fixed``) and, per
-forward, the dropout's draws: None
-(the dropouts' own generator), a ``torch.Generator`` or the keep masks, one
-bool tensor per dropout in forward order (``layers.dropout_draws``).
+(``ops.masks``; ``train.trainer.copy_paste_mask``) and, per forward, the
+dropout's draws: None (the dropouts' own generator), a
+``torch.Generator`` or the keep masks, one bool tensor per dropout in
+forward order (``layers.dropout_draws``).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -52,10 +66,6 @@ def _draws(model, dropout):
 def _check(cfg: Config) -> None:
     if cfg.variant not in ("la", "acdc", "pancreas"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
-    if not cfg.fuse_subbatches:
-        raise NotImplementedError(
-            "fuse_subbatches=False (two student forwards) is not ported "
-            "(ROADMAP A1)")
 
 
 def _update(state: TrainState, loss: torch.Tensor, cfg: Config,
@@ -171,8 +181,9 @@ def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
     """The student's update on the pseudo-labels ``plab`` (concat of the
     two unlabelled sub-batches'): the bidirectional mix
     (:func:`mixed_inputs`), one concat forward with 2-group BatchNorm, the
-    two mix losses (`steps.py:233-253`), backward, SGD, then the EMA of the
-    teacher from the new student (`steps.py:323-334`)."""
+    two mix losses (`steps.py:233-253`), backward, the optimizer step,
+    then the EMA of the teacher from the new student
+    (`steps.py:323-334`)."""
     _check(cfg)
     model = state.model
     usub = batch["uimg_a"].shape[0]
@@ -216,7 +227,13 @@ def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
 
 def selftrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    mask: torch.Tensor, cfg: Config, teacher_dropout=None,
-                   student_dropout=None) -> Dict[str, torch.Tensor]:
-    """One self-train update (`make_selftrain_step`, `steps.py:291-339`)."""
+                   student_dropout=None,
+                   before_update: Optional[Callable[[torch.Tensor], None]]
+                   = None) -> Dict[str, torch.Tensor]:
+    """One self-train update (`make_selftrain_step`, `steps.py:291-339`).
+    ``before_update(plab)``, when given, is called with the pseudo-labels
+    before the student's update (the trainer's image snapshots)."""
     plab = pseudo_labels(state, batch, cfg, teacher_dropout)
+    if before_update is not None:
+        before_update(plab)
     return selftrain_update(state, batch, plab, mask, cfg, student_dropout)

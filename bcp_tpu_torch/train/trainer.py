@@ -20,9 +20,9 @@ read-back.
 
 With ``cfg.async_val`` (the default, as in the JAX package) validations
 and checkpoint writes run on background workers in submission order
-(:class:`_ValWorker`): which states are validated, the best-Dice sequence
-and the files written are those of the inline loop, only the training
-loop no longer waits. Each eval boundary copies the train state on the
+(``utils.worker.OrderedWorker``): which states are validated, the
+best-Dice sequence and the files written are those of the inline loop,
+only the training loop no longer waits. Each eval boundary copies the train state on the
 training stream (``checkpoints.snapshot``) before the next step updates it
 in place; the workers run on CUDA streams of their own, which wait for
 that copy's event. ``cfg.async_val=False`` keeps the inline loop.
@@ -54,15 +54,22 @@ card, CUDA activity) into ``<profile_dir>/<stage>_steps_<a>_<b>.json``.
 raises ``FloatingPointError`` naming the first step whose losses are not
 finite. Unlike ``jax_debug_nans``, which re-runs the op that made a NaN,
 it sees the step's outputs only, and a group (K steps) later.
+
+``log_images=True`` writes the reference's TensorBoard image panels
+(``train.snapshots``; `trainer.py:465-486,633-680`) at its cadences: LA
+self-train at ``it % eval_every == 1``, ACDC both stages every 20
+iterations, none for LA pre-train or pancreas. A due iteration's panels
+are taken before its update, from the pre-update state, the iteration's
+own mask and (LA) its teacher's pseudo-labels, also inside a K-step group,
+where they come between that sub-step's NMS and its update; ACDC's feed
+then ships the unlabelled slices' true labels (``ulab_a`` / ``ulab_b``),
+which the loop takes out of the batch before the step.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
-import queue
-import threading
 import time
 from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
@@ -79,8 +86,9 @@ from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.convert import load_reference_checkpoint
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
-from bcp_tpu_torch.ops.masks import (box_mask, cuboid_sizes, cuboid_starts,
-                                     fixed_starts)
+from bcp_tpu_torch.ops.masks import (Box, boxes_mask, cuboid_sizes,
+                                     cuboid_starts, fixed_starts, grid_boxes,
+                                     grid_starts, slab_box, slab_start)
 from bcp_tpu_torch.ops.ramps import sigmoid_rampup
 from bcp_tpu_torch.train.checkpoints import (STATE_FILE, best_model_path,
                                              load_optimizer_state,
@@ -88,11 +96,15 @@ from bcp_tpu_torch.train.checkpoints import (STATE_FILE, best_model_path,
                                              scan_best_dice, snapshot,
                                              snapshot_dir)
 from bcp_tpu_torch.train.graphs import DispatchGroups, check_dispatch
+from bcp_tpu_torch.train.snapshots import (la_snapshot_grid,
+                                           make_acdc_snapshot,
+                                           make_la_snapshot)
 from bcp_tpu_torch.train.state import (TrainState, build_model, init_state,
                                        load_weights_only, load_with_opt)
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
 from bcp_tpu_torch.utils.logging import (MetricWriter, cut_pre_measures,
                                          cutmix_ft_measures, setup_logging)
+from bcp_tpu_torch.utils.worker import OrderedWorker
 
 
 def iteration_draws(stage_seed: int, it: int,
@@ -107,89 +119,33 @@ def iteration_draws(stage_seed: int, it: int,
     return np.random.default_rng([stage_seed, it, 0])
 
 
-def copy_paste_box(cfg: Config, rng: np.random.Generator):
-    """(starts, sizes) of the iteration's copy-paste box (`steps.py:85-98`):
-    pancreas' fixed ``mask_patch`` cube, or the ``mask_ratio`` cuboid of LA
-    and ACDC."""
+def copy_paste_box(cfg: Config, rng: np.random.Generator) -> List[Box]:
+    """The iteration's copy-paste boxes, each (starts, sizes), drawn from
+    ``rng`` as `steps.py:83-98` dispatches on ``cfg.mask_kind``: one box
+    for ``"ratio"`` (LA's and ACDC's ``mask_ratio`` cuboid), ``"fixed"``
+    (pancreas' ``mask_patch`` cube) and ``"slab"`` (3-D: the z-slab of 8/27;
+    2-D: the row slab of 4/9), ``3**ndim`` for ``"grid"``."""
     patch = cfg.patch_size
-    if cfg.mask_kind == "fixed":
-        return (fixed_starts(rng, patch, cfg.mask_patch),
-                (int(cfg.mask_patch),) * len(patch))
-    if cfg.mask_kind != "ratio":
-        raise NotImplementedError(
-            f"mask_kind {cfg.mask_kind!r}: the port has the 'ratio' and "
-            f"'fixed' masks, the ones the CLIs use")
-    return (cuboid_starts(rng, patch, cfg.mask_ratio),
-            cuboid_sizes(patch, cfg.mask_ratio))
+    kind = cfg.mask_kind
+    if kind == "fixed":
+        return [(fixed_starts(rng, patch, cfg.mask_patch),
+                 (int(cfg.mask_patch),) * len(patch))]
+    if kind == "grid":
+        return grid_boxes(patch, grid_starts(rng, patch))
+    if kind == "slab":
+        axis, frac = (-1, 8.0 / 27.0) if len(patch) == 3 else (0, 4.0 / 9.0)
+        return [slab_box(patch, slab_start(rng, patch, axis, frac), axis,
+                         frac)]
+    if kind != "ratio":
+        raise ValueError(f"unknown mask_kind {kind!r}")
+    return [(cuboid_starts(rng, patch, cfg.mask_ratio),
+             cuboid_sizes(patch, cfg.mask_ratio))]
 
 
 def copy_paste_mask(cfg: Config, rng: np.random.Generator, device=None):
-    """The iteration's copy-paste mask: 0 in :func:`copy_paste_box`, 1
-    elsewhere (``cuboid_mask_fixed`` / ``cuboid_mask``)."""
-    return box_mask(cfg.patch_size, *copy_paste_box(cfg, rng), device)
-
-
-class _ValWorker:
-    """One background thread running validation or checkpoint jobs
-    strictly in submission order (`trainer.py:49-112`). ``depth`` bounds
-    the jobs in flight, and so the state snapshots alive on the device: a
-    submit blocks only while ``depth`` jobs are unfinished. On a CUDA
-    device the jobs run on a stream of the worker's own, so their kernels
-    and copies queue beside the training stream's, not behind them; a job
-    waits itself for the event of whatever it reads. A job's error is
-    re-raised in the submitting thread, at the next submit or drain."""
-
-    def __init__(self, depth: int = 1, device=None):
-        self._q: queue.Queue = queue.Queue()
-        self._err: Optional[Exception] = None
-        self._slots = threading.BoundedSemaphore(max(int(depth), 1))
-        self._stream = (torch.cuda.Stream(device) if device is not None
-                        and torch.device(device).type == "cuda" else None)
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
-
-    def _run(self):
-        ctx = (torch.cuda.stream(self._stream) if self._stream is not None
-               else contextlib.nullcontext())
-        with ctx:
-            while True:
-                job = self._q.get()
-                try:
-                    if job is not None and self._err is None:
-                        job()
-                        if self._stream is not None:
-                            # what the job read may be freed once it is done
-                            self._stream.synchronize()
-                except Exception as e:  # raised again in submit or drain
-                    self._err = e
-                finally:
-                    if job is not None:
-                        self._slots.release()
-                    self._q.task_done()
-                if job is None:
-                    return
-
-    def _raise_pending(self) -> None:
-        if self._err is not None:
-            err, self._err = self._err, None
-            raise err
-
-    def submit(self, job) -> None:
-        """Queue a job, waiting until fewer than ``depth`` are in flight.
-        Re-raises a previous job's error instead of queueing onto it."""
-        self._raise_pending()
-        self._slots.acquire()
-        self._q.put(job)
-
-    def drain(self) -> None:
-        """Block until every submitted job has finished; re-raise the
-        first job error in the caller's thread."""
-        self._q.join()
-        self._raise_pending()
-
-    def close(self) -> None:
-        self._q.put(None)
-        self._thread.join()
+    """The iteration's copy-paste mask: 0 in the boxes of
+    :func:`copy_paste_box`, 1 elsewhere (``ops.masks.boxes_mask``)."""
+    return boxes_mask(cfg.patch_size, copy_paste_box(cfg, rng), device)
 
 
 class BCPTrainer:
@@ -205,17 +161,20 @@ class BCPTrainer:
     dispatch, once for each of a group's iterations after the group is
     enqueued); ``chip_smoke.py`` times and traces the loop's steps with it.
     ``on_metrics(stage, iteration, losses)``, when given, is called with
-    each step's losses (host floats) as they are read back."""
+    each step's losses (host floats) as they are read back.
+    ``log_images`` turns on the image snapshots."""
 
     def __init__(self, cfg: Config, device=None, train_dataset=None,
                  val_cases: Optional[List[Tuple[np.ndarray, np.ndarray]]]
                  = None,
                  on_step: Optional[Callable[[str, int], None]] = None,
                  on_metrics: Optional[Callable[[str, int, Dict[str, float]],
-                                               None]] = None):
+                                               None]] = None,
+                 log_images: bool = False):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
         self.cfg = cfg
+        self.log_images = log_images
         self.device = resolve_device(device)
         self.pre_dir = snapshot_dir(cfg, "pre_train")
         self.self_dir = snapshot_dir(cfg, "self_train")
@@ -241,7 +200,7 @@ class BCPTrainer:
         self.validations = 0
         # the device store is the same for both stages: upload it once
         self.feed_store_cache: dict = {}
-        self._workers: List[_ValWorker] = []
+        self._workers: List[OrderedWorker] = []
 
     # ---------------- validation ----------------
     def _load_val_cases(self):
@@ -342,7 +301,8 @@ class BCPTrainer:
             dataset = (ACDCDataset if cfg.variant == "acdc" else
                        LAHeartDataset)(cfg.root_path, "train", cache=True)
         feeder = BCPBatchFeeder(cfg, stage, dataset, self.device,
-                                store_cache=self.feed_store_cache, stack=K)
+                                store_cache=self.feed_store_cache, stack=K,
+                                side_labels=self.log_images)
         logger.info("%d iterations per epoch (device-store init %.1fs)",
                     feeder.steps_per_epoch, feeder.store_init_s)
         stage_seed = cfg.seed + (0 if stage == "pre" else 1)
@@ -441,10 +401,10 @@ class BCPTrainer:
 
         val_worker = ckpt_worker = warm_job = None
         if cfg.async_val:
-            val_worker = _ValWorker(cfg.async_val_depth, self.device)
+            val_worker = OrderedWorker(cfg.async_val_depth, self.device)
             # second ordered stage: the checkpoint writes of validation v
             # run while validation v+1 evaluates
-            ckpt_worker = _ValWorker(cfg.async_val_depth, self.device)
+            ckpt_worker = OrderedWorker(cfg.async_val_depth, self.device)
             self._workers = [val_worker, ckpt_worker]
             # Warm the evaluator off the critical path (`trainer.py:399-
             # 413`): load the validation volumes, build the evaluator's
@@ -461,6 +421,29 @@ class BCPTrainer:
             """Iteration ``it``'s copy-paste box and dropout generator."""
             rng = iteration_draws(stage_seed, it, dropout_gen)
             return copy_paste_box(cfg, rng), dropout_gen
+
+        snaps: List[Tuple[int, Dict[str, torch.Tensor]]] = []
+
+        def snapshot_hook(first: int, ulabs):
+            """The groups' ``before_update``: iteration ``it``'s panels
+            when they are due (``ulabs``: the batch's true unlabelled
+            labels, K-stacked when K > 1)."""
+            if not self.log_images:
+                return None
+
+            def hook(it, sub, mask, plab):
+                if not self._snapshot_due(it, stage):
+                    return
+                if cfg.variant == "la":
+                    panels = make_la_snapshot(state, sub, mask, plab)
+                else:
+                    ul = {k: v if K == 1 else v[it - first]
+                          for k, v in ulabs.items()}
+                    panels = make_acdc_snapshot(
+                        state, sub, mask, cfg, stage, ul.get("ulab_a"),
+                        ul.get("ulab_b"))
+                snaps.append((it, panels))
+            return hook
 
         def emit_group(first: int, group) -> None:
             names, values = group
@@ -483,19 +466,32 @@ class BCPTrainer:
                         <= it:
                     profile = self._start_profile()
                 batch = next(feeder)
+                # the true unlabelled labels feed the snapshots only
+                ulabs = {k: batch.pop(k) for k in ("ulab_a", "ulab_b")
+                         if k in batch}
+                hook = snapshot_hook(itk, ulabs)
                 if groups is not None:
-                    done = partial(emit_group, itk, groups.run(batch, itk))
+                    done = partial(emit_group, itk,
+                                   groups.run(batch, itk, hook))
                 else:
                     mask = copy_paste_mask(
                         cfg, iteration_draws(stage_seed, it, dropout_gen),
                         self.device)
                     if stage == "pre":
+                        if hook is not None:
+                            hook(it, batch, mask, None)
                         metrics = pretrain_step(state, batch, mask, cfg,
                                                 dropout_gen)
                     else:
-                        metrics = selftrain_step(state, batch, mask, cfg,
-                                                 dropout_gen, dropout_gen)
+                        metrics = selftrain_step(
+                            state, batch, mask, cfg, dropout_gen,
+                            dropout_gen, None if hook is None else
+                            partial(hook, it, batch, mask))
                     done = partial(emit, it, metrics)
+                for snap_it, panels in snaps:
+                    self._emit_snapshot(writer, stage, feeder, snap_it,
+                                        panels)
+                snaps.clear()
                 if stage == "self":
                     for j in range(itk, it + 1):
                         # computed and logged, never applied (reference
@@ -565,6 +561,35 @@ class BCPTrainer:
                     stage, done, dt, dt / max(done, 1), val_seconds,
                     100.0 * val_seconds / max(dt, 1e-9), best_dice)
         return best_dice, best_path
+
+    def _snapshot_due(self, it: int, stage: str) -> bool:
+        """The reference's image cadences (`trainer.py:633-643`): LA
+        self-train at ``it % eval_every == 1`` (`LA_BCP_train.py:294`),
+        ACDC both stages every 20 (`ACDC_BCP_train.py:265,399`), no images
+        for LA pre-train or pancreas."""
+        if self.cfg.variant == "acdc":
+            return it % 20 == 0
+        if self.cfg.variant == "la" and stage == "self":
+            return it % self.cfg.eval_every == 1
+        return False
+
+    def _emit_snapshot(self, writer: MetricWriter, stage: str, feeder,
+                       it: int, panels: Dict[str, torch.Tensor]) -> None:
+        """Hand iteration ``it``'s panels to the writer
+        (`trainer.py:662-680`): LA's two grids as
+        ``Epoch_{e}_Iter_{i}_{labeled,unlabel}`` (epoch 0-based), ACDC's
+        panels as (1, H, W) f32 images."""
+        panels = {k: v.float().cpu().numpy() for k, v in panels.items()}
+        if self.cfg.variant == "la":
+            epoch = (it - 1) // max(feeder.steps_per_epoch, 1)
+            for tag, prefix in (("labeled", "mixl"), ("unlabel", "mixu")):
+                writer.images(f"Epoch_{epoch}_Iter_{it}_{tag}",
+                              la_snapshot_grid(panels[f"{prefix}_img"],
+                                               panels[f"{prefix}_lab"],
+                                               panels[f"{prefix}_prob"]))
+        else:
+            for tag, img in panels.items():
+                writer.image(tag, img[None], it)
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile

@@ -1,8 +1,8 @@
 """Logging and the TensorBoard writer: ``bcp_tpu/utils/logging.py`` for the
 port. A per-stage ``log.txt`` plus stdout logger (`LA_BCP_train.py:363-370`)
-and tensorboardX scalars under the reference's tags; without tensorboardX
-the writer does nothing. The pancreas pipeline logs through per-epoch
-meters (:class:`Measures`, `logging.py:85-146`)."""
+and tensorboardX scalars and images under the reference's tags; without
+tensorboardX the writer does nothing. The pancreas pipeline logs through
+per-epoch meters (:class:`Measures`, `logging.py:85-146`)."""
 
 from __future__ import annotations
 
@@ -47,6 +47,16 @@ class MetricWriter:
     def scalar(self, tag: str, value, step: int):
         if self._writer is not None:
             self._writer.add_scalar(tag, float(value), step)
+
+    def image(self, tag: str, img, step: int):
+        if self._writer is not None:
+            self._writer.add_image(tag, img, step)
+
+    def images(self, tag: str, imgs, step=None):
+        """A batch of images, ``add_images`` (`LA_BCP_train.py:321,340`
+        passes no global step)."""
+        if self._writer is not None:
+            self._writer.add_images(tag, imgs, step)
 
     def flush(self):
         if self._writer is not None:

@@ -119,6 +119,17 @@ described by their functions.)
     idle share, host launches with a replay as one, synchronisations) is
     printed beside the card's name and power limit.
 
+13. The JAX trainer's last options and ``--save_result``
+    (``phase_masks_and_snapshots``, ``phase_save_result``): grid and slab
+    masks on the card against the CPU, with the host ms a grid mask takes
+    to paint and copy through the pinned buffers while the stream is busy
+    (against a pageable copy); an LA grid-mask run at K = 4 timed beside
+    phase 12's ratio-mask runs; an LA grid-mask run with image snapshots
+    at K = 4 bit for bit its K = 1 run, ACDC's snapshots at K = 4 against
+    K = 1; and the three test CLIs' NIfTI dumps read back, with s/volume
+    with and without them. (``fuse_subbatches=False`` runs the fused
+    step, ``train.steps``, so it has no phase of its own.)
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -1835,17 +1846,23 @@ def phase_pancreas_kernels(torch, rates):
     2 (the pre-train student), 4 (the teacher and the concatenated student)
     and 16 (the evaluator's chunk), dx and dW at batch 2 and 4; bf16, and
     f32 at batch 4; phase 2's limits and the same bits on a second run.
-    Then the device time (CUDA graphs) of B, B-as-dx and C at batch 4
-    beside ``F.conv3d``, ``conv3d_input`` and ``conv3d_weight`` and each
-    one's bound, summed over the 20 launches of a forward or backward.
-    Returns {kernel name: those sums and the per-shape rows}."""
+    Kernel D (dx and dW in one launch, ``fused_bwd``) at batch 4: dx to
+    B's limits, dW to C's, the same bits on a second run. Then the device
+    time (CUDA graphs) of B, B-as-dx, C and D at batch 4 beside
+    ``F.conv3d``, ``conv3d_input``, ``conv3d_weight`` and, for D,
+    ``conv3d_input`` then ``conv3d_weight``, and each one's bound, summed
+    over the 20 launches of a forward or backward. Returns {kernel name:
+    those sums and the per-shape rows}."""
     import torch.nn.functional as F
     from torch.nn.grad import conv3d_input, conv3d_weight
     from bcp_tpu_torch.ops.conv3d import (conv_variant, conv3x3x3_dw,
                                           conv3x3x3_dw_reference,
-                                          conv3x3x3_dx, conv3x3x3_same,
+                                          conv3x3x3_dx, conv3x3x3_dxdw,
+                                          conv3x3x3_dxdw_reference,
+                                          conv3x3x3_same,
                                           conv3x3x3_same_reference,
-                                          dw_variant, flip_transpose)
+                                          dw_variant, dxdw_variant,
+                                          flip_transpose)
     bf16_peak, f32_peak, hbm = rates
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.device("cuda")
@@ -1868,7 +1885,7 @@ def phase_pancreas_kernels(torch, rates):
         return err
 
     rows, per = [], {"conv3x3x3_same": [], "conv3x3x3_dx": [],
-                     "conv3x3x3_dw": []}
+                     "conv3x3x3_dw": [], "conv3x3x3_dxdw": []}
     for (c, X, Y, Z), n in PANC_STAGES:
         for B, dtypes, backward in ((2, (torch.bfloat16,), True),
                                     (4, (torch.float32, torch.bfloat16),
@@ -1903,9 +1920,20 @@ def phase_pancreas_kernels(torch, rates):
                         f"C {name} {row['shape']}", conv3x3x3_dw(x, dy),
                         conv3x3x3_dw(x, dy), conv3x3x3_dw_reference(x, dy),
                         1e-3)
+                if backward and B == 4:
+                    row["dxdw_variant"] = str(tuple(dxdw_variant(
+                        B, X, Y, Z, c, sms)))
+                    (ddx, ddw), (ddx2, ddw2) = (conv3x3x3_dxdw(x, dy, w)
+                                                for _ in range(2))
+                    pdx, pdw = conv3x3x3_dxdw_reference(x, dy, w)
+                    row[f"{name}_dxdw_max_abs_err"] = max(
+                        check(f"D dx {name} {row['shape']}", ddx, ddx2, pdx,
+                              rel),
+                        check(f"D dW {name} {row['shape']}", ddw, ddw2, pdw,
+                              1e-3))
+                    del ddx, ddw, ddx2, ddw2, pdx, pdw
                 if B == 4 and dt == torch.bfloat16:
                     M, es = B * X * Y * Z, x.element_size()
-                    flop = 2 * M * 27 * c * c
                     for kind, nbytes, fn, lib in (
                             ("conv3x3x3_same", (2 * M * c + 27 * c * c) * es,
                              lambda: conv3x3x3_same(x, w),
@@ -1917,7 +1945,15 @@ def phase_pancreas_kernels(torch, rates):
                             ("conv3x3x3_dw", 2 * M * c * es + 27 * c * c * 4,
                              lambda: conv3x3x3_dw(x, dy),
                              lambda: conv3d_weight(x, w.shape, dy,
-                                                   padding=1))):
+                                                   padding=1)),
+                            ("conv3x3x3_dxdw",
+                             (3 * M * c + 27 * c * c) * es + 27 * c * c * 4,
+                             lambda: conv3x3x3_dxdw(x, dy, w),
+                             lambda: (conv3d_input(x.shape, w, dy, padding=1),
+                                      conv3d_weight(x, w.shape, dy,
+                                                    padding=1)))):
+                        flop = (2 if kind == "conv3x3x3_dxdw" else 1) \
+                            * 2 * M * 27 * c * c
                         t = {"shape": row["shape"], "per_pass": n,
                              "device_ms": device_ms(torch, fn),
                              "library_device_ms": device_ms(torch, lib),
@@ -1942,7 +1978,8 @@ def phase_pancreas_kernels(torch, rates):
         ops = sum(t["per_pass"] * t["bound_ms"] for t in ts
                   if t["bound_by"] == "operations")
         key = {"conv3x3x3_same": "bf16_fwd", "conv3x3x3_dx": "bf16_dx",
-               "conv3x3x3_dw": "bf16_dw"}[kind] + "_max_abs_err"
+               "conv3x3x3_dw": "bf16_dw",
+               "conv3x3x3_dxdw": "bf16_dxdw"}[kind] + "_max_abs_err"
         errs = [r[key] for r in rows if key in r]
         what = "forward" if kind == "conv3x3x3_same" else "backward"
         out[kind] = {"per": f"the 20 bf16 launches of a batch-4 {what} at "
@@ -2316,6 +2353,9 @@ DISPATCH_K = 4
 DISPATCH_ITERS = 6 * DISPATCH_K
 #: the LA dispatch phases validate on one small volume (4 windows)
 DISPATCH_LA_VAL = (130, 130, 84)
+#: SM cycles the stream sleeps while phase 13 times a grid mask's writes
+#: (about 50 ms on an H100)
+MASK_BUSY_CYCLES = 100_000_000
 
 
 class DispatchClock:
@@ -2422,11 +2462,12 @@ def dispatch_data(variant: str):
     return (PancreasList(lab), PancreasList(unlab, "train_unlab")), val
 
 
-def dispatch_cli(variant: str, root: str, K: int):
+def dispatch_cli(variant: str, root: str, K: int,
+                 iters: int = DISPATCH_ITERS):
     """(CLI module, parsed flags, config overrides) of a dispatch run: the
-    CLI's defaults, DISPATCH_ITERS iterations a stage, ``--steps_per_dispatch
-    K``."""
-    n = str(DISPATCH_ITERS)
+    CLI's defaults, ``iters`` iterations a stage with a validation at the
+    last, ``--steps_per_dispatch K``."""
+    n = str(iters)
     if variant == "la":
         from bcp_tpu_torch.cli import train_la as cli
         flags = ["--labelnum", "4", "--root_path", root, "--snapshot_root",
@@ -2441,11 +2482,10 @@ def dispatch_cli(variant: str, root: str, K: int):
     else:
         from bcp_tpu_torch.cli import train_pancreas as cli
         flags = pancreas_flags(root)
-        over = {"pre_iterations": DISPATCH_ITERS,
-                "self_iterations": DISPATCH_ITERS}
+        over = {"pre_iterations": iters, "self_iterations": iters}
     args = cli.build_parser().parse_args(
         flags + ["--steps_per_dispatch", str(K)])
-    return cli, args, dict(over, eval_every=DISPATCH_ITERS)
+    return cli, args, dict(over, eval_every=iters)
 
 
 def dispatch_lockstep(torch, variant: str, data, root: str):
@@ -2587,21 +2627,29 @@ def _lockstep_ratio(start, got, want, exact: bool, ulp: float):
     return worst
 
 
-def dispatch_run(torch, variant: str, K: int, root: str, data, tag: str):
+def dispatch_run(torch, variant: str, K: int, root: str, data, tag: str,
+                 iters: int = DISPATCH_ITERS, log_images: bool = False,
+                 **extra):
     """One run of the variant's train CLI core at the CLI's defaults with
-    ``--steps_per_dispatch K``, DISPATCH_ITERS iterations a stage and a
+    ``--steps_per_dispatch K``, ``iters`` iterations a stage and a
     validation at the last, timed by :class:`DispatchClock`, its losses
     recorded by the trainer's ``on_metrics`` hook, its launch counts set to
-    0 just before the stages and read just after."""
+    0 just before the stages and read just after. ``extra`` overrides the
+    config (``fuse_subbatches``, ``mask_kind``, ``eval_every``);
+    ``log_images`` turns the trainer's image snapshots on."""
     from bcp_tpu_torch.cli.train_la import run_stages
-    cli, args, over = dispatch_cli(variant, root, K)
+    cli, args, over = dispatch_cli(variant, root, K, iters)
+    over.update(extra)
     counters = kernel_counters()
     losses = {}
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         trainer = cli.build_trainer(args, train_dataset=data[0],
                                     val_cases=data[1], **over)
+        trainer.log_images = log_images
         clock = DispatchClock(torch, counters, root, trainer, tag)
+        if iters != DISPATCH_ITERS:     # times only: no window, no traces
+            clock.marks = {}
         trainer.on_step = clock
         trainer.on_metrics = lambda stage, it, m: losses.setdefault(
             stage, {}).__setitem__(it, m)
@@ -2618,7 +2666,7 @@ def dispatch_run(torch, variant: str, K: int, root: str, data, tag: str):
         fail(f"dispatch {variant}: the CLI's defaults changed: {cfg}")
     for stage in ("pre", "self"):
         seen = sorted(losses.get(stage, {}))
-        if seen != list(range(1, DISPATCH_ITERS + 1)) \
+        if seen != list(range(1, iters + 1)) \
                 or sorted(clock.times[stage]) != seen \
                 or not all(np.isfinite(v) for m in losses[stage].values()
                            for v in m.values()):
@@ -2754,7 +2802,7 @@ def phase_dispatch(torch, workdir: str, variant: str, smi: str):
     A-D a timed step are the eager run's. The steady step of each run (ms,
     device busy ms, idle share, host launches and synchronisations) is
     printed beside the card's name and power limit. Returns the launches
-    of the eager and the graph runs."""
+    of the eager and the graph runs, and the steady steps by stage."""
     data = dispatch_data(variant)
     lockstep = dispatch_lockstep(torch, variant, data,
                                  os.path.join(workdir, f"lockstep_{variant}"))
@@ -2820,6 +2868,336 @@ def phase_dispatch(torch, workdir: str, variant: str, smi: str):
         launches[f"train_{variant}_{tag}"] = {
             k: sum(runs[i]["launches"][k] for i in picks)
             for k in runs[0]["launches"]}
+    return launches, steady
+
+
+# ---------------------------------------------------------------------------
+# the JAX trainer's last options: grid and slab masks, image snapshots; and
+# the NIfTI dumps of --save_result
+
+@contextlib.contextmanager
+def recorded_images():
+    """The ``(tag, step, array)`` of each image the trainer hands its
+    writer (the card's machine has no tensorboardX)."""
+    from bcp_tpu_torch.utils.logging import MetricWriter
+    calls = []
+    old = MetricWriter.image, MetricWriter.images
+    MetricWriter.image = lambda self, tag, img, it: calls.append(
+        (tag, it, np.array(img)))
+    MetricWriter.images = lambda self, tag, imgs, it=None: calls.append(
+        (tag, it, np.array(imgs)))
+    try:
+        yield calls
+    finally:
+        MetricWriter.image, MetricWriter.images = old
+
+
+def phase_masks_and_snapshots(torch, workdir: str, smi: str, ratio_steady):
+    """Grid and slab masks and the image snapshots on the card. (1) The
+    masks built on the card equal the CPU's bit for bit from the same
+    starts (LA 112x112x80, ACDC 256x256, grid and slab). The host ms to
+    draw a grid mask and write it through ``graphs.PinnedMask``: ten on an
+    idle stream, then two while the stream sleeps for MASK_BUSY_CYCLES,
+    beside two pageable copies under the same sleep; a pinned write must
+    return in under half the sleep (it does not wait for the stream), and
+    what it wrote is the mask. (2) LA at ``train_la``'s defaults with
+    ``mask_kind="grid"`` at K = 4, as phase 12 runs it: its steady steps
+    printed beside phase 12's ratio-mask K = 4 runs (``ratio_steady``),
+    its launches of A-D a step equal to theirs. (3) LA with the grid mask
+    and ``log_images``, 8 + 8 iterations, eval_every 4 (images at
+    self-train iterations 1 and 5), at K = 1 and K = 4 (iteration 5 then
+    comes from a graph group): the runs' states and losses bit for bit,
+    the grids (80, 3, 342, 114) with their white separators equal, and the
+    snapshot's mask the step's own (the mask of ``iteration_draws`` at
+    that iteration) and pseudo-labels equal both ways. (4) ACDC at its
+    defaults with ``log_images``, 20 + 20 iterations (panels at iteration
+    20 of each stage), K = 1 and K = 4: the images and ground truths bit
+    for bit, the predictions agreeing on at least 0.9 of the pixels, the
+    states held by phase 12's rule."""
+    from bcp_tpu_torch.config import acdc_config, la_config
+    from bcp_tpu_torch.data.feed import labeled_count
+    from bcp_tpu_torch.ops.masks import (boxes_mask, grid_mask, grid_starts,
+                                         slab_mask)
+    from bcp_tpu_torch.train import trainer as trainer_mod
+    from bcp_tpu_torch.train.trainer import (copy_paste_box,
+                                             copy_paste_mask,
+                                             iteration_draws)
+    from bcp_tpu_torch.train.graphs import PinnedMask, write_box
+    rng = np.random.default_rng(SEED + 24)
+    host_ms = {}
+    for name, S, axis, frac in (("la", PATCH, -1, 8 / 27),
+                                ("acdc", ACDC_SLICE, 0, 4 / 9)):
+        starts = grid_starts(rng, S)
+        start = int(rng.integers(0, S[axis] - int(S[axis] * frac) - 1))
+        for kind, fn in (("grid", lambda d: grid_mask(S, starts, device=d)),
+                         ("slab", lambda d: slab_mask(S, start, axis, frac,
+                                                      device=d))):
+            if not torch.equal(fn(DEVICE).cpu(), fn("cpu")):
+                fail(f"{kind} mask {name}: the card's differs from the CPU's")
+        cfg = (la_config if name == "la" else acdc_config)(
+            patch_size=S).replace(mask_kind="grid")
+        buf = torch.empty(S, dtype=torch.int32, device=DEVICE)
+        pinned = PinnedMask(S)
+
+        def boxes(it):
+            return copy_paste_box(cfg, iteration_draws(0, it,
+                                                       torch.Generator()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(1, 11):
+            write_box(buf, boxes(it), pinned)
+        host_ms[f"{name}_idle_stream"] = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        for how in ("pinned", "pageable"):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            torch.cuda._sleep(MASK_BUSY_CYCLES)
+            e1.record()
+            t0 = time.perf_counter()
+            for it in (11, 12):
+                if how == "pinned":
+                    write_box(buf, boxes(it), pinned)
+                else:
+                    buf.copy_(boxes_mask(S, boxes(it)), non_blocking=True)
+            host_ms[f"{name}_busy_stream_{how}"] = \
+                (time.perf_counter() - t0) / 2 * 1e3
+            torch.cuda.synchronize()
+            host_ms[f"{name}_busy_stream_sleep"] = e0.elapsed_time(e1)
+            if not torch.equal(buf.cpu(), boxes_mask(S, boxes(12))):
+                fail(f"grid mask {name}: the {how} write is not the mask")
+        if host_ms[f"{name}_busy_stream_pinned"] \
+                >= host_ms[f"{name}_busy_stream_sleep"] / 4:
+            fail(f"grid mask {name}: a pinned write waited for the "
+                 f"stream: {host_ms}")
+    print(f"grid and slab masks: card equals CPU; host ms to draw and "
+          f"write a grid mask ({smi}): {json.dumps(host_ms)}", flush=True)
+
+    launches = {}
+    data = dispatch_data("la")
+    root = os.path.join(workdir, "la_grid_timed")
+    os.makedirs(root)
+    run = dispatch_run(torch, "la", DISPATCH_K, root, data, "grid_timed",
+                       mask_kind="grid")
+    launches[f"train_la_grid_k{DISPATCH_K}"] = run["launches"]
+    groups = DISPATCH_ITERS // DISPATCH_K
+    if run["trainer"].graph_counts != {
+            "pre": {"captures": 1, "replays": (groups - 1) * DISPATCH_K},
+            "self": {"captures": 2,
+                     "replays": 2 * (groups - 1) * DISPATCH_K}}:
+        fail(f"la grid K = {DISPATCH_K}: graph counts "
+             f"{run['trainer'].graph_counts}")
+    for stage in ("pre", "self"):
+        grid = run["clock"].steady(stage)
+        ratio = ratio_steady[stage]["graphs"]
+        if grid["kernel_launches_per_step"] != \
+                ratio[0]["kernel_launches_per_step"]:
+            fail(f"la grid {stage}-train: launches a step "
+                 f"{grid['kernel_launches_per_step']}, the ratio mask's "
+                 f"{ratio[0]['kernel_launches_per_step']}")
+        print(f"la grid mask K = {DISPATCH_K} steady {stage}-train step "
+              f"({smi}): " + json.dumps({"grid": grid,
+                                         "ratio (phase 12)": ratio}),
+              flush=True)
+
+    runs, seen = {}, []
+    orig = trainer_mod.make_la_snapshot
+
+    def spy(state, batch, mask, plab):
+        seen.append((mask.cpu().clone(), plab.cpu().clone()))
+        return orig(state, batch, mask, plab)
+    trainer_mod.make_la_snapshot = spy
+    try:
+        for K in (1, DISPATCH_K):
+            root = os.path.join(workdir, f"la_grid_k{K}")
+            os.makedirs(root)
+            with recorded_images() as images:
+                run = dispatch_run(torch, "la", K, root, data, f"grid{K}",
+                                   iters=8, log_images=True,
+                                   mask_kind="grid", eval_every=4)
+            run["images"], run["seen"] = images, seen[:]
+            seen.clear()
+            run["state"] = {s: dispatch_state(torch, run, s)
+                            for s in ("pre", "self")}
+            run["state"]["losses"] = run["losses"]
+            runs[K] = run
+            launches[f"train_la_grid_snapshots_k{K}"] = run["launches"]
+    finally:
+        trainer_mod.make_la_snapshot = orig
+    cfg = runs[1]["cfg"]
+    held = dispatch_hold(torch, runs[DISPATCH_K]["state"], runs[1]["state"],
+                         exact=True)
+    H, W, D = PATCH
+    tags = [(t, i) for t, i, _ in runs[1]["images"]]
+    per_epoch = max(labeled_count(cfg) // cfg.labeled_bs, 1)
+    want_tags = [(f"Epoch_{(it - 1) // per_epoch}_Iter_{it}_{w}", None)
+                 for it in (1, 5) for w in ("labeled", "unlabel")]
+    result = {"la_grid_k4_vs_k1_worst": held,
+              "la_graph_counts": runs[DISPATCH_K]["trainer"].graph_counts,
+              "la_image_tags": [t for t, _ in tags]}
+    if tags != [(t, i) for t, i, _ in runs[DISPATCH_K]["images"]]:
+        fail(f"la snapshots: tags differ between K = 1 and K = 4: {tags}")
+    if [t for t, _ in tags] != [t for t, _ in want_tags]:
+        fail(f"la snapshots: tags {tags}, expected {want_tags}")
+    for (t, _, a), (_, _, b) in zip(runs[1]["images"],
+                                    runs[DISPATCH_K]["images"]):
+        if a.shape != (D, 3, 3 * H + 6, W + 2) or a.dtype != np.float32 \
+                or not (a[:, :, H:H + 2] == 1).all() \
+                or not (a[:, :, :, W:] == 1).all():
+            fail(f"la snapshot {t}: grid {a.shape} {a.dtype}")
+        if not np.array_equal(a, b):
+            fail(f"la snapshot {t}: K = 4's grid differs from K = 1's")
+    for K, run in runs.items():
+        if len(run["seen"]) != 2:
+            fail(f"la snapshots K = {K}: {len(run['seen'])} snapshots")
+        for it, (mask, plab) in zip((1, 5), run["seen"]):
+            own = copy_paste_mask(cfg, iteration_draws(
+                cfg.seed + 1, it, torch.Generator()))
+            if not torch.equal(mask, own):
+                fail(f"la snapshot K = {K} iteration {it}: not the step's "
+                     f"own mask")
+    for (_, p1), (_, p4) in zip(runs[1]["seen"], runs[DISPATCH_K]["seen"]):
+        if not torch.equal(p1, p4):
+            fail("la snapshots: the pseudo-labels differ between K = 1 "
+                 "and K = 4")
+    if any(r > 0 for r, _ in held.values()):
+        fail(f"la grid: K = 4 differs from K = 1: {held}")
+    if DEVICE == "cuda" and result["la_graph_counts"]["self"] != {
+            "captures": 2, "replays": 2 * DISPATCH_K}:
+        fail(f"la grid K = 4: graph counts {result['la_graph_counts']}")
+
+    data = dispatch_data("acdc")
+    acdc = {}
+    for K in (1, DISPATCH_K):
+        root = os.path.join(workdir, f"acdc_k{K}")
+        os.makedirs(root)
+        with recorded_images() as images:
+            run = dispatch_run(torch, "acdc", K, root, data, f"snap{K}",
+                               iters=20, log_images=True)
+        run["images"] = images
+        run["state"] = {s: dispatch_state(torch, run, s)
+                        for s in ("pre", "self")}
+        run["state"]["losses"] = run["losses"]
+        acdc[K] = run
+        launches[f"train_acdc_snapshots_k{K}"] = run["launches"]
+    a1, a4 = acdc[1]["images"], acdc[DISPATCH_K]["images"]
+    want_tags = [f"pre_train/Mixed_{p}" for p in
+                 ("Image", "Prediction", "GroundTruth")] + [
+        f"train/{s}_{p}" for s in ("Un", "L")
+        for p in ("Image", "Prediction", "GroundTruth")]
+    if [(t, i) for t, i, _ in a1] != [(t, 20) for t in want_tags] or \
+            [(t, i) for t, i, _ in a4] != [(t, 20) for t in want_tags]:
+        fail(f"acdc snapshots: {[(t, i) for t, i, _ in a1]} / "
+             f"{[(t, i) for t, i, _ in a4]}, expected {want_tags} at 20")
+    agree = {}
+    for (t, _, x), (_, _, y) in zip(a1, a4):
+        if x.shape != (1, *ACDC_SLICE) or x.dtype != np.float32:
+            fail(f"acdc snapshot {t}: {x.shape} {x.dtype}")
+        if t.endswith("Prediction"):
+            agree[t] = float((x == y).mean())
+            if agree[t] < 0.9:
+                fail(f"acdc snapshot {t}: K = 4 agrees with K = 1 on "
+                     f"{agree[t]} of the pixels")
+        elif not np.array_equal(x, y):
+            fail(f"acdc snapshot {t}: K = 4 differs from K = 1")
+    result.update({
+        "acdc_prediction_agreement": agree,
+        "acdc_k4_vs_k1_worst": dispatch_hold(
+            torch, acdc[DISPATCH_K]["state"], acdc[1]["state"],
+            exact=False),
+        "acdc_image_tags": want_tags, "card": smi})
+    print("grid masks and snapshots: " + json.dumps(result), flush=True)
+    return launches
+
+
+def phase_save_result(torch, workdir: str, pth: str, acdc_best: str,
+                      panc_best: str):
+    """``--save_result 1`` on the three test CLIs' cores, on phase 4's,
+    8's and 11's synthetic volumes and checkpoints: each run once without
+    and once with the dumps (s/volume of both), launch counts reset before
+    and read after the dump run. Every ``{name}_{pred,img,gt}.nii.gz``
+    exists, reads back through ``data.preprocess.read_nifti`` equal (as
+    float32) to the prediction, image and label the CLI handed its writer,
+    whose images and labels are the evaluated volumes (pancreas': the
+    centre crops); the case lines with and without the dumps are the
+    same."""
+    from bcp_tpu_torch.cli import common, test_acdc, test_la, test_pancreas
+    from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.data.preprocess import read_nifti
+    from bcp_tpu_torch.data.synthetic import (acdc_cases, la_cases,
+                                              pancreas_cases)
+    from bcp_tpu_torch.data.transforms import pancreas_test_transform
+    _, acdc_vols = acdc_cases(0, n_volumes=2, volume_shape=ACDC_TEST_VOLUME,
+                              seed=SEED + 12)
+    _, _, panc_vols = pancreas_cases(0, 0, 2, test_shape=PANC_TEST_VOLUME,
+                                     seed=SEED + 17)
+    panc_crops = [pancreas_test_transform(i, l, PANC_PATCH)
+                  for i, l in panc_vols]
+    clis = (
+        ("la", test_la, la_cases(2, LA_VOLUME, seed=SEED + 2), None,
+         ["--torch_ckpt", pth, "--stride_xy", "18", "--stride_z", "4",
+          "--eval_batch", str(EVAL_BATCH), "--nms", "1", "--patch_size",
+          *map(str, PATCH)]),
+        ("acdc", test_acdc, acdc_vols, None, ["--torch_ckpt", acdc_best]),
+        ("pancreas", test_pancreas, panc_vols, panc_crops,
+         ["--torch_ckpt", panc_best]))
+    counters = kernel_counters()
+    written = []
+    orig = common.ResultWriter.write
+
+    def spy(self, paths, volumes, spacing=(1.0, 1.0, 1.0)):
+        written.append((list(paths), [np.array(v, np.float32)
+                                      for v in volumes]))
+        return orig(self, paths, volumes, spacing)
+    common.ResultWriter.write = spy
+    launches, result = {}, {}
+    try:
+        for name, cli, cases, evaluated, flags in clis:
+            lines, wall, counts = {}, {}, {}
+            for dump in (0, 1):
+                root = os.path.join(workdir, f"{name}_{dump}")
+                args = cli.build_parser().parse_args(
+                    flags + ["--snapshot_root", root, "--device", DEVICE,
+                             "--save_result", str(dump)])
+                if name == "la":
+                    args.root_path = root
+                read_launches(counters, reset=True)
+                written.clear()
+                out = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    cli.test_calculate_metric(args, dataset=VolumeList(cases))
+                wall[dump] = (time.perf_counter() - t0) / len(cases)
+                lines[dump] = out.getvalue().splitlines()
+                counts[dump] = read_launches(counters)
+            launches[f"test_{name}_save_result"] = counts[1]
+            if counts[0] != counts[1]:
+                fail(f"save_result {name}: launches {counts[1]} with the "
+                     f"dumps, {counts[0]} without")
+            if lines[0] != lines[1]:
+                fail(f"save_result {name}: the dump run printed "
+                     f"{lines[1]}, the plain run {lines[0]}")
+            files = 0
+            for i, (paths, vols) in enumerate(written):
+                img, lab = (evaluated or cases)[i]
+                if [os.path.basename(p) for p in paths] != [
+                        f"{i:02d}_{t}.nii.gz" for t in ("pred", "img", "gt")]:
+                    fail(f"save_result {name}: files {paths}")
+                for path, vol, want in zip(paths, vols, (None, img, lab)):
+                    back = read_nifti(path)
+                    if not np.array_equal(back, vol) or (
+                            want is not None and not np.array_equal(
+                                vol, np.asarray(want, np.float32))):
+                        fail(f"save_result {name}: {path} does not read "
+                             f"back as what was evaluated")
+                    files += 1
+            if files != 3 * len(cases):
+                fail(f"save_result {name}: {files} files")
+            result[name] = {"files": files, "s_per_volume": wall[0],
+                            "s_per_volume_with_dumps": wall[1]}
+    finally:
+        common.ResultWriter.write = orig
+    print("save_result: " + json.dumps(result), flush=True)
     return launches
 
 
@@ -2831,6 +3209,7 @@ def main() -> int:
         return 1
     import bcp_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from bcp_tpu_torch import kernels
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2873,9 +3252,16 @@ def main() -> int:
             torch, os.path.join(workdir, "pancreas"))
         launches["test_pancreas"] = phase_pancreas_test(torch, panc_best,
                                                         workdir)
+        steady = {}
         for variant in ("la", "acdc", "pancreas"):
-            launches.update(phase_dispatch(
-                torch, os.path.join(workdir, "dispatch"), variant, smi))
+            counts, steady[variant] = phase_dispatch(
+                torch, os.path.join(workdir, "dispatch"), variant, smi)
+            launches.update(counts)
+        launches.update(phase_masks_and_snapshots(
+            torch, os.path.join(workdir, "options"), smi, steady["la"]))
+        launches.update(phase_save_result(
+            torch, os.path.join(workdir, "save_result"), pth, acdc_best,
+            panc_best))
     for e in entries:
         if e["name"] in pancreas:
             # B's, B-as-dx's and C's device times at the 96^3 stage shapes
@@ -2891,6 +3277,8 @@ def main() -> int:
         # path since the evaluator takes the fused entry
         if e["launches"] == 0 and e.get("on_main_path", True):
             fail(f"no path launched {e['name']}")
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

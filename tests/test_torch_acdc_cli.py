@@ -5,8 +5,8 @@ strictly, and starts the self-train stage from the pre-train best's
 weights and optimizer; ``--resume`` goes on from the saved step, and a
 resumed stage repeats none of its draws; ``test_acdc`` reads the best file
 and writes ``performance.txt``; the flags the port lacks are refused and
-the rest are the JAX CLIs'. The refusal of what the port still lacks
-(``fuse_subbatches=False``) is pinned."""
+the rest are the JAX CLIs'; ``test_acdc --save_result 1`` writes the JAX
+CLI's files; the core trains with ``fuse_subbatches=False``."""
 
 import re
 import shutil
@@ -17,6 +17,7 @@ import torch
 
 from bcp_tpu.cli import test_acdc as jax_test_acdc
 from bcp_tpu.cli import train_acdc as jax_train_acdc
+from bcp_tpu.data import synthetic as jax_synthetic
 from bcp_tpu_torch.cli import test_acdc, train_acdc
 from bcp_tpu_torch.config import acdc_config
 from bcp_tpu_torch.convert import load_reference_checkpoint
@@ -31,6 +32,7 @@ from bcp_tpu_torch.train.checkpoints import STATE_FILE, load_optimizer_state
 from bcp_tpu_torch.train.state import init_state
 from bcp_tpu_torch.train.steps import pretrain_step
 from bcp_tpu_torch.utils.logging import MetricWriter
+from test_torch_cli import assert_same_dumps
 
 TINY = dict(patch_size=(32, 32), n_filters=4, eval_every=2,
             compute_dtype="float32")
@@ -302,11 +304,42 @@ def test_steps_per_dispatch_two_equals_one(run, data, tmp_path):
 
 @pytest.mark.parametrize("flag,what", [(["--save_result", "1"], "NIfTI"),
                                        (["--num_devices", "2"], "one device")])
-def test_test_acdc_refuses_what_the_port_lacks(tmp_path, flag, what):
-    args = test_acdc.build_parser().parse_args(
-        ["--snapshot_root", str(tmp_path), "--device", "cpu", *flag])
-    with pytest.raises(SystemExit, match=what):
-        test_acdc.test_calculate_metric(args)
+def test_test_acdc_refuses_what_the_port_lacks(tmp_path, monkeypatch, flag,
+                                               what):
+    """``--num_devices 2`` is refused (ROADMAP A4). ``--save_result 1``
+    writes the JAX CLI's ``{case}_{pred,img,gt}.nii.gz`` (spacing (1, 1,
+    10)) with the same decompressed contents, from one .pth on one
+    synthetic test list, both CLIs at n_filters 4, 32x32, f32."""
+    if what == "one device":
+        args = test_acdc.build_parser().parse_args(
+            ["--snapshot_root", str(tmp_path), "--device", "cpu", *flag])
+        with pytest.raises(SystemExit, match=what):
+            test_acdc.test_calculate_metric(args)
+        return
+    root = jax_synthetic.make_acdc_dataset(
+        str(tmp_path / "data"), n_train_slices=1, n_val=2,
+        slice_shape=(40, 36), vol_depth=3, seed=2)
+    pth = tmp_path / "unet.pth"
+    # seeded weights: the test must not depend on what ran before it
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        torch.save(create_model("unet", 4, device="cpu",
+                                n_filters=4).state_dict(), pth)
+    for mod in (test_acdc, jax_test_acdc):
+        monkeypatch.setattr(mod, "acdc_config", lambda *a, _c=mod.acdc_config,
+                            **k: _c(*a, **k).replace(
+                                n_filters=4, patch_size=(32, 32),
+                                compute_dtype="float32"))
+    common = ["--root_path", root, "--torch_ckpt", str(pth), *flag]
+    jax_test_acdc.main(common + ["--snapshot_root", str(tmp_path / "jax")])
+    test_acdc.main(common + ["--snapshot_root", str(tmp_path / "port"),
+                             "--device", "cpu", "--n_filters", "4",
+                             "--patch_size", "32", "32"])
+    assert_same_dumps(tmp_path / "jax" / "ACDC_BCP_3_labeled" /
+                      "unet_predictions", tmp_path / "port" /
+                      "ACDC_BCP_3_labeled" / "unet_predictions",
+                      [f"synth_val_{i:03d}_{t}.nii.gz" for i in range(2)
+                       for t in ("gt", "img", "pred")])
 
 
 def test_clis_run_on_the_card_by_default(tmp_path):
@@ -348,8 +381,20 @@ def test_flags_are_the_jax_clis():
 
 
 @pytest.mark.parametrize("what", ["steps"])
-def test_refusals_name_what_is_still_missing(tmp_path, what):
-    cfg = acdc_config(**TINY, fuse_subbatches=False)
-    with pytest.raises(NotImplementedError,
-                       match="fuse_subbatches=False.*ROADMAP A1"):
-        pretrain_step(init_state(acdc_config(**TINY), "cpu"), {}, None, cfg)
+def test_refusals_name_what_is_still_missing(tmp_path, data, what):
+    """What was refused before it was ported, ``fuse_subbatches=False``,
+    now trains: both stages through the CLI's core, finite losses, strict
+    checkpoints."""
+    logged = []
+    trainer, out = train_acdc.train(
+        _args(tmp_path), train_dataset=data[0], val_cases=data[1],
+        fuse_subbatches=False, **TINY)
+    assert trainer.cfg.fuse_subbatches is False
+    for stage in ("pre", "self"):
+        model = create_model("unet", 4, device="cpu", n_filters=4)
+        model.load_state_dict(load_reference_checkpoint(out[stage][1]),
+                              strict=True)
+    text = (tmp_path / "ACDC_BCP_1_labeled" / "self_train" /
+            "log.txt").read_text()
+    losses = [float(v) for v in re.findall(r"loss: (\S+)", text)]
+    assert len(losses) == 2 and np.isfinite(losses).all()

@@ -7,7 +7,10 @@ slices, batch 8 (2 + 2 labelled, 2 + 2 unlabelled), 4 classes, the argmax
 pseudo-labels cleaned class by class, ACDC's mix order and losses, and the
 EMA of the whole state. Float64 on both sides, as ``test_torch_steps.py``:
 losses to rtol 1e-9, each parameter update and momentum buffer within 1e-3
-of the JAX update's largest magnitude, BN running statistics to 1e-9."""
+of the JAX update's largest magnitude, BN running statistics to 1e-9. The
+self-train update runs a second time with ``fuse_subbatches=False`` on
+both sides (the JAX package's two forwards a network, the port's concat
+forward with 2-group BatchNorm), at the same tolerances."""
 
 import copy
 
@@ -66,17 +69,18 @@ def _sd(params, stats):
         dtype=np.float64)
 
 
-def _run(stage):
+def _run(stage, unfused=False):
     jax.config.update("jax_enable_x64", True)
     try:
-        return _run_x64(stage)
+        return _run_x64(stage, unfused)
     finally:
         jax.config.update("jax_enable_x64", False)
 
 
-def _run_x64(stage):
+def _run_x64(stage, unfused):
     kw = dict(labelnum=1, n_filters=NF, patch_size=PATCH, batch_size=8,
-              labeled_bs=4, compute_dtype="float32")
+              labeled_bs=4, compute_dtype="float32",
+              fuse_subbatches=not unfused)
     jcfg = jax_acdc_config(**kw)
     cfg = acdc_config(**kw)
     fmodel = FlaxUNet2D(n_classes=4, feature_chns=unet_chns(NF),
@@ -118,9 +122,10 @@ def _run_x64(stage):
     return start, new, jmetrics, state, metrics
 
 
-@pytest.fixture(scope="module", params=["pre", "self"])
+@pytest.fixture(scope="module", params=["pre", "self", "self_unfused"])
 def stepped(request):
-    return request.param, _run(request.param)
+    stage, _, route = request.param.partition("_")
+    return stage, _run(stage, unfused=route == "unfused")
 
 
 def test_losses_match(stepped):

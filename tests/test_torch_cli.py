@@ -1,6 +1,7 @@
 """The port's test_la CLI against bcp_tpu.cli.test_la on one .pth and one
 tiny synthetic LA set; the port's synthetic data and dataset reader."""
 
+import gzip
 import os
 import re
 import subprocess
@@ -72,10 +73,59 @@ def test_cli_takes_a_dataset_object(la_set, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--save_result", "1"],
                                   ["--num_devices", "2"]])
-def test_cli_refuses_what_the_port_lacks(la_set, tmp_path, flag):
+def test_cli_refuses_what_the_port_lacks(la_set, tmp_path, monkeypatch,
+                                         flag):
+    """``--num_devices 2`` is refused (multi-GPU evaluation, ROADMAP A4);
+    ``--save_result 1`` writes the JAX CLI's files
+    (``%02d_{pred,img,gt}.nii.gz``) with the same decompressed contents,
+    both CLIs computing in f32 (in bf16 a few voxels near the threshold
+    differ between the two)."""
     root, pth = la_set
-    with pytest.raises(SystemExit, match="error"):
-        test_la.main(_flags(root, pth, tmp_path) + ["--device", "cpu"] + flag)
+    if flag[0] == "--num_devices":
+        with pytest.raises(SystemExit, match="error"):
+            test_la.main(_flags(root, pth, tmp_path) + ["--device", "cpu"]
+                         + flag)
+        return
+    for mod in (test_la, jax_test_la):
+        monkeypatch.setattr(mod, "la_config", _f32(mod.la_config))
+    jax_test_la.main(_flags(root, pth, tmp_path / "jax") + flag)
+    test_la.main(_flags(root, pth, tmp_path / "port") + ["--device", "cpu"]
+                 + flag)
+    assert_same_dumps(tmp_path / "jax" / "LA_BCP_4_labeled" /
+                      "VNet_predictions", tmp_path / "port" /
+                      "LA_BCP_4_labeled" / "VNet_predictions",
+                      ["%02d_%s.nii.gz" % (i, t) for i in range(2)
+                       for t in ("gt", "img", "pred")])
+
+
+def _f32(config):
+    return lambda *a, **k: config(*a, **k).replace(compute_dtype="float32")
+
+
+def assert_same_dumps(want_dir, got_dir, names, ties=None):
+    """The two directories' NIfTI files are ``names``, with equal
+    decompressed bytes (the gzip header carries a time). ``ties`` maps a
+    file's name to a bool array, of the shape of the volume written, of
+    the voxels where its data alone may differ: a prediction's argmax
+    where the class scores are equal to float rounding, so that another
+    summation order may pick the other class; its header must still be
+    equal."""
+    for d in (want_dir, got_dir):
+        assert sorted(n for n in os.listdir(d) if n.endswith(".nii.gz")) \
+            == sorted(names)
+    for name in names:
+        with gzip.open(got_dir / name) as g, gzip.open(want_dir / name) as w:
+            got, want = g.read(), w.read()
+        if ties is None or name not in ties:
+            assert got == want, name
+            continue
+        # a single-file NIfTI-1: 348 header bytes, 4 extension bytes, data
+        assert got[:352] == want[:352], name
+        a = np.frombuffer(got[352:], np.float32)
+        b = np.frombuffer(want[352:], np.float32)
+        tie = ties[name].ravel()     # the writer's C-order bytes
+        assert a.shape == b.shape == tie.shape, name
+        assert np.array_equal(a[~tie], b[~tie]), name
 
 
 def test_cli_without_checkpoint_errors(tmp_path):

@@ -53,7 +53,7 @@ def roots(tmp_path_factory):
     return {"la": str(la), "acdc": str(acdc), "pancreas": panc}
 
 
-def _feeds(variant, root, store, stage, K):
+def _feeds(variant, root, store, stage, K, side_labels=False):
     """(JAX feeder, port feeder) of one variant at ``stack=K``."""
     if variant == "la":
         kw = dict(root_path=root, labelnum=4, patch_size=(16, 16, 12))
@@ -72,7 +72,7 @@ def _feeds(variant, root, store, stage, K):
     extra = dict(compute_dtype="bfloat16", device_data_cache=store)
     return (JaxFeeder(jcfg.replace(**extra), stage, stack=K),
             BCPBatchFeeder(cfg.replace(**extra), stage, data, device="cpu",
-                           stack=K))
+                           stack=K, side_labels=side_labels))
 
 
 @pytest.mark.parametrize("variant,store,stage", [
@@ -110,6 +110,35 @@ def test_stacked_feed_equals_jax_stacked_feed(roots, monkeypatch, variant,
     finally:
         want_feed.close()
         got_feed.close()
+
+
+@pytest.mark.parametrize("store", [False, True])
+@pytest.mark.parametrize("K", [1, 2])
+def test_side_labels_equal_jax_feeders(roots, monkeypatch, store, K):
+    """With ``side_labels`` ACDC's self-train batches carry ``ulab_a`` /
+    ``ulab_b``, the JAX feeder's true unlabelled labels bit for bit, host
+    path and store, K = 1 and K = 2; without, the batch has no such key
+    and the rest is the same."""
+    monkeypatch.setitem(jax_feed.ACDC_PATIENTS_TO_SLICES, 1, 8)
+    monkeypatch.setitem(feed.ACDC_PATIENTS_TO_SLICES, 1, 8)
+    want_feed, got_feed = _feeds("acdc", roots["acdc"], store, "self", K,
+                                 side_labels=True)
+    plain = _feeds("acdc", roots["acdc"], store, "self", K)[1]
+    try:
+        for _ in range(2):
+            want = next(want_feed)
+            got, other = next(got_feed), next(plain)
+            assert sorted(got) == sorted([*other, "ulab_a", "ulab_b"])
+            for k in ("ulab_a", "ulab_b"):
+                assert got[k].dtype == torch.uint8
+                np.testing.assert_array_equal(got[k].numpy(),
+                                              np.asarray(want[k]))
+            for k, v in other.items():
+                assert torch.equal(got[k], v), k
+    finally:
+        want_feed.close()
+        got_feed.close()
+        plain.close()
 
 
 # ---------------------------------------------------------------------------
@@ -173,17 +202,42 @@ def test_static_step_equals_eager_step(variant, stage):
     forward (teacher's first). Against four K = 1 eager steps drawing from
     the generator inside the forward: the same student, teacher,
     optimizer state and losses, bit for bit."""
-    cfg = TINY[variant]()
+    _static_equals_eager(TINY[variant](), stage)
+
+
+@pytest.mark.parametrize("variant,option", [
+    ("la", "grid"), ("acdc", "grid"), ("pancreas", "grid"),
+    ("la", "slab"), ("acdc", "slab"), ("pancreas", "slab")])
+def test_static_step_equals_eager_step_with_options(variant, option):
+    """As above for the self-train step with a grid or slab mask (the
+    grid's boxes painted on the host into the static mask)."""
+    _static_equals_eager(TINY[variant]().replace(mask_kind=option), "self")
+
+
+def _static_equals_eager(cfg, stage):
+    """Both ways also call the ``before_update`` hook with the same
+    iterations, sub-batches, masks and pseudo-labels."""
     seed = cfg.seed + (stage == "self")
     batches = _batches(cfg, 4, stage)
     want_state = init_state(cfg, "cpu")
     gen = torch.Generator()
-    want = []
+    want, want_seen, seen = [], [], []
+
+    def hook(log):
+        def record(it, sub, mask, plab):
+            log.append((it, {k: v.clone() for k, v in sub.items()},
+                        mask.clone(), None if plab is None
+                        else plab.clone()))
+        return record
     for it, b in enumerate(batches, start=1):
         mask = copy_paste_mask(cfg, iteration_draws(seed, it, gen))
-        step = pretrain_step(want_state, b, mask, cfg, gen) \
-            if stage == "pre" else selftrain_step(want_state, b, mask, cfg,
-                                                  gen, gen)
+        if stage == "pre":
+            hook(want_seen)(it, b, mask, None)
+            step = pretrain_step(want_state, b, mask, cfg, gen)
+        else:
+            step = selftrain_step(
+                want_state, b, mask, cfg, gen, gen,
+                lambda p, it=it, b=b, m=mask: hook(want_seen)(it, b, m, p))
         want.append({k: float(v) for k, v in step.items()})
 
     state = init_state(cfg, "cpu")
@@ -196,14 +250,21 @@ def test_static_step_equals_eager_step(variant, stage):
     for g in range(2):
         stacked = {k: torch.stack([b[k] for b in batches[2 * g:2 * g + 2]])
                    for k in batches[0]}
-        names, values = groups.run(stacked, 2 * g + 1)
+        names, values = groups.run(stacked, 2 * g + 1, hook(seen))
         got += [dict(zip(names, row)) for row in values.tolist()]
         assert (groups.graph_step is not None)
     keeps = groups.graph_step.keep_s + groups.graph_step.keep_t
-    assert (len(keeps) > 0) == (variant != "pancreas")
+    assert (len(keeps) > 0) == (cfg.variant != "pancreas")
     assert groups.close() == {"captures": 0, "replays": 0}
     assert got == want
     _assert_same_state(state, want_state)
+    assert [s[0] for s in seen] == [s[0] for s in want_seen] == [1, 2, 3, 4]
+    for (_, b, m, p), (_, wb, wm, wp) in zip(seen, want_seen):
+        assert torch.equal(m, wm)
+        assert (p is None) == (wp is None) == (stage == "pre")
+        assert p is None or torch.equal(p, wp)
+        for k, v in wb.items():
+            assert torch.equal(b[k], v), k
 
 
 # ---------------------------------------------------------------------------
@@ -232,8 +293,18 @@ def test_trainer_k2_equals_k1(tmp_path, cache):
     """Four steps a stage with a validation at step 2 and 4, device store
     and host feed: K = 2 logs the losses, calls the step hook, writes the
     checkpoints and ends with the state of K = 1, bit for bit."""
+    _k2_equals_k1(tmp_path, cache)
+
+
+def test_trainer_k2_equals_k1_with_grid_mask(tmp_path):
+    """The same for a grid-masked run (device store)."""
+    _k2_equals_k1(tmp_path, "1", mask_kind="grid")
+
+
+def _k2_equals_k1(tmp_path, cache, **overrides):
     runs = {K: _train_la(tmp_path / f"k{K}", K, "--device_data_cache",
-                         cache) for K in (1, 2)}
+                         cache, **overrides) for K in (1, 2)}
+    assert all(getattr(runs[2][0].cfg, k) == v for k, v in overrides.items())
     assert runs[1][2] == runs[2][2] and len(runs[1][2]) == 8
     assert runs[1][3] == runs[2][3] == [
         (s, i) for s in ("pre", "self") for i in range(1, 5)]
@@ -375,11 +446,11 @@ def test_k2_group_matches_jax_scanned_step(jax_group, static):
     names = sorted(want[0])
     if static:
         step = GraphStep(state, cfg, stage, port[0], ([], []), names)
-        got = [dict(zip(names, step.step(b, (draws[it], None)).tolist()))
+        got = [dict(zip(names, step.step(b, ([draws[it]], None)).tolist()))
                for it, b in enumerate(port, start=1)]
     else:
         groups = DispatchGroups(state, cfg, stage, JAX_K,
-                                lambda it: (draws[it], None), static=False)
+                                lambda it: ([draws[it]], None), static=False)
         stacked = {k: torch.stack([b[k] for b in port]) for k in port[0]}
         names, values = groups.run(stacked, 1)
         got = [dict(zip(names, row)) for row in values.tolist()]

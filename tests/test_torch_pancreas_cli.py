@@ -24,8 +24,10 @@ from bcp_tpu.eval.sliding_window import \
     SlidingWindowEvaluator as JaxEvaluator
 from bcp_tpu_torch.cli import test_pancreas, train_pancreas
 from bcp_tpu_torch.convert import load_reference_checkpoint
-from bcp_tpu_torch.data.datasets import PancreasList, VolumeList
+from bcp_tpu_torch.data.datasets import (PancreasDataset, PancreasList,
+                                         VolumeList)
 from bcp_tpu_torch.data.synthetic import make_pancreas_dataset
+from bcp_tpu_torch.data.transforms import pancreas_test_transform
 from bcp_tpu_torch.eval import sliding_window
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
 from bcp_tpu_torch.models import create_model
@@ -33,6 +35,7 @@ from bcp_tpu_torch.train import trainer as trainer_mod
 from bcp_tpu_torch.train.checkpoints import (STATE_FILE,
                                              load_optimizer_state)
 from bcp_tpu_torch.utils.logging import MetricWriter
+from test_torch_cli import assert_same_dumps
 from test_torch_pancreas_model import flax_pancreas, port_pancreas
 
 PATCH = (32, 32, 32)
@@ -267,11 +270,50 @@ def test_steps_per_dispatch_two_equals_one(run, root, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [(["--save_result", "1"], "A5"),
                                        (["--num_devices", "2"], "A4")])
-def test_test_pancreas_refuses_what_the_port_lacks(tmp_path, flag, item):
-    args = test_pancreas.build_parser().parse_args(
-        ["--snapshot_root", str(tmp_path), "--device", "cpu", *flag])
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        test_pancreas.test_calculate_metric(args)
+def test_test_pancreas_refuses_what_the_port_lacks(root, tmp_path,
+                                                   monkeypatch, flag, item):
+    """``--num_devices 2`` is refused (ROADMAP A4). ``--save_result 1``
+    writes the JAX CLI's
+    ``predictions/%02d_{pred,img,gt}.nii.gz`` of the centre-cropped test
+    volumes with the same decompressed contents, from one .pth, both CLIs
+    at 32^3, n_filters 4, f32."""
+    if item == "A4":
+        args = test_pancreas.build_parser().parse_args(
+            ["--snapshot_root", str(tmp_path), "--device", "cpu", *flag])
+        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+            test_pancreas.test_calculate_metric(args)
+        return
+    pth = tmp_path / "VNet_pancreas.pth"
+    # seeded weights: the test must not depend on what ran before it
+    torch.save(port_pancreas(flax_pancreas(4, seed=0)[1]).state_dict(), pth)
+    for mod in (test_pancreas, jax_test_pancreas):
+        monkeypatch.setattr(mod, "pancreas_config", lambda *a,
+                            _c=mod.pancreas_config, **k: _c(*a, **k).replace(
+                                patch_size=PATCH, n_filters=4,
+                                compute_dtype="float32"))
+    common = ["--data_root", root, "--torch_ckpt", str(pth), *flag]
+    jax_test_pancreas.main(common + ["--snapshot_root",
+                                     str(tmp_path / "jax")])
+    test_pancreas.main(common + ["--snapshot_root", str(tmp_path / "port"),
+                                 "--device", "cpu"])
+    sub = next((tmp_path / "jax").glob("*/self_train/predictions"))
+    # at random weights the two classes' scores sit near 0.5 and a few are
+    # equal to rounding (0.49999997 against 0.5 in volume 1): there the
+    # argmax may differ, each side summing in its own order
+    args = test_pancreas.build_parser().parse_args(common + [
+        "--snapshot_root", str(tmp_path / "port"), "--device", "cpu"])
+    cfg, evaluator = test_pancreas.build_evaluator(args)
+    ties = {}
+    for i in range(2):
+        image = pancreas_test_transform(
+            *PancreasDataset(root, "test", cache=False).load(i),
+            cfg.patch_size)[0]
+        score = np.asarray(evaluator.infer(image, rule="argmax",
+                                           return_score=True)[1])
+        ties["%02d_pred.nii.gz" % i] = np.abs(score[1] - score[0]) <= 2.4e-7
+    assert_same_dumps(sub, tmp_path / "port" / sub.relative_to(
+        tmp_path / "jax"), ["%02d_%s.nii.gz" % (i, t) for i in range(2)
+                            for t in ("gt", "img", "pred")], ties)
 
 
 def test_clis_run_on_the_card_by_default(root, tmp_path):

@@ -8,7 +8,10 @@ cube (16^3 here: 64^3 does not fit a 32^3 patch), pancreas' mix order and
 losses, binary pseudo-labels with largest-CC NMS at connectivity 2, and
 the EMA of the parameters only. Then the self-train update again from the
 pre-train state handed over with its optimizer (``load_opt_state``),
-against ``CheckpointIO.restore_with_opt`` and the JAX step.
+against ``CheckpointIO.restore_with_opt`` and the JAX step, and the
+self-train update with ``fuse_subbatches=False`` on both sides (the JAX
+package's two forwards a network, the port's concat forward; the
+instance norm has no running statistics).
 
 Float64 on both sides, as ``test_torch_steps.py``. Every parameter delta,
 teacher delta and Adam moment within 1e-3 of the JAX tensor's largest
@@ -131,7 +134,7 @@ def _run_x64(tmp):
                                   jcfg)
     out = {}
 
-    def port_step(stage, state, key):
+    def port_step(stage, state, key, cfg=cfg):
         if stage == "pre":
             mask_key = jax.random.split(key)[0]
         else:
@@ -155,6 +158,15 @@ def _run_x64(tmp):
     out["self"] = (start, _np(jself), jm, state,
                    port_step("self", state, key))
 
+    # two forwards a network (`steps.py:267-289,298-311`)
+    unfused_fn = make_selftrain_step(
+        fmodel, jax_build_optimizer(jcfg, "self"),
+        jcfg.replace(fuse_subbatches=False))
+    jself, jm = unfused_fn(fresh(), batch, key)
+    state = _port_state(cfg, start)
+    out["self_unfused"] = (start, _np(jself), jm, state, port_step(
+        "self", state, key, cfg.replace(fuse_subbatches=False)))
+
     # the hand-off: the pre-train state's weights and Adam state into a
     # fresh self-train state (`checkpoints.py:116-130`), then one step
     io = CheckpointIO()
@@ -177,7 +189,7 @@ def runs(tmp_path_factory):
     return _run(tmp_path_factory.mktemp("pancreas_steps"))
 
 
-STAGES = ["pre", "self", "handoff"]
+STAGES = ["pre", "self", "self_unfused", "handoff"]
 
 
 @pytest.mark.parametrize("stage", STAGES)

@@ -26,7 +26,8 @@ from bcp_tpu_torch.train.checkpoints import (STATE_FILE, restore_state,
                                              snapshot)
 from bcp_tpu_torch.train.state import init_state
 from bcp_tpu_torch.train.steps import selftrain_step
-from bcp_tpu_torch.train.trainer import BCPTrainer, _ValWorker
+from bcp_tpu_torch.train.trainer import BCPTrainer
+from bcp_tpu_torch.utils.worker import OrderedWorker
 
 PATCH = (16, 16, 16)
 
@@ -231,7 +232,7 @@ def test_validation_error_surfaces_in_the_training_thread(data, tmp_path):
 def test_val_worker_error_surfaces():
     """`test_async_val_worker_error_surfaces`: a job's exception is raised
     again in the submitting thread, and the worker goes on serving."""
-    w = _ValWorker()
+    w = OrderedWorker()
 
     def boom():
         raise RuntimeError("validation exploded")
@@ -249,7 +250,7 @@ def test_val_worker_error_surfaces():
 
 @pytest.mark.parametrize("depth", [1, 2])
 def test_val_worker_runs_in_order_and_bounds_jobs_in_flight(depth):
-    w = _ValWorker(depth)
+    w = OrderedWorker(depth)
     gate, done, submitted = threading.Event(), [], []
 
     def job(i):

@@ -12,8 +12,16 @@ Both sides run in float64, as the JAX package's own one-step fidelity
 gates do (`tests/test_train_fidelity.py:35-37`): in f32 the V-Net's
 BatchNorm chains amplify reassociation noise to several percent of the
 small deep-layer gradients. Each update is compared as a delta, within
-1e-3 of the JAX delta's own largest magnitude."""
+1e-3 of the JAX delta's own largest magnitude.
 
+The self-train update also runs with ``fuse_subbatches=False`` on both
+sides (the JAX package's two teacher and two student forwards, the
+running statistics threaded from the first student forward into the
+second; the port's one concat forward with 2-group BatchNorm), at the
+same tolerances; and the reference's two-forward route, run on the
+port's networks, equals the port's step in f64 to 1e-10."""
+
+import contextlib
 import copy
 
 import jax
@@ -28,11 +36,13 @@ from bcp_tpu.train.state import build_optimizer as jax_build_optimizer
 from bcp_tpu.train.state import init_state as jax_init_state
 from bcp_tpu.train.steps import make_pretrain_step, make_selftrain_step
 from bcp_tpu_torch import convert
-from bcp_tpu_torch.config import la_config
+from bcp_tpu_torch.config import acdc_config, la_config, pancreas_config
 from bcp_tpu_torch.models import VNet3D
+from bcp_tpu_torch.models.layers import Dropout, bn_groups
 from bcp_tpu_torch.ops.masks import cuboid_mask
-from bcp_tpu_torch.train.state import TrainState, build_optimizer
+from bcp_tpu_torch.train.state import TrainState, build_optimizer, init_state
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
+from bcp_tpu_torch.train.trainer import copy_paste_mask
 from test_torch_train_ops import jax_cuboid_starts
 
 PATCH = (16, 16, 16)
@@ -92,19 +102,19 @@ def _close(got: torch.Tensor, want: torch.Tensor, what: str,
     assert err <= max(rel * scale, 1e-9), f"{what}: err {err} scale {scale}"
 
 
-def _run(stage, fused=False):
+def _run(stage, fused=False, unfused=False):
     jax.config.update("jax_enable_x64", True)
     try:
-        return _run_x64(stage, fused)
+        return _run_x64(stage, fused, unfused)
     finally:
         jax.config.update("jax_enable_x64", False)
 
 
-def _run_x64(stage, fused):
-    jcfg = jax_la_config(n_filters=NF, patch_size=PATCH, labelnum=4,
-                         compute_dtype="float32")
-    cfg = la_config(n_filters=NF, patch_size=PATCH, labelnum=4,
-                    compute_dtype="float32")
+def _run_x64(stage, fused, unfused):
+    kw = dict(n_filters=NF, patch_size=PATCH, labelnum=4,
+              compute_dtype="float32", fuse_subbatches=not unfused)
+    jcfg = jax_la_config(**kw)
+    cfg = la_config(**kw)
     fmodel = FlaxVNet3D(n_classes=2, n_filters=NF, normalization="batchnorm",
                         has_dropout=False)
     tx = jax_build_optimizer(jcfg, stage)
@@ -143,10 +153,12 @@ def _run_x64(stage, fused):
     return start, new, jmetrics, state, metrics
 
 
-@pytest.fixture(scope="module", params=["pre", "self", "self_fused"])
+@pytest.fixture(scope="module", params=["pre", "self", "self_fused",
+                                        "self_unfused"])
 def stepped(request):
-    stage = request.param.split("_")[0]
-    return stage, _run(stage, fused=request.param.endswith("fused"))
+    stage, _, route = request.param.partition("_")
+    return stage, _run(stage, fused=route == "fused",
+                       unfused=route == "unfused")
 
 
 def test_losses_match(stepped):
@@ -196,3 +208,74 @@ def test_teacher_matches(stepped):
             assert torch.equal(v, start[k]), k
         else:
             _close(v - start[k], want[k] - start[k], k)
+
+
+@contextlib.contextmanager
+def _two_forwards(*nets):
+    """The reference's unfused route (`steps.py:267-289,298-311`) on the
+    port's networks: a forward of a concat batch runs as two forwards,
+    one a half, each with one-group BatchNorm, so the running statistics
+    thread from the first into the second."""
+    for net in nets:
+        def forward(x, _net=net, _orig=net.forward):
+            with bn_groups(_net, 1):
+                outs = [_orig(h) for h in x.chunk(2)]
+            return tuple(torch.cat(o) for o in zip(*outs))
+        net.forward = forward
+    try:
+        yield
+    finally:
+        for net in nets:
+            del net.forward
+
+
+@pytest.mark.parametrize("variant", ["la", "acdc", "pancreas"])
+def test_unfused_equals_fused_in_f64(variant):
+    """``fuse_subbatches=False`` runs the concat forward with 2-group
+    BatchNorm; the reference's two forwards a network (:func:`_two_forwards`)
+    land on its losses, student, BN statistics (num_batches_tracked
+    included), momentum buffers or Adam moments and teacher to 1e-10 in
+    f64, dropout off, from one state, batch and mask."""
+    cfg = {"la": lambda: la_config(n_filters=4, patch_size=(16,) * 3,
+                                   labelnum=4, compute_dtype="float32"),
+           "acdc": lambda: acdc_config(n_filters=4, patch_size=(32, 32),
+                                       compute_dtype="float32"),
+           "pancreas": lambda: pancreas_config(
+               20, n_filters=4, patch_size=(16,) * 3, mask_patch=8,
+               compute_dtype="float32")}[variant]()
+    rng = np.random.default_rng(0)
+    S = cfg.patch_size
+    batch = {}
+    for k in "ab":
+        for key in (f"img_{k}", f"uimg_{k}"):
+            batch[key] = torch.from_numpy(rng.normal(size=(2, 1, *S)))
+        batch[f"lab_{k}"] = torch.from_numpy(
+            rng.integers(0, cfg.num_classes, (2, *S)).astype(np.uint8))
+    fused = init_state(cfg, "cpu")
+    for net in (fused.model, fused.teacher):
+        net.double()
+        for m in net.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    fused.optimizer = type(fused.optimizer)(fused.model.parameters(),
+                                            **fused.optimizer.defaults)
+    unfused = copy.deepcopy(fused)
+    mask = copy_paste_mask(cfg, np.random.default_rng(1))
+    want = selftrain_step(fused, batch, mask,
+                          cfg.replace(fuse_subbatches=False))
+    with _two_forwards(unfused.model, unfused.teacher):
+        got = selftrain_step(unfused, batch, mask, cfg)
+    for k, v in want.items():
+        assert abs(got[k].item() - v.item()) <= 1e-10, k
+    for part in ("model", "teacher"):
+        a = getattr(fused, part).state_dict()
+        b = getattr(unfused, part).state_dict()
+        for k, v in a.items():
+            if v.is_floating_point():
+                assert (b[k] - v).abs().max().item() <= 1e-10, (part, k)
+            else:
+                assert torch.equal(b[k], v), (part, k)
+    for p, q in zip(fused.model.parameters(), unfused.model.parameters()):
+        for k, v in fused.optimizer.state[p].items():
+            assert (unfused.optimizer.state[q][k] - v).abs().max().item() \
+                <= 1e-10, k

@@ -5,11 +5,19 @@ port as numpy arrays through ``state_dict_from_flax``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from bcp_tpu.models import UNet2D as FlaxUNet2D
 from bcp_tpu.models import VNet3D as FlaxVNet3D
 from bcp_tpu_torch.convert import state_dict_from_flax
 from bcp_tpu_torch.models import UNet2D, VNet3D
+
+# One intra-op thread a process. pytest-xdist runs the suite in several
+# worker processes, and torch's default of one OpenMP thread a core then
+# puts workers x cores spinning threads on the cores: six workers on eight
+# cores ran the port's files 4x slower than with one thread each. Every
+# worker imports this module while it collects the test files.
+torch.set_num_threads(1)
 
 
 def flax_vnet_variables(n_filters=4, patch=(16, 16, 16), seed=0):
