@@ -1,18 +1,90 @@
-"""Shared CLI helpers: ``bcp_tpu/cli/common.py`` for the port."""
+"""Shared CLI helpers: ``bcp_tpu/cli/common.py`` for the port.
+
+``--num_devices N`` (every CLI) runs the CLI's core on N ranks: the CLI
+spawns them itself (:func:`on_ranks`, ``parallel.mesh.launch``), one
+process a card (``cuda:0`` .. ``cuda:N-1`` over NCCL) or, with ``--device
+cpu``, N processes over gloo. ``-1`` is every visible card; asking for
+more cards than are visible raises, nothing runs on fewer. Spatial
+partitioning (``--sp_devices``) is not ported and is refused.
+"""
 
 from __future__ import annotations
 
 import os
 from functools import partial
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
 from bcp_tpu_torch.config import Config
 from bcp_tpu_torch.convert import load_reference_checkpoint
 from bcp_tpu_torch.data.preprocess import write_nifti
+from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.state import build_model
 from bcp_tpu_torch.utils.worker import OrderedWorker
+
+
+def ranks(args) -> int:
+    """The ranks of ``--num_devices`` on ``--device``; refuses
+    ``--sp_devices`` other than 1 (ROADMAP A4: the halo exchanges that
+    kernels B, C and D need across a split volume are not written)."""
+    if getattr(args, "sp_devices", 1) != 1:
+        raise SystemExit("error: --sp_devices != 1: spatial partitioning is "
+                         "not ported (ROADMAP A4, multi-GPU)")
+    try:
+        return mesh.resolve_count(args.num_devices, args.device)
+    except ValueError as e:
+        raise SystemExit(f"error: --num_devices: {e} (ROADMAP A4, "
+                         f"multi-GPU)") from e
+
+
+def run_stages(trainer, args):
+    """Run the stages of ``--stage``: {stage: (best dice, best .pth)}."""
+    if mesh.is_main():
+        print("Starting BCP training.")
+    out = {}
+    if args.stage in ("both", "pre"):
+        out["pre"] = trainer.pretrain(resume=args.resume)
+    if args.stage in ("both", "self"):
+        out["self"] = trainer.selftrain(resume=args.resume)
+    return out
+
+
+def train_on_ranks(module: str, args, train_dataset, val_cases, on_step,
+                   overrides):
+    """A train CLI's ``train``: ``module``'s ``build_trainer``, then
+    :func:`run_stages`; returns (trainer, {stage: (best dice, best .pth)}).
+    With ``--num_devices N > 1`` the stages run on N spawned ranks and the
+    trainer, which lives in them, is None (the datasets must pickle;
+    ``on_step``, a hook of this process, is refused)."""
+    import importlib
+    mod = importlib.import_module(module)
+    n = ranks(args)
+    if n > 1 and not mesh.active():
+        if on_step is not None:
+            raise ValueError("on_step is called in this process; the ranks "
+                             "of --num_devices > 1 are other processes")
+        return None, on_ranks(_train_rank, n, args.device, module, args,
+                              train_dataset, val_cases, overrides)
+    trainer = mod.build_trainer(args, train_dataset, val_cases, on_step,
+                                **overrides)
+    return trainer, run_stages(trainer, args)
+
+
+def _train_rank(module, args, train_dataset, val_cases, overrides):
+    import importlib
+    mod = importlib.import_module(module)
+    return run_stages(mod.build_trainer(args, train_dataset, val_cases,
+                                        **overrides), args)
+
+
+def on_ranks(fn: Callable, n: int, device, *args):
+    """``fn(*args)`` in this process when ``n`` is 1 or it already is a
+    rank of a world; else on ``n`` spawned ranks (its arguments and result
+    must pickle), returning rank 0's result."""
+    if n == 1 or mesh.active():
+        return fn(*args)
+    return mesh.launch(fn, n, device, *args)
 
 
 def load_eval_model(cfg: Config, ckpt_path: str,
@@ -39,11 +111,13 @@ class ResultWriter:
     (``utils.worker.OrderedWorker``), so gzip runs while the card
     evaluates the next volume. ``write`` copies the volumes first; at most
     two cases wait or run at a time; ``close`` returns once every file is
-    complete and re-raises a write's error. Off (``enabled`` false) it
-    writes nothing."""
+    complete and re-raises a write's error. Off (``enabled`` false), and
+    on a rank other than 0, it writes nothing."""
 
     def __init__(self, enabled: bool):
-        self._worker = OrderedWorker(2) if enabled else None
+        # rank 0 alone writes in a world of several ranks
+        self._worker = (OrderedWorker(2) if enabled and mesh.is_main()
+                        else None)
 
     def write(self, paths: Sequence[str], volumes,
               spacing=(1.0, 1.0, 1.0)) -> None:

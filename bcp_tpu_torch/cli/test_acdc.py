@@ -19,10 +19,11 @@ import os
 import numpy as np
 
 from bcp_tpu_torch.cli.common import (ResultWriter, case_name,
-                                      load_eval_model)
+                                      load_eval_model, on_ranks, ranks)
 from bcp_tpu_torch.config import acdc_config
 from bcp_tpu_torch.data.datasets import ACDCDataset
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
+from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.checkpoints import best_model_path, snapshot_dir
 
 
@@ -38,7 +39,7 @@ def build_parser():
     p.add_argument("--torch_ckpt", type=str, default=None)
     p.add_argument("--snapshot_root", type=str, default="./model/BCP")
     p.add_argument("--save_result", type=int, default=0)
-    # multi-GPU evaluation comes with a later slice
+    # data-parallel ranks, one card each (-1: every visible card)
     p.add_argument("--num_devices", type=int, default=1)
     # first-stage width and slice size of the checkpoint (reference: 16,
     # 256x256)
@@ -50,9 +51,6 @@ def build_parser():
 
 def build_evaluator(args, device=None):
     """(cfg, evaluator) of the parsed flags, weights loaded."""
-    if args.num_devices not in (0, 1):
-        raise SystemExit("error: the port evaluates on one device; "
-                         "--num_devices > 1 comes with the multi-GPU slice")
     cfg = acdc_config(labelnum=args.labelnum).replace(
         root_path=args.root_path, exp=args.exp, net_type=args.model,
         num_classes=args.num_classes, snapshot_root=args.snapshot_root,
@@ -61,7 +59,8 @@ def build_evaluator(args, device=None):
     ckpt = best_model_path(snapshot_dir(cfg, args.stage_name), cfg.net_type)
     model = load_eval_model(cfg, ckpt, torch_ckpt=args.torch_ckpt,
                             device=device)
-    print(f"init weight from {args.torch_ckpt or ckpt}")
+    if mesh.is_main():
+        print(f"init weight from {args.torch_ckpt or ckpt}")
     return cfg, Slice2DEvaluator(model, cfg.patch_size, cfg.num_classes,
                                  device=device)
 
@@ -74,7 +73,14 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
     ``<model>_predictions/{case}_{pred,img,gt}.nii.gz`` beside the stage's
     snapshot directory (float32, spacing (1, 1, 10), `test_ACDC.py:70-75`;
     a case without a name is its index, ``%02d``), written in the
-    background, complete when this returns."""
+    background, complete when this returns.
+    With ``--num_devices N > 1`` it runs on N spawned ranks (the evaluator
+    shards each volume over them); rank 0 prints, writes and returns."""
+    return on_ranks(_test_rank, ranks(args), device or args.device,
+                    args, dataset, device)
+
+
+def _test_rank(args, dataset, device):
     cfg, evaluator = build_evaluator(args, device)
     ds = dataset if dataset is not None else ACDCDataset(cfg.root_path,
                                                          "test")
@@ -82,7 +88,8 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
     pred_dir = os.path.join(
         os.path.dirname(snapshot_dir(cfg, args.stage_name)),
         f"{args.model}_predictions")
-    os.makedirs(pred_dir, exist_ok=True)
+    if mesh.is_main():
+        os.makedirs(pred_dir, exist_ok=True)
     loaded = []
 
     def _images():
@@ -95,6 +102,8 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
         # the device runs volumes i+1..i+3 while the host scores volume i
         for i, pred in enumerate(evaluator.predict_volumes(_images())):
             image, label = loaded[i]
+            if not mesh.is_main():
+                continue
             totals += np.asarray(evaluator.metrics_for(pred, label))
             name = case_name(ds, i)
             dumps.write([os.path.join(pred_dir, f"{name}_{t}.nii.gz")
@@ -102,6 +111,8 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
                         (pred, image, label), spacing=(1.0, 1.0, 10.0))
     finally:
         dumps.close()
+    if not mesh.is_main():
+        return None
     avg = totals / len(ds)
     print([avg[c] for c in range(avg.shape[0])])
     print(avg.mean(axis=0))

@@ -15,12 +15,14 @@ import os
 
 import numpy as np
 
-from bcp_tpu_torch.cli.common import ResultWriter, load_eval_model
+from bcp_tpu_torch.cli.common import (ResultWriter, load_eval_model,
+                                      on_ranks, ranks)
 from bcp_tpu_torch.config import la_config
 from bcp_tpu_torch.data.datasets import LAHeartDataset
 from bcp_tpu_torch.eval.metrics import (calculate_metric_percase,
                                         host_largest_cc)
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
+from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.checkpoints import best_model_path, snapshot_dir
 
 
@@ -40,7 +42,7 @@ def build_parser():
     p.add_argument("--stride_xy", type=int, default=18)
     p.add_argument("--stride_z", type=int, default=4)
     p.add_argument("--eval_batch", type=int, default=8)
-    # multi-GPU evaluation comes with a later slice
+    # data-parallel ranks, one card each (-1: every visible card)
     p.add_argument("--num_devices", type=int, default=1)
     p.add_argument("--patch_size", type=int, nargs=3,
                    default=[112, 112, 80])
@@ -52,9 +54,6 @@ def build_parser():
 
 def build_evaluator(args, device=None):
     """(cfg, evaluator) of the parsed flags, weights loaded."""
-    if args.num_devices not in (0, 1):
-        raise SystemExit("error: the port evaluates on one device; "
-                         "--num_devices > 1 comes with the multi-GPU slice")
     cfg = la_config(labelnum=args.labelnum).replace(
         root_path=args.root_path, exp=args.exp, net_type=args.model,
         snapshot_root=args.snapshot_root, stride_xy=args.stride_xy,
@@ -64,7 +63,8 @@ def build_evaluator(args, device=None):
     ckpt = best_model_path(snapshot_dir(cfg, args.stage_name), cfg.net_type)
     model = load_eval_model(cfg, ckpt, torch_ckpt=args.torch_ckpt,
                             device=device)
-    print(f"init weight from {args.torch_ckpt or ckpt}")
+    if mesh.is_main():
+        print(f"init weight from {args.torch_ckpt or ckpt}")
     evaluator = SlidingWindowEvaluator(
         model, cfg.patch_size, cfg.num_classes, cfg.stride_xy,
         cfg.stride_z, batch=cfg.eval_batch, device=device)
@@ -77,12 +77,20 @@ def test_calculate_metric(args, dataset=None, device=None):
     ``--save_result 1`` each case's NMS'd prediction, image and label go
     to ``<snapshot>/<model>_predictions/%02d_{pred,img,gt}.nii.gz``
     (float32, `utils/test_3d_patch.py:67-72`), written in the background
-    while the next volume is evaluated, complete when this returns."""
+    while the next volume is evaluated, complete when this returns.
+    With ``--num_devices N > 1`` it runs on N spawned ranks (the evaluator
+    shards each volume over them); rank 0 prints, writes and returns."""
+    return on_ranks(_test_rank, ranks(args), device or args.device,
+                    args, dataset, device)
+
+
+def _test_rank(args, dataset, device):
     cfg, evaluator = build_evaluator(args, device)
     ds = dataset if dataset is not None else LAHeartDataset(cfg.root_path,
                                                             "test")
     out_dir = snapshot_dir(cfg, f"{cfg.net_type}_predictions")
-    os.makedirs(out_dir, exist_ok=True)
+    if mesh.is_main():
+        os.makedirs(out_dir, exist_ok=True)
     total = np.zeros(4)
     loaded = []
 
@@ -97,6 +105,8 @@ def test_calculate_metric(args, dataset=None, device=None):
         for ith, pred in enumerate(evaluator.infer_cases(
                 _images(), rule=cfg.eval_rule)):
             image, label = loaded[ith]
+            if not mesh.is_main():
+                continue
             if args.nms:
                 pred = host_largest_cc(pred)
             if pred.sum() == 0:
@@ -111,6 +121,8 @@ def test_calculate_metric(args, dataset=None, device=None):
             total += np.asarray(m)
     finally:
         dumps.close()
+    if not mesh.is_main():
+        return None
     avg = total / len(ds)
     print(f"average metric is {avg}")
     with open(os.path.join(out_dir, "..", "performance.txt"), "w") as f:

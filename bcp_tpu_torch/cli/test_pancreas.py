@@ -19,12 +19,14 @@ import os
 
 import numpy as np
 
-from bcp_tpu_torch.cli.common import ResultWriter, load_eval_model
+from bcp_tpu_torch.cli.common import (ResultWriter, load_eval_model,
+                                      on_ranks, ranks)
 from bcp_tpu_torch.config import pancreas_config
 from bcp_tpu_torch.data.datasets import PancreasDataset
 from bcp_tpu_torch.data.transforms import pancreas_test_transform
 from bcp_tpu_torch.eval.metrics import calculate_metric_percase
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
+from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.checkpoints import best_model_path, snapshot_dir
 
 
@@ -40,7 +42,7 @@ def build_parser():
     p.add_argument("--stride_z", type=int, default=4)
     p.add_argument("--detail", type=int, default=1)
     p.add_argument("--save_result", type=int, default=0)
-    # multi-GPU evaluation comes with ROADMAP A4
+    # data-parallel ranks, one card each (-1: every visible card)
     p.add_argument("--num_devices", type=int, default=1)
     p.add_argument("--device", type=str, default="cuda")
     return p
@@ -48,10 +50,6 @@ def build_parser():
 
 def build_evaluator(args, device=None):
     """(cfg, evaluator) of the parsed flags, weights loaded."""
-    if args.num_devices not in (0, 1):
-        raise SystemExit("error: the port evaluates on one device; "
-                         "--num_devices > 1 comes with the multi-GPU slice "
-                         "(ROADMAP A4)")
     cfg = pancreas_config(label_percent=args.label_percent).replace(
         root_path=args.data_root, snapshot_root=args.snapshot_root,
         stride_xy=args.stride_xy, stride_z=args.stride_z)
@@ -59,7 +57,8 @@ def build_evaluator(args, device=None):
     ckpt = best_model_path(snapshot_dir(cfg, args.stage_name), cfg.net_type)
     model = load_eval_model(cfg, ckpt, torch_ckpt=args.torch_ckpt,
                             device=device)
-    print(f"init weight from {args.torch_ckpt or ckpt}")
+    if mesh.is_main():
+        print(f"init weight from {args.torch_ckpt or ckpt}")
     return cfg, SlidingWindowEvaluator(
         model, cfg.patch_size, cfg.num_classes, cfg.stride_xy, cfg.stride_z,
         batch=cfg.eval_batch, device=device)
@@ -71,14 +70,21 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
     (dice, jc, hd95, asd). With ``--save_result 1`` each centre-cropped
     volume's prediction, image and label go to
     ``<snapshot>/predictions/%02d_{pred,img,gt}.nii.gz`` (float32),
-    written in the background, complete when this returns."""
+    written in the background, complete when this returns.
+    With ``--num_devices N > 1`` it runs on N spawned ranks (the evaluator
+    shards each volume over them); rank 0 prints, writes and returns."""
+    return on_ranks(_test_rank, ranks(args), device or args.device,
+                    args, dataset, device)
+
+
+def _test_rank(args, dataset, device):
     cfg, evaluator = build_evaluator(args, device)
     ds = dataset if dataset is not None else PancreasDataset(
         cfg.root_path, "test", cache=False)
     total = np.zeros(4)
     pred_dir = os.path.join(snapshot_dir(cfg, args.stage_name),
                             "predictions")
-    if args.save_result:
+    if args.save_result and mesh.is_main():
         os.makedirs(pred_dir, exist_ok=True)
     loaded = []
 
@@ -94,6 +100,8 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
         for i, pred in enumerate(evaluator.infer_cases(
                 _images(), rule="argmax", depth=3)):
             image, label = loaded[i]
+            if not mesh.is_main():
+                continue
             m = ((0.0, 0.0, 0.0, 0.0) if pred.sum() == 0
                  else calculate_metric_percase(pred, label))
             if args.detail:
@@ -104,6 +112,8 @@ def test_calculate_metric(args, dataset=None, device=None) -> np.ndarray:
             total += np.asarray(m)
     finally:
         dumps.close()
+    if not mesh.is_main():
+        return None
     avg = total / len(ds)
     print(f"average metric is {avg}")
     return avg

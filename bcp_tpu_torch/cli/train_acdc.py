@@ -9,17 +9,20 @@ state, the pre-train stage's optimizer carried into self-train, the train
 slices on the device (``--device_data_cache 1``), validation in the
 background; ``--resume`` goes on from each stage's last saved state;
 ``--steps_per_dispatch K`` makes K updates per host visit, as CUDA graph
-replays on the card (``train.graphs``).
+replays on the card (``train.graphs``); ``--num_devices N`` trains
+data-parallel on N cards (``cli.train_la`` says how), the slices on the
+host feed.
 
-Not ported yet, and refused with the ROADMAP item that brings it: more
-than one device (``--num_devices``, ``--sp_devices``).
+Not ported yet, and refused with the ROADMAP item that brings it:
+spatial partitioning (``--sp_devices``). The JAX CLI has no ``--remat``
+(remat targets the V-Net pipelines).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from bcp_tpu_torch.cli.train_la import _devices, run_stages
+from bcp_tpu_torch.cli.common import ranks, train_on_ranks
 from bcp_tpu_torch.config import acdc_config
 from bcp_tpu_torch.train.trainer import BCPTrainer
 
@@ -49,14 +52,15 @@ def build_parser():
                    help="resume each stage from its last saved state if "
                         "present")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="the port trains on one device (ROADMAP A4)")
+                   help="data-parallel ranks, one card each (-1: every "
+                        "visible card); the global batch scales with them")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="K updates per host visit, run as CUDA graph "
                         "replays on the card (K eager steps on the CPU); "
                         "eval_every and each stage's iterations must be "
                         "multiples of K")
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="the port trains on one device (ROADMAP A4)")
+                   help="spatial partitioning: not ported (ROADMAP A4)")
     p.add_argument("--device_data_cache", type=int, default=1,
                    help="keep the train slices on the device and augment "
                         "there; 0 = host feed")
@@ -64,21 +68,10 @@ def build_parser():
     return p
 
 
-def _refuse(args) -> None:
-    refused = [
-        (_devices(args.num_devices) != 1, "--num_devices != 1: the port "
-         "trains on one device (ROADMAP A4, multi-GPU)"),
-        (args.sp_devices != 1, "--sp_devices != 1: spatial partitioning is "
-         "not ported (ROADMAP A4, multi-GPU)"),
-    ]
-    for bad, why in refused:
-        if bad:
-            raise SystemExit(f"error: {why}")
-
-
 def config_from_args(args, **overrides):
     """The ACDC config of the parsed flags; ``overrides`` set other fields
     (e.g. a small ``patch_size`` or ``n_filters`` for a test run)."""
+    n = ranks(args)
     return acdc_config(labelnum=args.labelnum).replace(
         root_path=args.root_path, exp=args.exp, net_type=args.model,
         pre_iterations=args.pre_iterations,
@@ -88,7 +81,8 @@ def config_from_args(args, **overrides):
         u_weight=args.u_weight, consistency=args.consistency,
         consistency_rampup=args.consistency_rampup,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        device_data_cache=bool(args.device_data_cache),
+        num_devices=n,
+        device_data_cache=bool(args.device_data_cache) and n == 1,
         steps_per_dispatch=args.steps_per_dispatch).replace(**overrides)
 
 
@@ -98,7 +92,6 @@ def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,
     ``SliceList``) and ``val_cases`` ((image, label) volumes) replace the h5
     reads of ``--root_path`` and ``on_step`` is the trainer's per-iteration
     hook (see ``BCPTrainer``)."""
-    _refuse(args)
     cfg = config_from_args(args, **overrides)
     return BCPTrainer(cfg, device=args.device, train_dataset=train_dataset,
                       val_cases=val_cases, on_step=on_step)
@@ -107,10 +100,10 @@ def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,
 def train(args, train_dataset=None, val_cases=None, on_step=None,
           **overrides):
     """:func:`build_trainer`, then the stages of ``--stage``. Returns
-    (trainer, {stage: (best dice, best .pth path)})."""
-    trainer = build_trainer(args, train_dataset, val_cases, on_step,
-                            **overrides)
-    return trainer, run_stages(trainer, args)
+    (trainer, {stage: (best dice, best .pth path)}); with ``--num_devices
+    N > 1`` on N ranks (``cli.common.train_on_ranks``), the trainer None."""
+    return train_on_ranks("bcp_tpu_torch.cli.train_acdc", args,
+                          train_dataset, val_cases, on_step, overrides)
 
 
 def main(argv=None):

@@ -9,18 +9,21 @@ As in the JAX CLI the training volumes live on the device
 (the JAX package's ``BCP_FUSED_BWD=1``) computes every eligible 3^3 conv's
 dx and dW in the one fused backward kernel. ``--steps_per_dispatch K``
 makes K updates per host visit, as CUDA graph replays on the card
-(``train.graphs``).
+(``train.graphs``). ``--num_devices N`` trains data-parallel on N cards
+(``parallel.mesh``; the CLI spawns one rank a card; ``--device cpu``: N
+gloo processes): every rank holds the reference batch, the global batch is
+N times it, and the training volumes stay on the host feed.
+``--remat 1`` recomputes each V-Net block's activations in the backward.
 
-Not ported yet, and refused with the ROADMAP item that brings them: more
-than one device (``--num_devices``, ``--sp_devices``) and ``--remat 1``.
+Not ported yet, and refused with the ROADMAP item that brings it:
+spatial partitioning (``--sp_devices``).
 """
 
 from __future__ import annotations
 
 import argparse
 
-import torch
-
+from bcp_tpu_torch.cli.common import ranks, run_stages, train_on_ranks
 from bcp_tpu_torch.config import la_config
 from bcp_tpu_torch.train.trainer import BCPTrainer
 
@@ -51,11 +54,13 @@ def build_parser():
                    help="resume each stage from its last saved state if "
                         "present")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="the port trains on one device (ROADMAP A4)")
+                   help="data-parallel ranks, one card each (-1: every "
+                        "visible card); the global batch scales with them")
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="the port trains on one device (ROADMAP A4)")
+                   help="spatial partitioning: not ported (ROADMAP A4)")
     p.add_argument("--remat", type=int, default=0,
-                   help="not ported yet (ROADMAP A4: remat)")
+                   help="1: recompute each V-Net block's activations in "
+                        "the backward (less memory, a second forward)")
     p.add_argument("--device_data_cache", type=int, default=1,
                    help="keep the training volumes on the device and crop/"
                         "augment there (~2-3 GB in bf16); 0 = host feed")
@@ -72,27 +77,12 @@ def build_parser():
     return p
 
 
-def _devices(n: int) -> int:
-    """``-1`` means every visible card, as in the JAX CLI."""
-    return max(torch.cuda.device_count(), 1) if n == -1 else n
-
-
-def _refuse(args) -> None:
-    refused = [
-        (_devices(args.num_devices) != 1, "--num_devices != 1: the port "
-         "trains on one device (ROADMAP A4, multi-GPU)"),
-        (args.sp_devices != 1, "--sp_devices != 1: spatial partitioning is "
-         "not ported (ROADMAP A4, multi-GPU)"),
-        (bool(args.remat), "--remat 1 is not ported (ROADMAP A4, remat)"),
-    ]
-    for bad, why in refused:
-        if bad:
-            raise SystemExit(f"error: {why}")
-
-
 def config_from_args(args, **overrides):
     """The LA config of the parsed flags; ``overrides`` set other fields
-    (e.g. a small ``patch_size`` or ``n_filters`` for a test run)."""
+    (e.g. a small ``patch_size`` or ``n_filters`` for a test run). With
+    several ranks the training volumes stay on the host feed, as in the
+    JAX CLI (`train_la.py:73-74`)."""
+    n = ranks(args)
     return la_config(labelnum=args.labelnum).replace(
         root_path=args.root_path, exp=args.exp, net_type=args.model,
         pre_iterations=args.pre_max_iteration,
@@ -103,40 +93,29 @@ def config_from_args(args, **overrides):
         consistency_rampup=args.consistency_rampup,
         u_weight=args.u_weight, mask_ratio=args.mask_ratio,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        device_data_cache=bool(args.device_data_cache),
+        num_devices=n, remat=bool(args.remat),
+        device_data_cache=bool(args.device_data_cache) and n == 1,
         steps_per_dispatch=args.steps_per_dispatch,
         fused_bwd=bool(args.fused_bwd)).replace(**overrides)
 
 
 def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,
                   **overrides) -> BCPTrainer:
-    """The trainer of the parsed flags; ``train_dataset`` / ``val_cases``
-    replace the h5 reads of ``--root_path`` and ``on_step`` is the
-    trainer's per-iteration hook (see ``BCPTrainer``)."""
-    _refuse(args)
+    """The trainer of the parsed flags (one rank's); ``train_dataset`` /
+    ``val_cases`` replace the h5 reads of ``--root_path`` and ``on_step``
+    is the trainer's per-iteration hook (see ``BCPTrainer``)."""
     cfg = config_from_args(args, **overrides)
     return BCPTrainer(cfg, device=args.device, train_dataset=train_dataset,
                       val_cases=val_cases, on_step=on_step)
 
 
-def run_stages(trainer: BCPTrainer, args):
-    """Run the stages of ``--stage``: {stage: (best dice, best .pth)}."""
-    print("Starting BCP training.")
-    out = {}
-    if args.stage in ("both", "pre"):
-        out["pre"] = trainer.pretrain(resume=args.resume)
-    if args.stage in ("both", "self"):
-        out["self"] = trainer.selftrain(resume=args.resume)
-    return out
-
-
 def train(args, train_dataset=None, val_cases=None, on_step=None,
           **overrides):
-    """:func:`build_trainer`, then :func:`run_stages`. Returns (trainer,
-    {stage: (best dice, best .pth path)})."""
-    trainer = build_trainer(args, train_dataset, val_cases, on_step,
-                            **overrides)
-    return trainer, run_stages(trainer, args)
+    """:func:`build_trainer`, then ``run_stages``. Returns (trainer,
+    {stage: (best dice, best .pth path)}); with ``--num_devices N > 1`` on
+    N ranks (``cli.common.train_on_ranks``), the trainer None."""
+    return train_on_ranks("bcp_tpu_torch.cli.train_la", args, train_dataset,
+                          val_cases, on_step, overrides)
 
 
 def main(argv=None):

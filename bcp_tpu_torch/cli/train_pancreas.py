@@ -13,17 +13,20 @@ background. Epochs become iterations through the feed's epoch length
 (``--pretraining_epochs`` x 30 and ``--self_training_epochs`` x 25 on the
 reference's lists at 20 %); ``--resume`` goes on from each stage's last
 saved state; ``--steps_per_dispatch K`` makes K updates per host visit, as
-CUDA graph replays on the card (``train.graphs``).
+CUDA graph replays on the card (``train.graphs``); ``--num_devices N``
+trains data-parallel on N cards (``cli.train_la`` says how), the volumes on
+the host feed and the epochs N times shorter; ``--remat 1`` recomputes each
+V-Net block's activations in the backward.
 
-Not ported yet, and refused with the ROADMAP item that brings them: more
-than one device (``--num_devices``, ``--sp_devices``) and ``--remat 1``.
+Not ported yet, and refused with the ROADMAP item that brings it:
+spatial partitioning (``--sp_devices``).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from bcp_tpu_torch.cli.train_la import _refuse, run_stages
+from bcp_tpu_torch.cli.common import ranks, train_on_ranks
 from bcp_tpu_torch.config import pancreas_config
 from bcp_tpu_torch.data.datasets import PancreasDataset
 from bcp_tpu_torch.data.feed import pancreas_steps_per_epoch
@@ -50,16 +53,18 @@ def build_parser():
                    help="resume each stage from its last saved state if "
                         "present")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="the port trains on one device (ROADMAP A4)")
+                   help="data-parallel ranks, one card each (-1: every "
+                        "visible card); the global batch scales with them")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="K updates per host visit, run as CUDA graph "
                         "replays on the card (K eager steps on the CPU); "
                         "eval_every and each stage's iterations must be "
                         "multiples of K")
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="the port trains on one device (ROADMAP A4)")
+                   help="spatial partitioning: not ported (ROADMAP A4)")
     p.add_argument("--remat", type=int, default=0,
-                   help="not ported yet (ROADMAP A4: remat)")
+                   help="1: recompute each V-Net block's activations in "
+                        "the backward (less memory, a second forward)")
     p.add_argument("--device_data_cache", type=int, default=1,
                    help="keep the train volumes on the device and crop "
                         "there; 0 = host feed")
@@ -72,21 +77,25 @@ def config_from_args(args, train_dataset=None, **overrides):
     times the feed's epoch length on ``train_dataset`` (the (labelled,
     unlabelled) lists under ``--data_root`` when None); ``overrides`` set
     other fields last (e.g. a small ``patch_size`` or ``n_filters`` for a
-    test run)."""
+    test run). With N ranks an epoch is the feed's epoch of N-times-wider
+    streams."""
+    n = ranks(args)
     cfg = pancreas_config(label_percent=args.label_percent).replace(
         root_path=args.data_root, base_lr=args.lr, seed=args.seed,
         batch_size=4 * args.batch_size, labeled_bs=2 * args.batch_size,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        device_data_cache=bool(args.device_data_cache),
+        num_devices=n, remat=bool(args.remat),
+        device_data_cache=bool(args.device_data_cache) and n == 1,
         steps_per_dispatch=args.steps_per_dispatch)
     lists = train_dataset or tuple(
         PancreasDataset(cfg.root_path, split, cache=False)
         for split in ("train_lab", "train_unlab"))
     return cfg.replace(
         pre_iterations=args.pretraining_epochs * pancreas_steps_per_epoch(
-            cfg, "pre", lists),
+            cfg, "pre", lists, n),
         self_iterations=args.self_training_epochs
-        * pancreas_steps_per_epoch(cfg, "self", lists)).replace(**overrides)
+        * pancreas_steps_per_epoch(cfg, "self", lists, n)).replace(
+            **overrides)
 
 
 def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,
@@ -96,7 +105,6 @@ def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,
     label) test volumes, centre-cropped by the trainer) replace the h5
     reads of ``--data_root`` and ``on_step`` is the trainer's
     per-iteration hook (see ``BCPTrainer``)."""
-    _refuse(args)
     cfg = config_from_args(args, train_dataset, **overrides)
     return BCPTrainer(cfg, device=args.device, train_dataset=train_dataset,
                       val_cases=val_cases, on_step=on_step)
@@ -105,10 +113,10 @@ def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,
 def train(args, train_dataset=None, val_cases=None, on_step=None,
           **overrides):
     """:func:`build_trainer`, then the stages of ``--stage``. Returns
-    (trainer, {stage: (best dice, best .pth path)})."""
-    trainer = build_trainer(args, train_dataset, val_cases, on_step,
-                            **overrides)
-    return trainer, run_stages(trainer, args)
+    (trainer, {stage: (best dice, best .pth path)}); with ``--num_devices
+    N > 1`` on N ranks (``cli.common.train_on_ranks``), the trainer None."""
+    return train_on_ranks("bcp_tpu_torch.cli.train_pancreas", args,
+                          train_dataset, val_cases, on_step, overrides)
 
 
 def main(argv=None):

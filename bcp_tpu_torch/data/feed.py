@@ -37,6 +37,16 @@ With ``side_labels`` an ACDC self-train batch also holds ``ulab_a`` /
 ``ulab_b``, the unlabelled slices' true labels (uint8, K-stacked too;
 `feed.py:233-237,286-296,388-396`), for the trainer's image snapshots;
 off (the default) the feed builds and copies nothing more.
+
+``data_scale=N`` (`feed.py:59-80,123-140`) widens every stream by N for a
+world of N ranks: the global batch is N reference batches and an epoch
+(LA's and ACDC's labelled pass, pancreas' zipped streams) N times shorter.
+Every rank runs the same feeder from the same seed and, with ``rank``,
+keeps rows ``[r*b, (r+1)*b)`` of each stream (``mesh.shard_rows``, the
+JAX package's batch sharding; on the K-stacked batch the rows of each
+iteration), before the copy to its device. Without ``rank`` the feeder
+yields the global batch. The device store is a one-device path: it is
+refused for ``data_scale`` > 1, as in the JAX package (`feed.py:92-95`).
 """
 
 from __future__ import annotations
@@ -67,15 +77,18 @@ def labeled_count(cfg: Config) -> int:
     return cfg.labelnum
 
 
-def pancreas_steps_per_epoch(cfg: Config, stage: str, dataset) -> int:
+def pancreas_steps_per_epoch(cfg: Config, stage: str, dataset,
+                             data_scale: int = 1) -> int:
     """Batches of a pancreas epoch (`feed.py:146-153`): of the oversampled
     labelled stream in pre-train, of the shorter of it and the unlabelled
-    stream in self-train (the reference zips its loaders). ``dataset`` is
-    the (labelled, unlabelled) pair of case lists."""
+    stream in self-train (the reference zips its loaders), each stream
+    ``data_scale`` times wider. ``dataset`` is the (labelled, unlabelled)
+    pair of case lists."""
     lab, unlab = dataset
-    n = lab.n_raw * cfg.labeled_oversample // cfg.labeled_sub_bs
+    n = lab.n_raw * cfg.labeled_oversample // (cfg.labeled_sub_bs
+                                               * data_scale)
     if stage == "self":
-        n = min(n, unlab.n_raw // cfg.unlabeled_sub_bs)
+        n = min(n, unlab.n_raw // (cfg.unlabeled_sub_bs * data_scale))
     return max(n, 1)
 
 
@@ -105,11 +118,14 @@ class BCPBatchFeeder:
     of one run, so the second stage reuses the first stage's store instead
     of uploading it again (`feed.py:71-76`). ``stack=K`` yields K
     iterations' batches a call, leading-stacked. ``side_labels`` adds ACDC's
-    ``ulab_a`` / ``ulab_b`` to self-train batches."""
+    ``ulab_a`` / ``ulab_b`` to self-train batches. ``data_scale`` widens
+    every stream for a world of that many ranks, and ``rank`` keeps that
+    rank's rows of each (module docstring)."""
 
     def __init__(self, cfg: Config, stage: str, dataset, device=None,
                  store_cache: Optional[dict] = None, stack: int = 1,
-                 side_labels: bool = False):
+                 side_labels: bool = False, data_scale: int = 1,
+                 rank: Optional[int] = None):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
         self.cfg = cfg
@@ -117,6 +133,12 @@ class BCPBatchFeeder:
         self.side_labels = (side_labels and cfg.variant == "acdc"
                             and stage == "self")
         self.stack = max(int(stack), 1)
+        self.scale = max(int(data_scale), 1)
+        self.rank = rank
+        if cfg.device_data_cache and self.scale > 1:
+            raise ValueError("device_data_cache is a single-device "
+                             "optimisation; use the host feed with several "
+                             "ranks")
         self.dataset = dataset
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
@@ -127,10 +149,12 @@ class BCPBatchFeeder:
         else:
             n_lab = labeled_count(cfg)
             total = len(dataset)
-            self.steps_per_epoch = max(n_lab // cfg.labeled_bs, 1)
+            self.steps_per_epoch = max(
+                n_lab // (cfg.labeled_bs * self.scale), 1)
             self._index_stream = two_stream_batches(
                 list(range(n_lab)), list(range(n_lab, total)),
-                cfg.batch_size, cfg.unlabeled_bs, seed=cfg.seed)
+                cfg.batch_size * self.scale, cfg.unlabeled_bs * self.scale,
+                seed=cfg.seed)
         self._store = None
         self._unlab_store = None
         self.store_init_s = 0.0
@@ -154,9 +178,10 @@ class BCPBatchFeeder:
         self.lab_b = lab.variant(cfg.labeled_oversample, reverse=True)
         self.unlab_a = unlab.variant()
         self.unlab_b = unlab.variant(reverse=True)
-        per, un = cfg.labeled_sub_bs, cfg.unlabeled_sub_bs
+        per = cfg.labeled_sub_bs * self.scale
+        un = cfg.unlabeled_sub_bs * self.scale
         self.steps_per_epoch = pancreas_steps_per_epoch(cfg, self.stage,
-                                                        dataset)
+                                                        dataset, self.scale)
         n_lab, n_unlab = len(self.lab_a), len(self.unlab_a)
 
         def stream():
@@ -332,12 +357,13 @@ class BCPBatchFeeder:
         return batch
 
     def build(self) -> Dict[str, np.ndarray]:
-        """The next batch on the host, f32 images (`feed.py:258-301`)."""
+        """The next global batch on the host, f32 images
+        (`feed.py:258-301`)."""
         cfg = self.cfg
         lab_idx, unlab_idx = next(self._index_stream)
         if cfg.variant == "pancreas":
             return self._build_pancreas(lab_idx, unlab_idx)
-        sub = cfg.labeled_sub_bs
+        sub = cfg.labeled_sub_bs * self.scale
         samples = [self.dataset.sample_train(i, cfg.patch_size, self.rng)
                    for i in lab_idx]
         batch = {}
@@ -346,7 +372,7 @@ class BCPBatchFeeder:
             batch[f"lab_{key}"] = np.stack([s[1] for s in part]).astype(
                 np.uint8)
         if self.stage == "self":
-            usub = cfg.unlabeled_sub_bs
+            usub = cfg.unlabeled_sub_bs * self.scale
             usamples = [self.dataset.sample_train(i, cfg.patch_size,
                                                   self.rng)
                         for i in unlab_idx]
@@ -362,7 +388,13 @@ class BCPBatchFeeder:
     def _host_tensors(self, batch) -> Dict[str, torch.Tensor]:
         out = {}
         for k, v in batch.items():
-            t = torch.from_numpy(v)
+            if self.rank is not None:
+                # this rank's rows of the stream (of each iteration's)
+                b = v.shape[self.stack > 1] // self.scale
+                v = (v[:, self.rank * b:(self.rank + 1) * b]
+                     if self.stack > 1 else
+                     v[self.rank * b:(self.rank + 1) * b])
+            t = torch.from_numpy(np.ascontiguousarray(v))
             if k.startswith(("img", "uimg")):
                 t = t.to(self.img_dtype)
             out[k] = t.pin_memory() if self.device.type == "cuda" else t

@@ -15,6 +15,12 @@ The JAX package pads the slice count to a bucket only so that XLA compiles
 a few programs; eval-mode BatchNorm treats each slice on its own, so the
 port, which compiles nothing per shape, runs the real slices alone and
 gives the same labels.
+
+In a world of N ranks (``parallel.mesh``) a volume's slices are padded
+with zero slices to a multiple of N and split into N contiguous blocks,
+as the JAX evaluator shards its bucket over the mesh
+(`slice2d.py:25-40`): rank r forwards block r, and the uint8 labels of
+all blocks are gathered on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from scipy import ndimage
 
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.eval import metrics as M
+from bcp_tpu_torch.parallel import mesh
 
 
 class Slice2DEvaluator:
@@ -49,10 +56,17 @@ class Slice2DEvaluator:
     def _prepare(self, image: np.ndarray, cache_token=None) -> torch.Tensor:
         if cache_token is not None and cache_token in self._prep_cache:
             return self._prep_cache[cache_token]
-        _, x, y = image.shape
+        n, x, y = image.shape
         zoomed = ndimage.zoom(
             image, (1.0, self.patch[0] / x, self.patch[1] / y),
             order=0).astype(np.float32)
+        W = mesh.world_size()
+        if W > 1:
+            # this rank's block of the slices padded to a multiple of N
+            per = -(-n // W)
+            zoomed = np.concatenate([zoomed, np.zeros(
+                (per * W - n, *zoomed.shape[1:]), np.float32)])
+            zoomed = zoomed[mesh.rank() * per:(mesh.rank() + 1) * per]
         x_dev = torch.from_numpy(zoomed[:, None]).to(self.device)
         if cache_token is not None:
             self._prep_cache[cache_token] = x_dev
@@ -68,6 +82,8 @@ class Slice2DEvaluator:
         logits = self.model(x_dev)[0]
         label = torch.argmax(torch.softmax(logits, dim=1), dim=1).to(
             torch.uint8)
+        if mesh.world_size() > 1:
+            label = mesh.gather_rows(label)[:np.shape(image)[0]]
         event = None
         if self.device.type == "cuda":
             host = torch.empty(label.shape, dtype=torch.uint8,

@@ -16,6 +16,14 @@ Counterpart of ``bcp_tpu/eval/sliding_window.py``:
   on the host and kept on the device;
 - then ``score / cnt`` and the reference's decision rule.
 
+In a world of several ranks (``parallel.mesh``) a chunk holds ``batch``
+windows per rank, as the JAX evaluator's sharded chunks do
+(`sliding_window.py:77-99,179-212`): rank r forwards windows ``[r*batch,
+(r+1)*batch)`` of each chunk and overlap-adds their softmax with kernel A
+into a score map of its own, and one all-reduce a volume sums the maps on
+every rank. A rank whose share of the padded last chunk holds no real
+window skips it; the JAX package runs it and adds zeros.
+
 The window grid is byte-identical to the reference (`test_3d_patch.py:
 109-121`). The JAX package also pads each volume up to a shape bucket, only
 to bound how many programs XLA compiles; no window ever reaches that
@@ -34,6 +42,7 @@ import torch
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.eval import metrics as M
 from bcp_tpu_torch.ops.scatter import softmax_scatter_add_windows
+from bcp_tpu_torch.parallel import mesh
 
 
 def window_starts(vol_shape: Sequence[int], patch: Sequence[int],
@@ -125,12 +134,16 @@ class SlidingWindowEvaluator:
                             device=self.device)
         B = self.batch
         n = starts.shape[0]
-        n_chunks = math.ceil(n / B)
-        pad_n = n_chunks * B - n
+        chunk = B * mesh.world_size()       # the windows of all ranks
+        n_chunks = math.ceil(n / chunk)
+        pad_n = n_chunks * chunk - n
         all_starts = np.concatenate([starts, np.zeros((pad_n, 3), np.int32)])
         for c in range(n_chunks):
-            self._process_chunk(volume, all_starts[c * B:(c + 1) * B],
-                                min(B, n - c * B), score)
+            lo = c * chunk + mesh.rank() * B
+            if lo < n:
+                self._process_chunk(volume, all_starts[lo:lo + B],
+                                    min(B, n - lo), score)
+        mesh.all_reduce_(score)
         score /= cnt[..., None]
         if rule == "argmax":
             label = torch.argmax(score, dim=-1).to(torch.uint8)

@@ -10,7 +10,10 @@ import every module and have neither ``nvcc`` nor a card.
 
 The library name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt
-and a stale library is never loaded.
+and a stale library is never loaded. A build is written to a temporary
+name and moved into place, so a concurrent loader sees all or nothing; in
+a world of several ranks rank 0 builds before the others load
+(:func:`build_for_world`).
 """
 
 from __future__ import annotations
@@ -114,6 +117,17 @@ def build_all() -> float:
         if st is not None:
             _finish_build(name, st)
     return time.perf_counter() - t0
+
+
+def build_for_world() -> None:
+    """In a world of several ranks on one host (``parallel.mesh``): rank 0
+    compiles every source while the others wait at a barrier, then each
+    loads the libraries at first use, instead of N concurrent ``nvcc``
+    runs of every source."""
+    from bcp_tpu_torch.parallel import mesh
+    if mesh.is_main():
+        build_all()
+    mesh.barrier()
 
 
 _BUILD_LOCK = threading.Lock()

@@ -20,6 +20,10 @@ def _unet(class_num: int, mode: str, n_filters=None, **kw):
     if kw.pop("fused_bwd", False):
         raise ValueError("fused_bwd is the V-Net's 3^3 conv backward; the "
                          "2-D U-Net's convs are cuDNN's")
+    if kw.pop("remat", False):
+        # the JAX trainer's refusal (`trainer.py:177-182`)
+        raise ValueError("remat targets the V-Net pipelines; "
+                         "net_type='unet' has no remat support")
     if n_filters:
         kw["feature_chns"] = tuple(n_filters * 2 ** i for i in range(5))
     return UNet2D(n_classes=class_num, **kw)

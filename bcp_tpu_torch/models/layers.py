@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bcp_tpu_torch.ops.conv3d import Conv3x3x3Function, kernel_takes
+from bcp_tpu_torch.parallel import mesh
 
 
 def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -119,7 +120,14 @@ class TorchBatchNorm(nn.Module):
     after another with momentum 0.9 (torch's 0.1) and the unbiased
     variance, unless ``update_running`` is off (the teacher's forward,
     :func:`frozen_running_stats`); ``num_batches_tracked`` counts one per
-    group, as the reference's one forward per sub-batch does."""
+    group, as the reference's one forward per sub-batch does.
+
+    In a world of several ranks (``parallel.mesh``) group g of the global
+    batch is the union of every rank's group g: its mean and E[x^2] are
+    the mean over the ranks of each rank's (``mesh.mean_statistics``,
+    whose backward sums the gradient over the ranks), and the unbiased
+    variance counts the global rows, as the JAX package's statistics over
+    the sharded global batch do."""
 
     momentum = 0.9
 
@@ -164,6 +172,10 @@ class TorchBatchNorm(nn.Module):
         xf = xg.to(sdt)
         mean_g = xf.mean(dim=red)                       # (G, C)
         mean2_g = xf.square().mean(dim=red)
+        if mesh.active():
+            # group g of the global batch is every rank's group g
+            mean_g, mean2_g = mesh.mean_statistics(
+                torch.stack([mean_g, mean2_g])).unbind(0)
         var_g = torch.clamp(mean2_g - mean_g.square(), min=0.0)
         inv_g = torch.rsqrt(var_g + self.eps)
         scale = self.weight.to(sdt)[None]
@@ -172,7 +184,7 @@ class TorchBatchNorm(nn.Module):
         shape_g = (G, 1, -1) + (1,) * (xg.dim() - 3)
         y = (xg * mul.view(shape_g) + add.view(shape_g)).reshape(x.shape)
         if self.update_running:
-            count = xg[0, :, 0].numel()
+            count = xg[0, :, 0].numel() * mesh.world_size()
             with torch.no_grad():
                 var_u = var_g * (count / max(count - 1, 1))
                 m = self.momentum
@@ -211,17 +223,35 @@ class InstanceNorm(nn.Module):
         return torch.addcmul((-mean * rstd).to(x.dtype), x, rstd.to(x.dtype))
 
 
+def draw_uniform(shape: Sequence[int], generator: Optional[torch.Generator],
+                 device, groups: int = 1) -> torch.Tensor:
+    """``torch.rand(shape, generator=generator)`` of one forward's rows.
+    In a world of several ranks the draw is made for the global batch
+    (``groups`` concatenated sub-batches, every rank's rows of each) and
+    this rank keeps its rows (``mesh.rank_rows``), so the masks are those
+    a one-device run draws for the global batch."""
+    shape = tuple(shape)
+    if not mesh.active():
+        return torch.rand(shape, generator=generator, device=device)
+    u = torch.rand((shape[0] * mesh.world_size(), *shape[1:]),
+                   generator=generator, device=device)
+    return mesh.rank_rows(u, groups)
+
+
 class Dropout(nn.Module):
     """Element-wise dropout, flax's ``nn.Dropout`` (`unet2d.py:39-40`): in
     train mode each element is kept with probability 1 - p, as
     ``where(keep, x / (1 - p), 0)``. The keep mask is ``keep`` when a
     caller set it (:func:`dropout_draws`), else drawn from ``generator``
     (a ``torch.Generator`` on x's device, or torch's default one when
-    None); its shape is :meth:`mask_shape`, x's own here."""
+    None; :func:`draw_uniform`, over the global batch of ``groups``
+    sub-batches in a world of several ranks); its shape is
+    :meth:`mask_shape`, x's own here."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
+        self.groups = 1
         self.keep: Optional[torch.Tensor] = None
         self.generator: Optional[torch.Generator] = None
 
@@ -233,8 +263,8 @@ class Dropout(nn.Module):
             return x
         keep = self.keep
         if keep is None:
-            keep = torch.rand(self.mask_shape(x), generator=self.generator,
-                              device=x.device) < 1.0 - self.p
+            keep = draw_uniform(self.mask_shape(x), self.generator,
+                                x.device, self.groups) < 1.0 - self.p
         keep = keep.to(x.device)
         keep = keep.reshape(*keep.shape, *(1,) * (x.dim() - keep.dim()))
         return torch.where(keep, x / (1.0 - self.p), 0.0)
@@ -269,8 +299,8 @@ def _modules(model: nn.Module, kind) -> list:
 def bn_groups(model: nn.Module, groups: int) -> Iterator[None]:
     """Run ``model``'s BatchNorms with ``groups`` sub-batches
     (``VNet3D.bn_groups``, `vnet3d.py:170-172`; the self-train step's
-    concat forwards use 2)."""
-    bns = _modules(model, TorchBatchNorm)
+    concat forwards use 2); its dropouts draw for the same layout."""
+    bns = _modules(model, TorchBatchNorm) + _modules(model, Dropout)
     old = [m.groups for m in bns]
     for m in bns:
         m.groups = groups
@@ -286,13 +316,14 @@ def frozen_running_stats(model: nn.Module) -> Iterator[None]:
     """Train-mode forwards that leave the running statistics as they are:
     the teacher's BN buffer updates are discarded (`steps.py:63-68`)."""
     bns = _modules(model, TorchBatchNorm)
+    old = [m.update_running for m in bns]
     for m in bns:
         m.update_running = False
     try:
         yield
     finally:
-        for m in bns:
-            m.update_running = True
+        for m, flag in zip(bns, old):
+            m.update_running = flag
 
 
 @contextlib.contextmanager
@@ -339,8 +370,8 @@ def record_dropout_shapes(model: nn.Module) -> Iterator[List[torch.Size]]:
 
 def draw_keep_masks(model: nn.Module, shapes: Sequence[Sequence[int]],
                     generator: Optional[torch.Generator], device=None,
-                    out: Optional[Sequence[torch.Tensor]] = None
-                    ) -> List[torch.Tensor]:
+                    out: Optional[Sequence[torch.Tensor]] = None,
+                    groups: int = 1) -> List[torch.Tensor]:
     """The keep masks of one train-mode forward of ``model``, drawn ahead
     of it: for each dropout in module order (the order the port's models
     call them, which ``dropout_draws(keep=...)`` assumes too), the call its
@@ -348,7 +379,9 @@ def draw_keep_masks(model: nn.Module, shapes: Sequence[Sequence[int]],
     so the masks and the generator's state after them are the forward's
     own. ``shapes`` are the forward's mask shapes
     (:func:`record_dropout_shapes`); with ``out`` the masks are written
-    into those bool tensors (a CUDA graph's static inputs)."""
+    into those bool tensors (a CUDA graph's static inputs). ``groups`` is
+    the forward's number of sub-batches (:func:`bn_groups`), which lays
+    out a world's global draw (:func:`draw_uniform`)."""
     drops = _modules(model, Dropout)
     if len(shapes) != len(drops):
         raise ValueError(f"{len(shapes)} mask shapes for {len(drops)} "
@@ -357,7 +390,7 @@ def draw_keep_masks(model: nn.Module, shapes: Sequence[Sequence[int]],
         device = generator.device
     keep = []
     for i, (m, shape) in enumerate(zip(drops, shapes)):
-        u = torch.rand(tuple(shape), generator=generator, device=device)
+        u = draw_uniform(shape, generator, device, groups)
         keep.append(u < 1.0 - m.p if out is None
                     else torch.lt(u, 1.0 - m.p, out=out[i]))
     return keep

@@ -19,18 +19,68 @@ train and eval models share one state_dict layout.
 topology with a parameter-free instance norm and the reference's flat
 names, ``block_one.conv.0.weight`` ... ``block_eight_up.conv.0.bias``,
 block_nine and the head in its one-branch ``branchs`` list.
+
+``remat`` (`vnet3d.py:173-193`, ``nn.remat`` of every stage, down and up
+block) wraps each :class:`ConvBlock`, :class:`DownBlock` and
+:class:`UpBlock` in a non-reentrant ``torch.utils.checkpoint`` in a
+train-mode forward that records a backward: the block keeps its input and
+recomputes its inner activations in the backward, so a larger patch or
+batch fits one card, at the cost of a second forward of each block. The
+recomputed forward runs with the BatchNorm groups of the first and updates
+no running statistic (they move once a step), and no dropout lies inside
+a block. The flag adds no module, so a remat model's state_dict is a plain
+one's.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bcp_tpu_torch.models.layers import (ChannelDropout, Conv3d, Conv3x3x3,
                                          ConvTranspose3d, InstanceNorm,
                                          TorchBatchNorm)
+
+
+def _recompute_contexts(block: nn.Module):
+    """``checkpoint``'s (forward, recompute) contexts for ``block``: the
+    recompute runs with the BatchNorm groups of this forward (the step's
+    ``bn_groups`` has exited by the backward) and leaves the running
+    statistics alone."""
+    bns = [m for m in block.modules() if isinstance(m, TorchBatchNorm)]
+    groups = [m.groups for m in bns]
+
+    @contextlib.contextmanager
+    def recompute():
+        old = [(m.groups, m.update_running) for m in bns]
+        for m, g in zip(bns, groups):
+            m.groups, m.update_running = g, False
+        try:
+            yield
+        finally:
+            for m, (g, flag) in zip(bns, old):
+                m.groups, m.update_running = g, flag
+    return contextlib.nullcontext(), recompute()
+
+
+class _Remat(nn.Module):
+    """A block whose train-mode forward with a backward to record is
+    rematerialised when ``remat`` is set (module docstring)."""
+
+    remat = False
+
+    def forward(self, x):
+        if self.remat and self.training and torch.is_grad_enabled():
+            # no random op inside a block: no RNG state to stash (which a
+            # CUDA graph capture could not read anyway)
+            return checkpoint(self.conv, x, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=lambda: _recompute_contexts(self))
+        return self.conv(x)
 
 
 def _norm(kind: str, n: int, dtype) -> nn.Module:
@@ -44,7 +94,7 @@ def _norm(kind: str, n: int, dtype) -> nn.Module:
     raise ValueError(f"unknown normalization {kind!r}")
 
 
-class ConvBlock(nn.Module):
+class ConvBlock(_Remat):
     """`ConvBlock` (`networks/VNet.py:6-32`): n x (3^3 conv, norm, relu)."""
 
     def __init__(self, n_stages: int, n_in: int, n_out: int,
@@ -58,11 +108,8 @@ class ConvBlock(nn.Module):
                     _norm(norm, n_out, dtype), nn.ReLU()]
         self.conv = nn.Sequential(*ops)
 
-    def forward(self, x):
-        return self.conv(x)
 
-
-class DownBlock(nn.Module):
+class DownBlock(_Remat):
     """`DownsamplingConvBlock` (`VNet.py:68-92`): 2^3 conv, stride 2."""
 
     def __init__(self, n_in: int, n_out: int,
@@ -73,11 +120,8 @@ class DownBlock(nn.Module):
             Conv3d(n_in, n_out, 2, stride=2, dtype=dtype),
             _norm(norm, n_out, dtype), nn.ReLU())
 
-    def forward(self, x):
-        return self.conv(x)
 
-
-class UpBlock(nn.Module):
+class UpBlock(_Remat):
     """`UpsamplingDeconvBlock` (`VNet.py:95-119`): 2^3 deconv, stride 2."""
 
     def __init__(self, n_in: int, n_out: int,
@@ -87,9 +131,6 @@ class UpBlock(nn.Module):
         self.conv = nn.Sequential(
             ConvTranspose3d(n_in, n_out, 2, stride=2, dtype=dtype),
             _norm(norm, n_out, dtype), nn.ReLU())
-
-    def forward(self, x):
-        return self.conv(x)
 
 
 class Encoder(nn.Module):
@@ -142,6 +183,13 @@ class Decoder(nn.Module):
         return self.out_conv(x9), x8_up
 
 
+def set_remat(model: nn.Module, on: bool) -> None:
+    """Turn the rematerialisation of every block of ``model`` on or off."""
+    for m in model.modules():
+        if isinstance(m, _Remat):
+            m.remat = bool(on)
+
+
 class VNet3D(nn.Module):
     """`VNet` (`networks/VNet.py:145-290`) with batchnorm.
 
@@ -151,17 +199,20 @@ class VNet3D(nn.Module):
     f32. :func:`~bcp_tpu_torch.models.layers.bn_groups` sets the
     BatchNorms' number of sub-batches in train mode (`vnet3d.py:170-172`).
     ``fused_bwd`` hands every 3^3 conv's backward to the fused dx + dW
-    kernel where it is eligible; the forward is the same."""
+    kernel where it is eligible; the forward is the same. ``remat``
+    rematerialises every block (module docstring)."""
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,
-                 has_dropout: bool = False, fused_bwd: bool = False):
+                 has_dropout: bool = False, fused_bwd: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         self.encoder = Encoder(n_channels, n_filters, dtype, fused_bwd)
         self.enc_dropout = ChannelDropout() if has_dropout else nn.Identity()
         self.decoder = Decoder(n_classes, n_filters, dtype, has_dropout,
                                fused_bwd)
+        set_remat(self, remat)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.compute_dtype is not None:
@@ -188,7 +239,7 @@ class VNetPancreas(nn.Module):
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,
-                 fused_bwd: bool = False):
+                 fused_bwd: bool = False, remat: bool = False):
         super().__init__()
         nf, f, n = n_filters, fused_bwd, "instancenorm"
         self.compute_dtype = dtype
@@ -211,6 +262,7 @@ class VNetPancreas(nn.Module):
         self.branchs = nn.ModuleList([nn.Sequential(
             ConvBlock(1, nf, nf, dtype, f, n),
             Conv3d(nf, n_classes, 1, dtype=dtype))])
+        set_remat(self, remat)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.compute_dtype is not None:

@@ -4,6 +4,15 @@ Logits are (N, C, *S) (the JAX package's are channels-last), integer
 targets (N, *S). Same smoothing constants and reductions as the reference
 (`utils/losses.py:47-77`, `utils/BCP_utils.py:58-69`), in the dtype of the
 logits (f32 from the model).
+
+In a world of several ranks (``parallel.mesh``) every reduction is taken
+over the global batch, as the JAX package's losses over the sharded batch
+are: a mean over samples or voxels is the mean of the ranks' means
+(``mesh.mean_ranks``), a ratio of sums divides the sums over the ranks
+(``mesh.sum_ranks``, one all-reduce of the stacked sums). Every rank then
+holds the global loss, and the gradient reaches each rank's rows
+unchanged; ``mesh`` derives why the parameter gradients are then summed
+over the ranks.
 """
 
 from __future__ import annotations
@@ -12,6 +21,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from bcp_tpu_torch.parallel import mesh
 
 
 def softmax_probs(logits: torch.Tensor) -> torch.Tensor:
@@ -44,7 +55,7 @@ def masked_dice_loss(logits: torch.Tensor, target: torch.Tensor,
         inter = inter * m
         union = union * m
     dice = (2.0 * inter.sum(-1) + smooth) / (union.sum(-1) + smooth)
-    return 1.0 - dice.mean()
+    return 1.0 - mesh.mean_ranks(dice.mean())
 
 
 def dice_loss_per_class(probs: torch.Tensor, target: torch.Tensor,
@@ -60,8 +71,10 @@ def dice_loss_per_class(probs: torch.Tensor, target: torch.Tensor,
     if mask is not None:
         m = mask.unsqueeze(1).to(probs.dtype)
         pt, tt, pp = pt * m, tt * m, pp * m
-    dice = (2.0 * pt.sum(red) + smooth) / (pp.sum(red) + tt.sum(red)
-                                           + smooth)
+    pt, pp, tt = pt.sum(red), pp.sum(red), tt.sum(red)
+    if mesh.active():
+        pt, pp, tt = mesh.sum_ranks(torch.stack([pt, pp, tt])).unbind(0)
+    dice = (2.0 * pt + smooth) / (pp + tt + smooth)
     return (1.0 - dice).mean()
 
 
@@ -76,13 +89,16 @@ def masked_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     """sum(CE * mask) / (sum(mask) + 1e-16) (`losses.py:108-113`)."""
     ce = pixel_ce(logits, target)
     m = mask.to(ce.dtype)
-    return (ce * m).sum() / (m.sum() + 1e-16)
+    num, den = (ce * m).sum(), m.sum()
+    if mesh.active():
+        num, den = mesh.sum_ranks(torch.stack([num, den])).unbind(0)
+    return num / (den + 1e-16)
 
 
 def cross_entropy_mean(logits: torch.Tensor,
                        target: torch.Tensor) -> torch.Tensor:
     """Plain mean CE (`losses.py:116-118`)."""
-    return pixel_ce(logits, target).mean()
+    return mesh.mean_ranks(pixel_ce(logits, target).mean())
 
 
 def mix_loss_volume(logits: torch.Tensor, img_l: torch.Tensor,

@@ -16,7 +16,10 @@ last validation (student, teacher, optimizer with its momentum buffers,
 step): what ``--resume`` restores, the counterpart of the JAX package's
 orbax ``last`` and ``CheckpointIO.restore`` (`checkpoints.py:96-100`).
 States are saved from a :func:`snapshot`, a copy that the training loop
-cannot change any more, so a background worker can write them.
+cannot change any more, so a background worker can write them. In a world
+of several ranks (``parallel.mesh``) every rank holds the same state and
+rank 0 alone writes it (:func:`save_many`); the trainer's barrier at the
+end of a stage makes the others wait for its files.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Any, Dict, Sequence
 import torch
 
 from bcp_tpu_torch.config import Config
+from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.state import load_optimizer
 
 STATE_FILE = "last_state.pt"
@@ -80,7 +84,9 @@ def save_many(paths: Sequence[str], snap: Dict[str, Any],
     (the tagged, best and last files of a validation: one device-to-host
     fetch and one serialisation), with ``with_opt`` beside the optimizer's
     state as ``{'net', 'opt'}``; and the full state beside the last of
-    them as ``last_state.pt``."""
+    them as ``last_state.pt``. Only rank 0 of a world writes."""
+    if not mesh.is_main():
+        return
     host = _map(lambda t: t.to("cpu"), snap)
     _write({"net": host["model"], "opt": host["optimizer"]} if with_opt
            else host["model"], paths[0])

@@ -41,6 +41,16 @@ the trainer's background validation and checkpoint jobs are drained
 which pins memory, cannot break it. A graph that fails to capture or
 replay raises: there is no eager fallback on the card.
 
+In a world of several ranks (``parallel.mesh``) the programs hold the
+step's collectives: graph T the teacher's BatchNorm statistics (its
+train-mode forward normalises by the global batch's), graph S and the
+pre-train graph those of the student's forward and backward, the losses
+and the gradient all-reduce. A capture records them on the capture stream
+like any kernel; every rank captures at the same iterations (a stage's
+second group, a learning-rate change), so every rank's graphs hold the
+same collectives in the same order. The NMS between them is rank-local
+and issues none, whatever its round count on each rank.
+
 The kernel wrappers count their launches (``kernels.count_launch``), and a
 replay bypasses them: each capture's counts are taken back and added again
 at each replay, so the counts stay kernel executions.
@@ -241,12 +251,14 @@ class GraphStep:
         write_box(self.mask, boxes, self.pinned)
         dev = self.mask.device
         if self.stage == "self":
-            # the teacher's forward draws first, as in ``selftrain_step``
+            # the teacher's forward draws first, as in ``selftrain_step``;
+            # both self-train forwards run two BatchNorm groups
             draw_keep_masks(self.state.teacher,
                             [k.shape for k in self.keep_t], gen, dev,
-                            out=self.keep_t)
+                            out=self.keep_t, groups=2)
         draw_keep_masks(self.state.model, [k.shape for k in self.keep_s],
-                        gen, dev, out=self.keep_s)
+                        gen, dev, out=self.keep_s,
+                        groups=2 if self.stage == "self" else 1)
         for k, v in self.batch.items():
             v.copy_(sub[k])
         if self.stage == "self":

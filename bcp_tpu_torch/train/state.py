@@ -73,6 +73,8 @@ def build_model(cfg: Config, mode: str = "train", device=None,
     extra = {"n_filters": cfg.n_filters} if cfg.n_filters else {}
     if mode == "train" and cfg.fused_bwd:   # an eval model has no backward
         extra["fused_bwd"] = True
+    if mode == "train" and cfg.remat:
+        extra["remat"] = True
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed if seed is None else seed)
         model = create_model(cfg.net_type, cfg.num_classes, mode=mode,

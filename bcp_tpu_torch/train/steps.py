@@ -30,6 +30,13 @@ without BatchNorm (pancreas' instance-norm V-Net) has nothing to thread.
 Only the order of the dropout draws differs, and the port's draws come
 from torch generators, never the JAX package's keys.
 
+In a world of several ranks (``parallel.mesh``) each rank runs the step
+on its rows of the global batch: the BatchNorm statistics (the teacher's
+included) and the losses are the global batch's, the update all-reduces
+the gradients once between ``backward`` and the optimizer step, and the
+returned losses are the global ones, as the JAX package's step on the
+sharded batch computes them.
+
 Batches are dicts of tensors on the device: ``img_a``, ``img_b``,
 ``uimg_a``, ``uimg_b`` (N, 1, *S) and ``lab_a``, ``lab_b`` (N, *S) integer.
 The random draws come from the caller: the copy-paste ``mask``
@@ -52,6 +59,7 @@ from bcp_tpu_torch.models.layers import (bn_groups, dropout_draws,
 from bcp_tpu_torch.ops import cc, losses
 from bcp_tpu_torch.ops.ema import ema_update
 from bcp_tpu_torch.ops.masks import mix
+from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.state import TrainState, lr_at
 
 
@@ -76,6 +84,9 @@ def _update(state: TrainState, loss: torch.Tensor, cfg: Config,
         group["lr"] = lr_at(cfg, stage, state.step)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    # in a world of several ranks every rank's loss is the global loss and
+    # its gradient this rank's share: the sum is the global gradient
+    mesh.all_reduce_grads(state.model.parameters())
     opt.step()
     state.step += 1
 
@@ -112,8 +123,11 @@ def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
             pred = (torch.softmax(logits.float(), dim=1)[:, 1]
                     >= 0.5).float()
             labf = lab.float()
-            out["train_dice"] = 2.0 * (pred * labf).sum() / (
-                pred.sum() + labf.sum() + 1e-6)
+            inter, p_sum, l_sum = (pred * labf).sum(), pred.sum(), labf.sum()
+            if mesh.active():
+                inter, p_sum, l_sum = mesh.sum_ranks(
+                    torch.stack([inter, p_sum, l_sum])).unbind(0)
+            out["train_dice"] = 2.0 * inter / (p_sum + l_sum + 1e-6)
     _update(state, loss, cfg, "pre")
     return out
 

@@ -55,6 +55,22 @@ raises ``FloatingPointError`` naming the first step whose losses are not
 finite. Unlike ``jax_debug_nans``, which re-runs the op that made a NaN,
 it sees the step's outputs only, and a group (K steps) later.
 
+In a world of N ranks (``parallel.mesh``; the CLIs' ``--num_devices``)
+each rank runs this trainer on its rows of a global batch N times the
+reference's (`trainer.py:116-167,304-331`): the feed widens every stream
+by N (``data_scale``) and each rank keeps its rows, the steps compute the
+global batch's statistics, losses and gradient, and every rank's state
+is checked against rank 0's once a stage has loaded it. Validation runs
+inline at the eval boundary on every rank (the evaluators shard windows
+or slices over the ranks); its collectives are then issued from the
+training thread at a fixed point, never from a worker beside the step's,
+so no two ranks can order them differently. Every rank takes rank 0's
+score. Rank 0 alone writes the logs, ``log.txt``, the metric writer's
+output, the checkpoints, ``last_state.pt``, the image snapshots and
+profiles, and every rank waits for it at the end of a stage, so the self
+stage reads the pre-train best once it is whole; ``resume`` reads the
+same ``last_state.pt`` on every rank.
+
 ``log_images=True`` writes the reference's TensorBoard image panels
 (``train.snapshots``; `trainer.py:465-486,633-680`) at its cadences: LA
 self-train at ``it % eval_every == 1``, ACDC both stages every 20
@@ -90,6 +106,7 @@ from bcp_tpu_torch.ops.masks import (Box, boxes_mask, cuboid_sizes,
                                      cuboid_starts, fixed_starts, grid_boxes,
                                      grid_starts, slab_box, slab_start)
 from bcp_tpu_torch.ops.ramps import sigmoid_rampup
+from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.checkpoints import (STATE_FILE, best_model_path,
                                              load_optimizer_state,
                                              restore_state, save_many,
@@ -103,7 +120,8 @@ from bcp_tpu_torch.train.state import (TrainState, build_model, init_state,
                                        load_weights_only, load_with_opt)
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
 from bcp_tpu_torch.utils.logging import (MetricWriter, cut_pre_measures,
-                                         cutmix_ft_measures, setup_logging)
+                                         cutmix_ft_measures, null_logger,
+                                         setup_logging)
 from bcp_tpu_torch.utils.worker import OrderedWorker
 
 
@@ -173,6 +191,21 @@ class BCPTrainer:
                  log_images: bool = False):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
+        if cfg.sp_devices != 1:
+            raise ValueError(f"sp_devices={cfg.sp_devices}: spatial "
+                             f"partitioning is not ported (ROADMAP A4)")
+        if cfg.remat and cfg.net_type not in ("VNet", "VNet_pancreas"):
+            # `trainer.py:177-182`
+            raise ValueError(f"remat targets the V-Net pipelines; net_type="
+                             f"{cfg.net_type!r} has no remat support")
+        self.world = mesh.world_size()
+        if cfg.num_devices not in (-1, 0, self.world):
+            raise ValueError(
+                f"num_devices={cfg.num_devices} but this process is in a "
+                f"world of {self.world}: start the ranks with "
+                f"parallel.mesh.launch (the CLIs' --num_devices)")
+        #: the feed's stream widening, the global batch's reference batches
+        self.data_scale = self.world
         self.cfg = cfg
         self.log_images = log_images
         self.device = resolve_device(device)
@@ -243,9 +276,12 @@ class BCPTrainer:
         if self.cfg.variant == "acdc":
             per_class = np.mean(self.evaluator.validate_volumes(
                 self._load_val_cases(), cache=True), axis=0)
-            return float(per_class[:, 0].mean()), per_class
-        return self.evaluator.validate_dice(self._load_val_cases(),
-                                            rule=self.cfg.eval_rule), None
+            out = float(per_class[:, 0].mean()), per_class
+        else:
+            out = self.evaluator.validate_dice(
+                self._load_val_cases(), rule=self.cfg.eval_rule), None
+        # every rank takes rank 0's score, and so its best-model decision
+        return mesh.broadcast_object(out)
 
     def wait_for_validations(self) -> None:
         """Block until the background validation and checkpoint jobs
@@ -269,9 +305,11 @@ class BCPTrainer:
                    resume: bool = False) -> Tuple[float, str]:
         cfg = self.cfg
         out_dir = self.pre_dir if stage == "pre" else self.self_dir
-        os.makedirs(out_dir, exist_ok=True)
-        logger = setup_logging(out_dir)
-        writer = MetricWriter(os.path.join(out_dir, "log"))
+        main = mesh.is_main()     # rank 0 writes every file
+        if main:
+            os.makedirs(out_dir, exist_ok=True)
+        logger = setup_logging(out_dir) if main else null_logger()
+        writer = MetricWriter(os.path.join(out_dir, "log") if main else None)
         logger.info("config: %s", cfg)
         state = init_state(cfg, self.device)
         if init_from is not None:
@@ -292,6 +330,16 @@ class BCPTrainer:
             resumed_best = scan_best_dice(out_dir)
             logger.info("resumed from %s at step %d (best dice so far "
                         "%.4f)", state_path, state.step, resumed_best)
+        if mesh.active():
+            mesh.check_replicas({
+                "student": state.model.state_dict().values(),
+                "teacher": state.teacher.state_dict().values(),
+                "optimizer": [v for st in state.optimizer.state.values()
+                              for v in st.values()
+                              if isinstance(v, torch.Tensor)]})
+            logger.info("mesh over %d devices: data=%d space=1 (global "
+                        "batch %d)", self.world, self.data_scale,
+                        cfg.batch_size * self.data_scale)
         K = check_dispatch(cfg, max_iterations - state.step)
         dataset = self.train_dataset
         if dataset is None and cfg.variant == "pancreas":
@@ -302,7 +350,9 @@ class BCPTrainer:
                        LAHeartDataset)(cfg.root_path, "train", cache=True)
         feeder = BCPBatchFeeder(cfg, stage, dataset, self.device,
                                 store_cache=self.feed_store_cache, stack=K,
-                                side_labels=self.log_images)
+                                side_labels=self.log_images and main,
+                                data_scale=self.data_scale,
+                                rank=mesh.rank() if mesh.active() else None)
         logger.info("%d iterations per epoch (device-store init %.1fs)",
                     feeder.steps_per_epoch, feeder.store_init_s)
         stage_seed = cfg.seed + (0 if stage == "pre" else 1)
@@ -400,7 +450,9 @@ class BCPTrainer:
                         it, dice, t_eval, time.time() - tc)
 
         val_worker = ckpt_worker = warm_job = None
-        if cfg.async_val:
+        # under a world the evaluators' collectives run inline, on this
+        # thread (module docstring)
+        if cfg.async_val and not mesh.active():
             val_worker = OrderedWorker(cfg.async_val_depth, self.device)
             # second ordered stage: the checkpoint writes of validation v
             # run while validation v+1 evaluates
@@ -427,8 +479,9 @@ class BCPTrainer:
         def snapshot_hook(first: int, ulabs):
             """The groups' ``before_update``: iteration ``it``'s panels
             when they are due (``ulabs``: the batch's true unlabelled
-            labels, K-stacked when K > 1)."""
-            if not self.log_images:
+            labels, K-stacked when K > 1); rank 0's rows hold the global
+            batch's first samples."""
+            if not (self.log_images and main):
                 return None
 
             def hook(it, sub, mask, plab):
@@ -462,8 +515,8 @@ class BCPTrainer:
         try:
             for itk in range(start + 1, max_iterations + 1, K):
                 it = itk + K - 1      # the group's last iteration
-                if cfg.profile_dir and itk <= cfg.profile_steps[0] + start \
-                        <= it:
+                if cfg.profile_dir and main and \
+                        itk <= cfg.profile_steps[0] + start <= it:
                     profile = self._start_profile()
                 batch = next(feeder)
                 # the true unlabelled labels feed the snapshots only
@@ -537,13 +590,15 @@ class BCPTrainer:
                 ckpt_worker.drain()     # so the I/O stage drains after it
                 val_seconds += time.time() - tv0
             best_dice = best
-            if not os.path.exists(best_path):
+            if not mesh.broadcast_object(os.path.exists(best_path)):
                 # a stage shorter than eval_every, or one whose validations
                 # never beat 0, still hands a checkpoint on
                 best_dice = round(self.validate(state), 4)
                 save_many([best_path, last_path], snapshot(state), with_opt)
                 logger.info("end-of-stage save (dice %.4f) to %s", best_dice,
                             best_path)
+            # the next stage's ranks read what rank 0 wrote
+            mesh.barrier()
         finally:
             if profile is not None:   # a range past the stage's end
                 self._stop_profile(profile, stage, logger)

@@ -37,6 +37,15 @@ def setup_logging(log_dir: str, name: str = "bcp_tpu_torch"
     return logger
 
 
+def null_logger(name: str = "bcp_tpu_torch:quiet") -> logging.Logger:
+    """A logger that writes nothing: a rank other than 0's."""
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
 class MetricWriter:
     def __init__(self, log_dir: Optional[str]):
         self._writer = None

@@ -130,6 +130,23 @@ described by their functions.)
     with and without them. (``fuse_subbatches=False`` runs the fused
     step, ``train.steps``, so it has no phase of its own.)
 
+14. Data parallelism and remat (``phase_data_parallel``,
+    ``phase_data_parallel_cards``, ``phase_remat``): (a) ``cli.train_la``'s
+    core at LA's full width in a world of one NCCL rank against the same
+    run outside a world, at K = 1 (6 iterations a stage) and K = 4 (12: the
+    second group's graphs capture the all-reduces), the final states bit
+    for bit (else held to phase 12's rule, the worst printed), the graph
+    counts, and the NCCL collectives a traced update issues; (b)
+    ``cli.test_la``'s evaluator in that world, its score map and the CLI
+    core's metrics equal to the plain ones'; (c) with two or more visible
+    cards, two NCCL ranks against one process on the global batch (an f32
+    update at full width under phase 3's rule, then ``train_la
+    --num_devices 2 --steps_per_dispatch 4``), else one line that it was
+    not run; ``python3 chip_smoke.py --only data_parallel_cards`` runs (c)
+    alone; (d) ``--remat 1`` on LA and pancreas at their CLIs' defaults:
+    the self-train step's ms and peak memory with and without remat, in
+    turns, the updates equal.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -942,9 +959,11 @@ def phase_train_step(torch):
 
 
 def _compare_step(torch, want, want_loss, got, got_loss, start, scale, ulp,
-                  group, extra, patch=STEP_PATCH):
+                  group, extra, patch=STEP_PATCH,
+                  label="f32 train step card vs cpu"):
     """The card's updates ``got`` held against the CPU's ``want`` (see
-    :func:`phase_train_step`)."""
+    :func:`phase_train_step`); ``label`` names the pair in the printed
+    line."""
     ratios, checked, zeroes = [], {}, {}
     for n, d in want.items():
         s = scale[group(n)]
@@ -974,11 +993,11 @@ def _compare_step(torch, want, want_loss, got, got_loss, start, scale, ulp,
               "zero_update_would_fail": {k: f"{checked[k]} of {zeroes[k]}"
                                          for k in zeroes},
               "max_rel_loss_err": lworst[0], **extra}
-    print("f32 train step card vs cpu: " + json.dumps(result), flush=True)
+    print(f"{label}: " + json.dumps(result), flush=True)
     if not all(np.isfinite(v) for v in got_loss.values()):
-        fail(f"f32 train step: non-finite losses {got_loss}")
+        fail(f"{label}: non-finite losses {got_loss}")
     if worst[0] > 1.0 or lworst[0] > 1e-4:
-        fail(f"f32 train step on the card differs from the CPU: {result}")
+        fail(f"{label}: the updates differ: {result}")
     return result
 
 
@@ -3201,6 +3220,478 @@ def phase_save_result(torch, workdir: str, pth: str, acdc_best: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 14. data parallelism (--num_devices) and --remat
+
+#: a stage's iterations in phase 14 (a) by K: at K = 4 the first group
+#: runs eagerly, the second captures the graphs, the third only replays;
+#: the steady ms a step are those of the last four iterations
+DP_ITERS = {1: 6, DISPATCH_K: 3 * DISPATCH_K}
+#: timed self-train steps of phase 14 (d), after REMAT_WARMUP
+REMAT_STEPS = 5
+REMAT_WARMUP = 2
+
+
+def world_device(torch):
+    """The device of phase 14's world of one rank: this card."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def collective_calls(trace_path: str):
+    """What an exported trace of CPU and CUDA activity holds of the
+    collectives: the dispatcher's ``c10d::`` ops the host called, the
+    process group's ``nccl:<collective>`` annotations, and the device
+    kernels named ``nccl``."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X"]
+    return {"c10d_ops": sum(e.get("cat") == "cpu_op"
+                            and e["name"].startswith("c10d::")
+                            for e in events),
+            "nccl_annotations": sum(e.get("cat") == "user_annotation"
+                                    and e["name"].startswith("nccl:")
+                                    for e in events),
+            "nccl_kernels": sum(e.get("cat") == "kernel"
+                                and "nccl" in e["name"].lower()
+                                for e in events)}
+
+
+def dp_batch(torch, cfg, rows: int, seed: int):
+    """A global LA or pancreas batch of ``rows`` rows a stream on the
+    card: blob volumes cropped to the patch, labels uint8."""
+    from bcp_tpu_torch.data.synthetic import la_cases
+    cases = la_cases(4 * rows, tuple(cfg.patch_size), seed=seed)
+    img = torch.from_numpy(np.stack([c[0] for c in cases])[:, None])
+    lab = torch.from_numpy(np.stack([c[1] for c in cases]).astype(np.uint8))
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    out = {}
+    for i, k in enumerate(("a", "b", "ua", "ub")):
+        sl = slice(i * rows, (i + 1) * rows)
+        if k.startswith("u"):
+            out[f"uimg_{k[1]}"] = img[sl].to(DEVICE, dt)
+        else:
+            out[f"img_{k}"] = img[sl].to(DEVICE, dt)
+            out[f"lab_{k}"] = lab[sl].to(DEVICE)
+    return out
+
+
+def phase_data_parallel(torch, workdir: str, pth: str, smi: str):
+    """Phase 14 (a) and (b): the data-parallel code (``parallel.mesh``) in
+    a world of one NCCL rank on this card, against the same code outside a
+    world.
+
+    (a) ``cli.train_la``'s core at LA's full width (the dispatch phase's
+    flags: V-Net n_filters 16, 112x112x80, batch 8, bf16, the device
+    store), DP_ITERS iterations a stage at K = 1 and at K = 4 (three
+    groups: the second captures CUDA graphs whose capture holds the step's
+    all-reduces, the third replays them), once outside a world and once
+    inside, with the host ms a step of the last four iterations of each
+    stage: every BatchNorm
+    statistic, loss sum and the gradients go through an all-reduce, the
+    evaluator's score map too, validation runs inline. The world's final
+    states must equal the plain runs' bit for bit; where they do not they
+    are held to phase 12's rule (STEP_REL) and the worst tensor is
+    printed. A traced self-train update in the world counts the
+    collectives the host issued and the NCCL kernels the card ran (a
+    one-rank in-place sum may need none).
+
+    (b) ``cli.test_la``'s evaluator in the world: one 240x200x96 volume's
+    score map equal to the plain evaluator's bit for bit, and the test
+    CLI's core on phase 4's two volumes, its metrics equal to the plain
+    core's.
+
+    Returns the launches of the world's paths."""
+    from bcp_tpu_torch.cli import test_la
+    from bcp_tpu_torch.config import la_config
+    from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.data.synthetic import la_cases
+    from bcp_tpu_torch.eval.sliding_window import window_starts
+    from bcp_tpu_torch.parallel import mesh
+    from bcp_tpu_torch.train.state import init_state
+    from bcp_tpu_torch.train.steps import selftrain_step
+    from bcp_tpu_torch.train.trainer import copy_paste_mask, iteration_draws
+    card = world_device(torch)
+    data = dispatch_data("la")
+    launches, runs, result = {}, {}, {"card": smi}
+    for K in (1, DISPATCH_K):
+        for way in ("plain", "world"):
+            root = os.path.join(workdir, f"dp_{way}_k{K}")
+            os.makedirs(root)
+            ctx = (mesh.process_group(0, 1, card) if way == "world"
+                   else contextlib.nullcontext())
+            with ctx:
+                if way == "world" and mesh.world_size() != 1:
+                    fail("phase 14: the world is not of one rank")
+                run = dispatch_run(torch, "la", K, root, data,
+                                   f"dp_{way}{K}", iters=DP_ITERS[K])
+            run["state"] = {stage: dispatch_state(torch, run, stage)
+                            for stage in ("pre", "self")}
+            run["state"]["losses"] = run["losses"]
+            runs[(way, K)] = run
+        launches[f"train_la_world1_k{K}"] = runs[("world", K)]["launches"]
+        got, want = runs[("world", K)], runs[("plain", K)]
+        # the plain run's background worker validates once more a stage
+        # (its evaluator warm-up); the world validates inline, no warm-up
+        extra = want["trainer"].validations - got["trainer"].validations
+        chunks = -(-len(window_starts(DISPATCH_LA_VAL, PATCH,
+                                      got["cfg"].stride_xy,
+                                      got["cfg"].stride_z))
+                   // got["cfg"].eval_batch)
+        expect = dict(want["launches"])
+        expect["softmax_scatter_add_windows"] -= extra * chunks
+        expect["conv3x3x3_same"] -= extra * chunks * sum(
+            n for _, n in CONV_STAGES)
+        if extra != 2 or got["launches"] != expect:
+            fail(f"phase 14 K={K}: the world's launches {got['launches']} "
+                 f"({got['trainer'].validations} validations), the plain "
+                 f"run's {want['launches']} ({extra} validations more)")
+        exact = all(r == 0 for r, _ in dispatch_hold(
+            torch, got["state"], want["state"], exact=True).values())
+        n = DP_ITERS[K]
+        entry = {"iterations": n, "bit_identical": exact,
+                 "graph_counts": got["trainer"].graph_counts,
+                 "cli_s": {"plain": want["wall"], "world": got["wall"]},
+                 # host clock of the loop's last four iterations
+                 "ms_per_step": {
+                     way: {stage: (r["clock"].times[stage][n]
+                                   - r["clock"].times[stage][n - 4]) / 4e-3
+                           for stage in ("pre", "self")}
+                     for way, r in (("plain", want), ("world", got))}}
+        if not exact:
+            held = dispatch_hold(torch, got["state"], want["state"],
+                                 exact=False)
+            entry["held_to_step_rel"] = held
+            entry["why"] = ("the world's sums differ in the last bits from "
+                            "the one-device path's")
+            if any(r > 1.0 for r, _ in held.values()):
+                fail(f"phase 14 K={K}: the world's state differs from the "
+                     f"plain run's beyond STEP_REL: {entry}")
+        if K > 1:
+            groups = DP_ITERS[K] // K
+            want_counts = {"pre": {"captures": 1,
+                                   "replays": (groups - 1) * K},
+                           "self": {"captures": 2,
+                                    "replays": 2 * (groups - 1) * K}}
+            if got["trainer"].graph_counts != want_counts:
+                fail(f"phase 14: graph counts {got['trainer'].graph_counts}"
+                     f", expected {want_counts}")
+        result[f"k{K}"] = entry
+
+    # the collectives of one traced self-train update in the world
+    from torch.profiler import ProfilerActivity, profile
+    cfg = la_config(labelnum=4, patch_size=PATCH)
+    with mesh.process_group(0, 1, card):
+        state = init_state(cfg, DEVICE)
+        batch = dp_batch(torch, cfg, 2, SEED + 30)
+        gen = torch.Generator(device=DEVICE)
+        for it in (1, 2):
+            mask = copy_paste_mask(cfg, iteration_draws(1, it, gen), DEVICE)
+            if it == 2:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+            selftrain_step(state, batch, mask, cfg, gen, gen)
+        torch.cuda.synchronize()
+        prof.stop()
+    trace = os.path.join(workdir, "dp_world_self_step.json")
+    prof.export_chrome_trace(trace)
+    calls = collective_calls(trace)
+    result["self_step_collectives"] = calls
+    if not calls["c10d_ops"] or not calls["nccl_annotations"]:
+        fail(f"phase 14: the world's self-train update issued no NCCL "
+             f"collective: {calls}")
+
+    # (b) the evaluator and the test CLI's core in the world
+    cases = la_cases(2, LA_VOLUME, seed=SEED + 2)
+    args = test_la.build_parser().parse_args(
+        ["--torch_ckpt", pth, "--snapshot_root", workdir, "--root_path",
+         workdir, "--stride_xy", "18", "--stride_z", "4", "--eval_batch",
+         str(EVAL_BATCH), "--nms", "1", "--device", DEVICE, "--detail", "0",
+         "--patch_size", *map(str, PATCH)])
+    _, plain_ev = test_la.build_evaluator(args)
+    _, want_score = plain_ev.infer(cases[0][0])
+    counters = kernel_counters()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        want_avg = test_la.test_calculate_metric(args,
+                                                 dataset=VolumeList(cases))
+        with mesh.process_group(0, 1, card):
+            _, world_ev = test_la.build_evaluator(args)
+            _, got_score = world_ev.infer(cases[0][0])
+            read_launches(counters, reset=True)
+            got_avg = test_la.test_calculate_metric(
+                args, dataset=VolumeList(cases))
+            launches["test_la_world1"] = read_launches(counters)
+    result["test_la"] = {
+        "score_bit_identical": bool(np.array_equal(got_score, want_score)),
+        "score_max_abs_err": float(np.abs(got_score - want_score).max()),
+        "metrics_world": list(map(float, got_avg)),
+        "metrics_plain": list(map(float, want_avg))}
+    print("data parallel, world of one NCCL rank: " + json.dumps(result),
+          flush=True)
+    if not result["test_la"]["score_bit_identical"] \
+            or not np.array_equal(got_avg, want_avg):
+        fail(f"phase 14: the world's evaluator differs from the plain one: "
+             f"{result['test_la']}")
+    return launches
+
+
+def _dp_updates(torch, cfg_kw, start, host, starts, keeps, plab=None):
+    """One f32 pre-train and one self-train update at LA's full width from
+    ``start`` on this rank's rows of the global batch ``host`` (numpy),
+    the mask at ``starts``, the global keep masks ``keeps``; the
+    self-train update on ``plab`` (the global pseudo-labels) when given.
+    Returns (deltas, losses, the global pseudo-labels) on the host. In a
+    world each rank keeps its rows (``mesh.shard_rows`` /
+    ``mesh.rank_rows``)."""
+    import copy
+    from bcp_tpu_torch.config import la_config
+    from bcp_tpu_torch.ops.masks import cuboid_mask
+    from bcp_tpu_torch.parallel import mesh
+    from bcp_tpu_torch.train.state import (TrainState, build_model,
+                                           build_optimizer)
+    from bcp_tpu_torch.train.steps import pretrain_step, pseudo_labels, \
+        selftrain_update
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = la_config(**cfg_kw)
+
+    def state():
+        m = build_model(cfg, "train", DEVICE)
+        m.load_state_dict(start)
+        t = copy.deepcopy(m)
+        for p in t.parameters():
+            p.requires_grad_(False)
+        return TrainState(m, t, build_optimizer(cfg, m.parameters()))
+    batch = {k: mesh.shard_rows(torch.from_numpy(v)).to(DEVICE)
+             for k, v in host.items()}
+    mask = cuboid_mask(cfg.patch_size, starts, device=DEVICE)
+    k = {n: [mesh.rank_rows(torch.from_numpy(a), g).to(DEVICE)
+             for a in v] for n, (g, v) in keeps.items()}
+    pre = state()
+    m_pre = pretrain_step(pre, batch, mask, cfg, dropout=k["pre"])
+    st = state()
+    own = pseudo_labels(st, batch, cfg, dropout=k["teacher"])
+    # every rank's (group, row) in rank order -> the global batch's
+    # (group, rank, row)
+    own = mesh.gather_rows(own)
+    own = own.view(mesh.world_size(), 2, -1, *own.shape[1:]).transpose(
+        0, 1).reshape(-1, *own.shape[1:]).cpu()
+    use = own if plab is None else torch.from_numpy(plab)
+    m_self = selftrain_update(st, batch, mesh.rank_rows(use, 2).to(DEVICE),
+                              mask, cfg, dropout=k["student"])
+    delta = {}
+    for tag, mod in (("pre", pre.model), ("self", st.model),
+                     ("teacher", st.teacher)):
+        for n, v in mod.state_dict().items():
+            if not n.endswith("num_batches_tracked"):
+                delta[f"{tag}.{n}"] = (v.cpu().double()
+                                       - start[n].double()).float()
+    for tag, s_ in (("pre", pre), ("self", st)):
+        for n, p in s_.model.named_parameters():
+            delta[f"{tag}.momentum.{n}"] = s_.optimizer.state[p][
+                "momentum_buffer"].cpu().float()
+    losses = {f"pre.{n}": float(v) for n, v in m_pre.items()}
+    losses.update({f"self.{n}": float(v) for n, v in m_self.items()})
+    return delta, losses, own.numpy()
+
+
+def phase_data_parallel_cards(torch, workdir: str, smi: str):
+    """Phase 14 (c), with two or more visible cards: one f32 pre-train and
+    one self-train update at LA's full width (n_filters 16, 112x112x80)
+    on two ranks (``parallel.mesh.launch``, NCCL over two cards, each rank
+    the reference batch of 8) against one process on the global batch of
+    16, held to phase 3's rule (the self-train update on the one
+    process's pseudo-labels on both sides); then ``cli.train_la`` with
+    ``--num_devices 2 --steps_per_dispatch 4`` (host feed, 2 x 4
+    iterations a stage, the second group's graphs capturing the NCCL
+    all-reduces across the two cards), its final state printed against
+    one process's run on the global batch under phase 12's rule. On one
+    card it prints that it was not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"data parallel over cards: not run, {n} card visible (it "
+              f"needs two)", flush=True)
+        return {}
+    from bcp_tpu_torch.config import la_config
+    from bcp_tpu_torch.data.synthetic import la_cases
+    from bcp_tpu_torch.ops.masks import cuboid_starts
+    from bcp_tpu_torch.parallel import mesh
+    from bcp_tpu_torch.train.state import build_model
+    W = 2
+    cfg_kw = dict(labelnum=4, patch_size=PATCH, compute_dtype="float32")
+    cfg = la_config(**cfg_kw)
+    cases = la_cases(8 * W, PATCH, seed=SEED + 31)
+    img = np.stack([c[0] for c in cases])[:, None]
+    lab = np.stack([c[1] for c in cases]).astype(np.uint8)
+    r = 2 * W
+    host = {"img_a": img[0:r], "img_b": img[r:2 * r],
+            "uimg_a": img[2 * r:3 * r], "uimg_b": img[3 * r:4 * r],
+            "lab_a": lab[0:r], "lab_b": lab[r:2 * r]}
+    rng = np.random.default_rng(SEED + 32)
+    starts = cuboid_starts(rng, PATCH)
+    start = build_model(cfg, "train", "cpu", seed=SEED).state_dict()
+    nf = start["encoder.block_one.conv.0.weight"].shape[0]
+
+    def keep(rows):   # the V-Net's two channel dropouts
+        return [rng.random((rows, 16 * nf)) < 0.5,
+                rng.random((rows, nf)) < 0.5]
+    keeps = {"pre": (1, keep(r)), "teacher": (2, keep(2 * r)),
+             "student": (2, keep(2 * r))}
+    t0 = time.perf_counter()
+    want, want_loss, plab = _dp_updates(torch, cfg_kw, start, host, starts,
+                                        keeps)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, got_loss, got_plab = mesh.launch(
+        _dp_updates_rank, W, DEVICE, cfg_kw, start, host, starts, keeps,
+        plab)
+    t_two = time.perf_counter() - t0
+
+    def group(name):
+        head, last = name.rsplit(".", 1)
+        return head, last.startswith("running")
+    scale = {}
+    for name, d in want.items():
+        g = group(name)
+        scale[g] = max(scale.get(g, 0.0), d.abs().max().item())
+    step = _compare_step(
+        torch, {k: v.double() for k, v in want.items()}, want_loss,
+        {k: v.double() for k, v in got.items()}, got_loss, start, scale,
+        float(np.finfo(np.float32).eps), group,
+        {"ranks": W, "rows_a_rank": 8, "cards": n, "card": smi,
+         "pseudo_label_flips": int((got_plab != plab).sum()),
+         "one_process_s": t_one, "two_ranks_s": t_two},
+        patch=PATCH, label="data parallel two ranks vs one process")
+
+    # the CLI on two cards at K = 4 against one process on the global batch
+    from bcp_tpu_torch.cli import train_la
+    data = dispatch_data("la")
+    iters = str(2 * DISPATCH_K)
+    runs = {}
+    for tag, extra in (("two", ["--num_devices", "2"]),
+                       ("one", ["--batch_size", "16", "--labeled_bs", "8"])):
+        root = os.path.join(workdir, f"dp_cards_{tag}")
+        os.makedirs(root)
+        args = train_la.build_parser().parse_args(
+            ["--labelnum", "4", "--root_path", root, "--snapshot_root", root,
+             "--device", DEVICE, "--pre_max_iteration", iters,
+             "--self_max_iteration", iters, "--steps_per_dispatch",
+             str(DISPATCH_K), "--device_data_cache", "0", *extra])
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            _, stages = train_la.train(args, train_dataset=data[0],
+                                       val_cases=data[1], patch_size=PATCH,
+                                       eval_every=2 * DISPATCH_K)
+        wall = time.perf_counter() - t0
+        run = {"stages": stages, "cfg": train_la.config_from_args(
+            args, patch_size=PATCH), "wall": wall}
+        for stage in ("pre", "self"):
+            found = logged_losses(stages[stage][1])
+            if sorted(found) != list(range(1, 2 * DISPATCH_K + 1)) \
+                    or not all(np.isfinite(v) for m in found.values()
+                               for v in m.values()):
+                fail(f"train_la {tag} {stage}-train: losses {found}")
+        run["state"] = {stage: dispatch_state(torch, run, stage)
+                        for stage in ("pre", "self")}
+        run["state"]["losses"] = {stage: logged_losses(
+            run["stages"][stage][1]) for stage in ("pre", "self")}
+        runs[tag] = run
+    held = dispatch_hold(torch, runs["two"]["state"], runs["one"]["state"],
+                         exact=False)
+    cli = {"card": smi, "K": DISPATCH_K, "iterations": 2 * DISPATCH_K,
+           "held_to_step_rel": held,
+           "cli_s": {k: v["wall"] for k, v in runs.items()}}
+    print("data parallel train_la two cards vs one process: "
+          + json.dumps(cli), flush=True)
+    return {"step": step, "cli": cli}
+
+
+def logged_losses(best_path: str):
+    """{iteration: {loss name: value}} of a stage's ``log.txt``."""
+    log = open(os.path.join(os.path.dirname(best_path), "log.txt")).read()
+    return {int(it): {k: float(v) for k, v in re.findall(
+        r"(\w+): (\S+)", rest)}
+        for it, rest in re.findall(r"iteration (\d+) : (.*)", log)}
+
+
+def _dp_updates_rank(*args):
+    import torch
+    return _dp_updates(torch, *args)
+
+
+def phase_remat(torch, workdir: str, smi: str):
+    """Phase 14 (d): ``--remat 1`` on LA (112x112x80, batch 8, bf16) and
+    pancreas (96^3, batch 8, bf16), the CLIs' defaults: the self-train
+    step from one seeded state with and without remat, in turns (plain,
+    remat, plain, remat), REMAT_WARMUP steps then REMAT_STEPS timed ones
+    (host clock around synchronised steps) and the peak memory of the
+    timed ones (``torch.cuda.max_memory_allocated``). The remat runs'
+    states after all steps equal the plain runs' bit for bit, else are
+    held to phase 12's rule. Returns the launches of each variant's remat
+    runs."""
+    from bcp_tpu_torch.config import la_config, pancreas_config
+    from bcp_tpu_torch.train.checkpoints import snapshot
+    from bcp_tpu_torch.train.state import init_state
+    from bcp_tpu_torch.train.steps import selftrain_step
+    from bcp_tpu_torch.train.trainer import copy_paste_mask, iteration_draws
+    counters = kernel_counters()
+    launches, report = {}, {"card": smi}
+    for variant, cfg in (("la", la_config(labelnum=4, patch_size=PATCH)),
+                         ("pancreas", pancreas_config())):
+        batch = dp_batch(torch, cfg, 2, SEED + 33)
+        runs, warm = [], None
+        for remat in (False, True, False, True):
+            state = init_state(cfg.replace(remat=remat), DEVICE)
+            gen = torch.Generator(device=DEVICE)
+            if remat:
+                read_launches(counters, reset=True)
+            times = []
+            for it in range(1, REMAT_WARMUP + REMAT_STEPS + 1):
+                mask = copy_paste_mask(cfg, iteration_draws(3, it, gen),
+                                       DEVICE)
+                if it == REMAT_WARMUP + 1:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    if warm is None:    # the rule's start: plain, warm
+                        warm = snapshot(state)
+                t0 = time.perf_counter()
+                selftrain_step(state, batch, mask, cfg, gen, gen)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if remat:
+                counts = read_launches(counters)
+                launches[f"remat_{variant}"] = {
+                    k: launches.get(f"remat_{variant}", {}).get(k, 0) + v
+                    for k, v in counts.items()}
+            runs.append({"remat": remat,
+                         "ms_per_step": 1e3 * float(np.mean(
+                             times[REMAT_WARMUP:])),
+                         "peak_mem_gib": torch.cuda.max_memory_allocated()
+                         / 2**30,
+                         "state": snapshot(state)})
+        exact = all(_state_equal(runs[i]["state"], runs[i - 1]["state"])
+                    for i in (1, 3))
+        entry = {"runs": [{k: v for k, v in r.items() if k != "state"}
+                          for r in runs],
+                 "updates_bit_identical": exact}
+        if not exact:
+            worst = max(_lockstep_ratio(warm, runs[i]["state"],
+                                        runs[i - 1]["state"], False,
+                                        float(np.finfo(np.float32).eps))
+                        for i in (1, 3))
+            entry["held_to_step_rel"] = worst
+            if worst[0] > 1.0:
+                fail(f"remat {variant}: the updates differ from the plain "
+                     f"ones beyond STEP_REL: {entry}")
+        report[variant] = entry
+        print(f"remat {variant} self-train step ({smi}): "
+              + json.dumps(entry), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3228,6 +3719,19 @@ def main() -> int:
     work_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "_work")
     os.makedirs(work_root, exist_ok=True)
+    if sys.argv[1:] == ["--only", "data_parallel_cards"]:
+        # phase 14 (c) alone, for a machine with several cards
+        with tempfile.TemporaryDirectory(dir=work_root) as workdir:
+            if not phase_data_parallel_cards(torch, workdir, smi):
+                fail("phase 14 (c) needs two visible cards")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
+             f"--only data_parallel_cards")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
@@ -3262,6 +3766,12 @@ def main() -> int:
         launches.update(phase_save_result(
             torch, os.path.join(workdir, "save_result"), pth, acdc_best,
             panc_best))
+        launches.update(phase_data_parallel(
+            torch, os.path.join(workdir, "data_parallel"), pth, smi))
+        phase_data_parallel_cards(
+            torch, os.path.join(workdir, "data_parallel_cards"), smi)
+        launches.update(phase_remat(torch, os.path.join(workdir, "remat"),
+                                    smi))
     for e in entries:
         if e["name"] in pancreas:
             # B's, B-as-dx's and C's device times at the 96^3 stage shapes

@@ -270,10 +270,16 @@ def test_test_acdc_reads_the_best_file_and_writes_performance(run, data,
     np.testing.assert_allclose(avg, want, rtol=1e-12)
 
 
+#: more cards than this host has
+TOO_MANY = str(torch.cuda.device_count() + 2)
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--num_devices", "2"], "multi-GPU"),
+    (["--num_devices", TOO_MANY, "--device", "cuda"], "multi-GPU"),
     (["--sp_devices", "2"], "multi-GPU")])
 def test_train_acdc_refuses_what_the_port_lacks(tmp_path, flag, item):
+    """Spatial partitioning stays refused (ROADMAP A4); ``--num_devices``
+    is refused when fewer cards are visible, never run on fewer."""
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP.*{item}"):
         train_acdc.train(_args(tmp_path, *flag))
 
@@ -302,18 +308,22 @@ def test_steps_per_dispatch_two_equals_one(run, data, tmp_path):
                 "momentum_buffer"], st["momentum_buffer"]), (stage, i)
 
 
-@pytest.mark.parametrize("flag,what", [(["--save_result", "1"], "NIfTI"),
-                                       (["--num_devices", "2"], "one device")])
+@pytest.mark.parametrize("flag,what", [
+    (["--save_result", "1"], "NIfTI"),
+    (["--num_devices", TOO_MANY, "--device", "cuda"], "one device")])
 def test_test_acdc_refuses_what_the_port_lacks(tmp_path, monkeypatch, flag,
                                                what):
-    """``--num_devices 2`` is refused (ROADMAP A4). ``--save_result 1``
+    """``--num_devices`` runs on that many cards
+    (``tests/test_torch_parallel_cli.py``) and is refused when fewer are
+    visible: the CLI never runs on fewer (ROADMAP A4). ``--save_result 1``
     writes the JAX CLI's ``{case}_{pred,img,gt}.nii.gz`` (spacing (1, 1,
     10)) with the same decompressed contents, from one .pth on one
     synthetic test list, both CLIs at n_filters 4, 32x32, f32."""
     if what == "one device":
         args = test_acdc.build_parser().parse_args(
             ["--snapshot_root", str(tmp_path), "--device", "cpu", *flag])
-        with pytest.raises(SystemExit, match=what):
+        with pytest.raises(SystemExit, match="but only .* visible .*ROADMAP "
+                                             "A4"):
             test_acdc.test_calculate_metric(args)
         return
     root = jax_synthetic.make_acdc_dataset(

@@ -71,18 +71,22 @@ def test_cli_takes_a_dataset_object(la_set, tmp_path, capsys):
     assert len(CASE_LINE.findall(capsys.readouterr().out)) == 2
 
 
-@pytest.mark.parametrize("flag", [["--save_result", "1"],
-                                  ["--num_devices", "2"]])
+@pytest.mark.parametrize("flag", [
+    ["--save_result", "1"],
+    ["--num_devices", str(torch.cuda.device_count() + 2), "--device",
+     "cuda"]])
 def test_cli_refuses_what_the_port_lacks(la_set, tmp_path, monkeypatch,
                                          flag):
-    """``--num_devices 2`` is refused (multi-GPU evaluation, ROADMAP A4);
+    """``--num_devices`` evaluates on that many cards
+    (``tests/test_torch_parallel_cli.py``) and is refused when fewer are
+    visible, never run on fewer (ROADMAP A4);
     ``--save_result 1`` writes the JAX CLI's files
     (``%02d_{pred,img,gt}.nii.gz``) with the same decompressed contents,
     both CLIs computing in f32 (in bf16 a few voxels near the threshold
     differ between the two)."""
     root, pth = la_set
     if flag[0] == "--num_devices":
-        with pytest.raises(SystemExit, match="error"):
+        with pytest.raises(SystemExit, match="error: .*but only"):
             test_la.main(_flags(root, pth, tmp_path) + ["--device", "cpu"]
                          + flag)
         return

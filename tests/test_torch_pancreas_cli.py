@@ -234,12 +234,23 @@ def test_flags_are_the_jax_clis():
         assert flags == _flags(jax_cli.build_parser())
 
 
+#: more cards than this host has
+TOO_MANY = str(torch.cuda.device_count() + 2)
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--num_devices", "2"], "A4, multi-GPU"),
+    (["--num_devices", TOO_MANY, "--device", "cuda"], "A4, multi-GPU"),
     (["--sp_devices", "2"], "A4, multi-GPU"),
     (["--remat", "1"], "A4, remat")])
 def test_train_pancreas_refuses_what_the_port_lacks(root, tmp_path, flag,
                                                     item):
+    """Spatial partitioning stays refused; ``--num_devices`` is refused
+    when fewer cards are visible, never run on fewer; ``--remat 1`` is
+    ported and reaches the config."""
+    if item.endswith("remat"):
+        assert train_pancreas.config_from_args(
+            _args(root, tmp_path, *flag)).remat
+        return
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP {item}"):
         train_pancreas.train(_args(root, tmp_path, *flag))
 
@@ -268,11 +279,14 @@ def test_steps_per_dispatch_two_equals_one(run, root, tmp_path):
                     stage, i, k)
 
 
-@pytest.mark.parametrize("flag,item", [(["--save_result", "1"], "A5"),
-                                       (["--num_devices", "2"], "A4")])
+@pytest.mark.parametrize("flag,item", [
+    (["--save_result", "1"], "A5"),
+    (["--num_devices", TOO_MANY, "--device", "cuda"], "A4")])
 def test_test_pancreas_refuses_what_the_port_lacks(root, tmp_path,
                                                    monkeypatch, flag, item):
-    """``--num_devices 2`` is refused (ROADMAP A4). ``--save_result 1``
+    """``--num_devices`` evaluates on that many cards
+    (``tests/test_torch_parallel_cli.py``) and is refused when fewer are
+    visible, never run on fewer (ROADMAP A4). ``--save_result 1``
     writes the JAX CLI's
     ``predictions/%02d_{pred,img,gt}.nii.gz`` of the centre-cropped test
     volumes with the same decompressed contents, from one .pth, both CLIs

@@ -56,11 +56,21 @@ def test_two_stages_hand_off_and_write_strict_checkpoints(tmp_path):
     assert len(losses) == 2 and np.isfinite(losses).all()
 
 
+#: more cards than this host has
+TOO_MANY = str(torch.cuda.device_count() + 2)
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--num_devices", "2"], "multi-GPU"), (["--sp_devices", "2"],
-                                           "multi-GPU"),
-    (["--remat", "1"], "remat")])
+    (["--num_devices", TOO_MANY, "--device", "cuda"], "multi-GPU"),
+    (["--sp_devices", "2"], "multi-GPU"), (["--remat", "1"], "remat")])
 def test_refuses_what_the_port_lacks(tmp_path, flag, item):
+    """Spatial partitioning stays refused (ROADMAP A4). ``--num_devices``
+    runs on that many cards (``tests/test_torch_parallel_cli.py``) and is
+    refused when fewer are visible: it never runs on fewer. ``--remat 1``
+    is ported: it reaches the config."""
+    if item == "remat":
+        assert train_la.config_from_args(_args(tmp_path, *flag)).remat
+        return
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP.*{item}"):
         train_la.train(_args(tmp_path, *flag))
 
@@ -98,7 +108,7 @@ def test_ported_flags_reach_the_config(tmp_path, flag, field, want):
     """The JAX CLI's defaults: device store and background validation on;
     the fused backward off unless asked for."""
     args = _args(tmp_path, *flag)
-    train_la._refuse(args)
+    train_la.ranks(args)
     assert getattr(train_la.config_from_args(args), field) is want \
         or getattr(train_la.config_from_args(args), field) == want
 
