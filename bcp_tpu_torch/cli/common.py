@@ -4,8 +4,9 @@
 spawns them itself (:func:`on_ranks`, ``parallel.mesh.launch``), one
 process a card (``cuda:0`` .. ``cuda:N-1`` over NCCL) or, with ``--device
 cpu``, N processes over gloo. ``-1`` is every visible card; asking for
-more cards than are visible raises, nothing runs on fewer. Spatial
-partitioning (``--sp_devices``) is not ported and is refused.
+more cards than are visible raises, nothing runs on fewer. The train
+CLIs' ``--sp_devices S`` splits each volume's x extent over S of them
+(``parallel.mesh``): N/S data indices by S space indices; S must divide N.
 """
 
 from __future__ import annotations
@@ -25,17 +26,18 @@ from bcp_tpu_torch.utils.worker import OrderedWorker
 
 
 def ranks(args) -> int:
-    """The ranks of ``--num_devices`` on ``--device``; refuses
-    ``--sp_devices`` other than 1 (ROADMAP A4: the halo exchanges that
-    kernels B, C and D need across a split volume are not written)."""
-    if getattr(args, "sp_devices", 1) != 1:
-        raise SystemExit("error: --sp_devices != 1: spatial partitioning is "
-                         "not ported (ROADMAP A4, multi-GPU)")
+    """The ranks of ``--num_devices`` on ``--device``; a train CLI's
+    ``--sp_devices`` must divide them (JAX `mesh.py:59-61`)."""
     try:
-        return mesh.resolve_count(args.num_devices, args.device)
+        n = mesh.resolve_count(args.num_devices, args.device)
     except ValueError as e:
         raise SystemExit(f"error: --num_devices: {e} (ROADMAP A4, "
                          f"multi-GPU)") from e
+    sp = getattr(args, "sp_devices", 1)
+    if sp < 1 or n % sp:
+        raise SystemExit(f"error: --sp_devices: sp_devices={sp} must divide "
+                         f"the mesh size {n} (--num_devices)")
+    return n
 
 
 def run_stages(trainer, args):

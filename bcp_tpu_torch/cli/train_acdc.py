@@ -11,11 +11,8 @@ background; ``--resume`` goes on from each stage's last saved state;
 ``--steps_per_dispatch K`` makes K updates per host visit, as CUDA graph
 replays on the card (``train.graphs``); ``--num_devices N`` trains
 data-parallel on N cards (``cli.train_la`` says how), the slices on the
-host feed.
-
-Not ported yet, and refused with the ROADMAP item that brings it:
-spatial partitioning (``--sp_devices``). The JAX CLI has no ``--remat``
-(remat targets the V-Net pipelines).
+host feed, and ``--sp_devices S`` splits each slice's rows over S of them.
+The JAX CLI has no ``--remat`` (remat targets the V-Net pipelines).
 """
 
 from __future__ import annotations
@@ -60,7 +57,10 @@ def build_parser():
                         "eval_every and each stage's iterations must be "
                         "multiples of K")
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="spatial partitioning: not ported (ROADMAP A4)")
+                   help="split each volume's x extent over this many of "
+                        "the ranks (must divide --num_devices and the "
+                        "patch's x extent); the global batch scales by "
+                        "num_devices // sp_devices")
     p.add_argument("--device_data_cache", type=int, default=1,
                    help="keep the train slices on the device and augment "
                         "there; 0 = host feed")
@@ -81,7 +81,7 @@ def config_from_args(args, **overrides):
         u_weight=args.u_weight, consistency=args.consistency,
         consistency_rampup=args.consistency_rampup,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        num_devices=n,
+        num_devices=n, sp_devices=args.sp_devices,
         device_data_cache=bool(args.device_data_cache) and n == 1,
         steps_per_dispatch=args.steps_per_dispatch).replace(**overrides)
 

@@ -12,11 +12,11 @@ makes K updates per host visit, as CUDA graph replays on the card
 (``train.graphs``). ``--num_devices N`` trains data-parallel on N cards
 (``parallel.mesh``; the CLI spawns one rank a card; ``--device cpu``: N
 gloo processes): every rank holds the reference batch, the global batch is
-N times it, and the training volumes stay on the host feed.
+N times it, and the training volumes stay on the host feed. With
+``--sp_devices S`` the N ranks are N/S data indices by S space indices:
+each volume's x extent is split over S ranks (halo exchanges around the
+conv kernels), and the global batch is N/S times the reference's.
 ``--remat 1`` recomputes each V-Net block's activations in the backward.
-
-Not ported yet, and refused with the ROADMAP item that brings it:
-spatial partitioning (``--sp_devices``).
 """
 
 from __future__ import annotations
@@ -57,7 +57,10 @@ def build_parser():
                    help="data-parallel ranks, one card each (-1: every "
                         "visible card); the global batch scales with them")
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="spatial partitioning: not ported (ROADMAP A4)")
+                   help="split each volume's x extent over this many of "
+                        "the ranks (must divide --num_devices and the "
+                        "patch's x extent); the global batch scales by "
+                        "num_devices // sp_devices")
     p.add_argument("--remat", type=int, default=0,
                    help="1: recompute each V-Net block's activations in "
                         "the backward (less memory, a second forward)")
@@ -93,7 +96,7 @@ def config_from_args(args, **overrides):
         consistency_rampup=args.consistency_rampup,
         u_weight=args.u_weight, mask_ratio=args.mask_ratio,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        num_devices=n, remat=bool(args.remat),
+        num_devices=n, sp_devices=args.sp_devices, remat=bool(args.remat),
         device_data_cache=bool(args.device_data_cache) and n == 1,
         steps_per_dispatch=args.steps_per_dispatch,
         fused_bwd=bool(args.fused_bwd)).replace(**overrides)

@@ -15,11 +15,9 @@ reference's lists at 20 %); ``--resume`` goes on from each stage's last
 saved state; ``--steps_per_dispatch K`` makes K updates per host visit, as
 CUDA graph replays on the card (``train.graphs``); ``--num_devices N``
 trains data-parallel on N cards (``cli.train_la`` says how), the volumes on
-the host feed and the epochs N times shorter; ``--remat 1`` recomputes each
-V-Net block's activations in the backward.
-
-Not ported yet, and refused with the ROADMAP item that brings it:
-spatial partitioning (``--sp_devices``).
+the host feed and the epochs N times shorter; ``--sp_devices S`` splits
+each volume's x extent over S of them (the epochs then N/S times shorter);
+``--remat 1`` recomputes each V-Net block's activations in the backward.
 """
 
 from __future__ import annotations
@@ -61,7 +59,10 @@ def build_parser():
                         "eval_every and each stage's iterations must be "
                         "multiples of K")
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="spatial partitioning: not ported (ROADMAP A4)")
+                   help="split each volume's x extent over this many of "
+                        "the ranks (must divide --num_devices and the "
+                        "patch's x extent); the global batch scales by "
+                        "num_devices // sp_devices")
     p.add_argument("--remat", type=int, default=0,
                    help="1: recompute each V-Net block's activations in "
                         "the backward (less memory, a second forward)")
@@ -77,14 +78,15 @@ def config_from_args(args, train_dataset=None, **overrides):
     times the feed's epoch length on ``train_dataset`` (the (labelled,
     unlabelled) lists under ``--data_root`` when None); ``overrides`` set
     other fields last (e.g. a small ``patch_size`` or ``n_filters`` for a
-    test run). With N ranks an epoch is the feed's epoch of N-times-wider
-    streams."""
+    test run). With N ranks in N/S data indices an epoch is the feed's
+    epoch of N/S-times-wider streams."""
     n = ranks(args)
+    scale = n // args.sp_devices
     cfg = pancreas_config(label_percent=args.label_percent).replace(
         root_path=args.data_root, base_lr=args.lr, seed=args.seed,
         batch_size=4 * args.batch_size, labeled_bs=2 * args.batch_size,
         snapshot_root=args.snapshot_root, compute_dtype=args.compute_dtype,
-        num_devices=n, remat=bool(args.remat),
+        num_devices=n, sp_devices=args.sp_devices, remat=bool(args.remat),
         device_data_cache=bool(args.device_data_cache) and n == 1,
         steps_per_dispatch=args.steps_per_dispatch)
     lists = train_dataset or tuple(
@@ -92,9 +94,9 @@ def config_from_args(args, train_dataset=None, **overrides):
         for split in ("train_lab", "train_unlab"))
     return cfg.replace(
         pre_iterations=args.pretraining_epochs * pancreas_steps_per_epoch(
-            cfg, "pre", lists, n),
+            cfg, "pre", lists, scale),
         self_iterations=args.self_training_epochs
-        * pancreas_steps_per_epoch(cfg, "self", lists, n)).replace(
+        * pancreas_steps_per_epoch(cfg, "self", lists, scale)).replace(
             **overrides)
 
 

@@ -45,8 +45,12 @@ Every rank runs the same feeder from the same seed and, with ``rank``,
 keeps rows ``[r*b, (r+1)*b)`` of each stream (``mesh.shard_rows``, the
 JAX package's batch sharding; on the K-stacked batch the rows of each
 iteration), before the copy to its device. Without ``rank`` the feeder
-yields the global batch. The device store is a one-device path: it is
-refused for ``data_scale`` > 1, as in the JAX package (`feed.py:92-95`).
+yields the global batch. Under a space split (``space=(s, S)``,
+``sp_devices`` S, ``data_scale`` N / S) a rank then keeps x slab
+``[s*X/S, (s+1)*X/S)`` of every spatial stream, labels included
+(``stream_sharding``'s ``P('data', 'space')``). The device store is a
+one-device path: it is refused under any world of several ranks, as in
+the JAX package (`feed.py:92-95`).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,13 +123,15 @@ class BCPBatchFeeder:
     of uploading it again (`feed.py:71-76`). ``stack=K`` yields K
     iterations' batches a call, leading-stacked. ``side_labels`` adds ACDC's
     ``ulab_a`` / ``ulab_b`` to self-train batches. ``data_scale`` widens
-    every stream for a world of that many ranks, and ``rank`` keeps that
-    rank's rows of each (module docstring)."""
+    every stream for a world of that many data indices, ``rank`` keeps
+    that data index's rows of each, and ``space`` = (s, S) space index
+    s's x slab of them (module docstring)."""
 
     def __init__(self, cfg: Config, stage: str, dataset, device=None,
                  store_cache: Optional[dict] = None, stack: int = 1,
                  side_labels: bool = False, data_scale: int = 1,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None,
+                 space: Tuple[int, int] = (0, 1)):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
         self.cfg = cfg
@@ -135,7 +141,13 @@ class BCPBatchFeeder:
         self.stack = max(int(stack), 1)
         self.scale = max(int(data_scale), 1)
         self.rank = rank
-        if cfg.device_data_cache and self.scale > 1:
+        self.space = space
+        if space[1] > 1 and (rank is None
+                             or cfg.patch_size[0] % space[1]):
+            raise ValueError(f"space={space} needs the data index (rank) and "
+                             f"an x extent it divides, got rank={rank}, "
+                             f"patch {tuple(cfg.patch_size)}")
+        if cfg.device_data_cache and self.scale * space[1] > 1:
             raise ValueError("device_data_cache is a single-device "
                              "optimisation; use the host feed with several "
                              "ranks")
@@ -394,6 +406,14 @@ class BCPBatchFeeder:
                 v = (v[:, self.rank * b:(self.rank + 1) * b]
                      if self.stack > 1 else
                      v[self.rank * b:(self.rank + 1) * b])
+            s, S = self.space
+            if S > 1:
+                # this rank's x slab: (N, 1, X, ...) images, (N, X, ...)
+                # labels, after a leading K when stacked
+                axis = (1 if k.startswith(("lab", "ulab")) else 2) + (
+                    self.stack > 1)
+                n = v.shape[axis] // S
+                v = v[(slice(None),) * axis + (slice(s * n, (s + 1) * n),)]
             t = torch.from_numpy(np.ascontiguousarray(v))
             if k.startswith(("img", "uimg")):
                 t = t.to(self.img_dtype)

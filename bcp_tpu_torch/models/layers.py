@@ -8,6 +8,13 @@ reference state_dict loads by name; each forward casts input and
 parameters to the module's compute dtype (bf16 for mixed precision), as
 the flax modules' ``dtype`` does. The BatchNorm takes (N, C, *spatial) of
 any rank.
+
+Under a space split (``parallel.mesh``) a tensor is an x slab (dim 2) of
+the whole volume: the 3^3 and 3x3 convs read their neighbours' planes
+(``mesh.halo``) and are VALID in x, the norms take the whole volume's
+statistics, the dropouts keep their slab of the whole volume's draw, and
+:class:`SpaceLevels` says which levels of a U-shaped net are slabs and
+which run replicated.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ class Conv3x3x3(nn.Conv3d):
     dx and dW come from kernel D instead. The rest
     (the V-Net's Ci = 1 first conv) use ``F.conv3d``, as the JAX package
     leaves those to XLA. The bias is added after the conv, in the compute
-    dtype (`layers.py:249`)."""
+    dtype (`layers.py:249`). Under a space split both routes take the
+    halo-padded slab and are VALID in x."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None,
@@ -50,17 +58,21 @@ class Conv3x3x3(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
         w = self.weight.to(x.dtype)
+        split = mesh.space_split()
+        if split:
+            x = mesh.halo(x)
         if kernel_takes(self.in_channels, self.out_channels):
-            y = Conv3x3x3Function.apply(x, w, self.fused_bwd)
+            y = Conv3x3x3Function.apply(x, w, self.fused_bwd, split)
         else:
-            y = F.conv3d(x, w, None, padding=1)
+            y = F.conv3d(x, w, None, padding=(0, 1, 1) if split else 1)
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computed in the compute dtype, bias included: the flax
     ``nn.Conv`` (`layers.py:40-44`) of every conv of the 2-D U-Net, which
-    the JAX package leaves to XLA and the port to cuDNN."""
+    the JAX package leaves to XLA and the port to cuDNN. Under a space
+    split a padded (3x3) conv takes the halo-padded slab, VALID in x."""
 
     def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
         super().__init__(*args, **kw)
@@ -68,8 +80,11 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if self.padding[0] and mesh.space_split():
+            return F.conv2d(mesh.halo(x), w, b, self.stride,
+                            (0, self.padding[1]), self.dilation, self.groups)
+        return self._conv_forward(x, w, b)
 
 
 class Conv3d(nn.Conv3d):
@@ -127,7 +142,10 @@ class TorchBatchNorm(nn.Module):
     the mean over the ranks of each rank's (``mesh.mean_statistics``,
     whose backward sums the gradient over the ranks), and the unbiased
     variance counts the global rows, as the JAX package's statistics over
-    the sharded global batch do."""
+    the sharded global batch do. Under a space split the slabs hold equal
+    shares of the level, so the world mean of the slabs' statistics is the
+    global one, sliced or replicated (``parallel.mesh``); the count is the
+    global batch's rows times the whole level."""
 
     momentum = 0.9
 
@@ -184,7 +202,11 @@ class TorchBatchNorm(nn.Module):
         shape_g = (G, 1, -1) + (1,) * (xg.dim() - 3)
         y = (xg * mul.view(shape_g) + add.view(shape_g)).reshape(x.shape)
         if self.update_running:
-            count = xg[0, :, 0].numel() * mesh.world_size()
+            # a slab's share of the level on every rank, or the whole
+            # level on each data index's S ranks at a replicated level
+            count = xg[0, :, 0].numel() * (
+                mesh.world_size() if mesh.space_split() else
+                mesh.data_size())
             with torch.no_grad():
                 var_u = var_g * (count / max(count - 1, 1))
                 m = self.momentum
@@ -207,7 +229,10 @@ class InstanceNorm(nn.Module):
     over x's own layout, so channels_last_3d activations are not copied to
     NCDHW as ``F.instance_norm`` would; the normalisation is one
     ``addcmul`` pass in the compute dtype. It holds no state_dict entries,
-    as the reference's ``InstanceNorm3d``."""
+    as the reference's ``InstanceNorm3d``. Under a space split the
+    statistics are the whole volume's: the slabs' means of x and x^2
+    summed over the space group only (``mesh.sum_space``; a world sum
+    would mix the samples of other data indices), var = E[x^2] - mean^2."""
 
     def __init__(self, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -217,25 +242,40 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
         sdt = torch.promote_types(torch.float32, x.dtype)
-        var, mean = torch.var_mean(x.to(sdt), dim=tuple(range(2, x.dim())),
-                                   unbiased=False, keepdim=True)
+        dims = tuple(range(2, x.dim()))
+        if mesh.space_split():
+            xf = x.to(sdt)
+            mean, mean2 = (mesh.sum_space(torch.stack([
+                xf.mean(dims, keepdim=True),
+                xf.square().mean(dims, keepdim=True)]))
+                / mesh.space_size()).unbind(0)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+        else:
+            var, mean = torch.var_mean(x.to(sdt), dim=dims, unbiased=False,
+                                       keepdim=True)
         rstd = torch.rsqrt(var + self.eps)
         return torch.addcmul((-mean * rstd).to(x.dtype), x, rstd.to(x.dtype))
 
 
 def draw_uniform(shape: Sequence[int], generator: Optional[torch.Generator],
-                 device, groups: int = 1) -> torch.Tensor:
+                 device, groups: int = 1,
+                 x_axis: Optional[int] = None) -> torch.Tensor:
     """``torch.rand(shape, generator=generator)`` of one forward's rows.
     In a world of several ranks the draw is made for the global batch
-    (``groups`` concatenated sub-batches, every rank's rows of each) and
-    this rank keeps its rows (``mesh.rank_rows``), so the masks are those
-    a one-device run draws for the global batch."""
-    shape = tuple(shape)
+    (``groups`` concatenated sub-batches, every data index's rows of each)
+    and this rank keeps its rows (``mesh.rank_rows``), so the masks are
+    those a one-device run draws for the global batch. ``x_axis``, the
+    axis of a slab (an element-wise mask under a space split), is drawn
+    whole and this rank keeps its slab (``mesh.shard_space``)."""
+    shape = list(shape)
     if not mesh.active():
         return torch.rand(shape, generator=generator, device=device)
-    u = torch.rand((shape[0] * mesh.world_size(), *shape[1:]),
-                   generator=generator, device=device)
-    return mesh.rank_rows(u, groups)
+    shape[0] *= mesh.data_size()
+    if x_axis is not None:
+        shape[x_axis] *= mesh.space_size()
+    u = mesh.rank_rows(torch.rand(shape, generator=generator,
+                                  device=device), groups)
+    return u if x_axis is None else mesh.shard_space(u, x_axis)
 
 
 class Dropout(nn.Module):
@@ -246,7 +286,12 @@ class Dropout(nn.Module):
     (a ``torch.Generator`` on x's device, or torch's default one when
     None; :func:`draw_uniform`, over the global batch of ``groups``
     sub-batches in a world of several ranks); its shape is
-    :meth:`mask_shape`, x's own here."""
+    :meth:`mask_shape`, x's own here. Under a space split the mask of a
+    slab is this rank's slab of the whole volume's (:attr:`sliced` records
+    whether the last train-mode call was on a slab)."""
+
+    #: the mask's x axis, which a space split slices (None: no x axis)
+    x_axis: Optional[int] = 2
 
     def __init__(self, p: float):
         super().__init__()
@@ -254,17 +299,25 @@ class Dropout(nn.Module):
         self.groups = 1
         self.keep: Optional[torch.Tensor] = None
         self.generator: Optional[torch.Generator] = None
+        self.sliced = False
 
     def mask_shape(self, x: torch.Tensor) -> torch.Size:
         return x.shape
 
+    def slab_axis(self) -> Optional[int]:
+        """The mask axis a draw is sliced on, if the last call was on a
+        slab."""
+        return self.x_axis if self.sliced else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
+        self.sliced = self.x_axis is not None and mesh.space_split()
         keep = self.keep
         if keep is None:
             keep = draw_uniform(self.mask_shape(x), self.generator,
-                                x.device, self.groups) < 1.0 - self.p
+                                x.device, self.groups,
+                                self.slab_axis()) < 1.0 - self.p
         keep = keep.to(x.device)
         keep = keep.reshape(*keep.shape, *(1,) * (x.dim() - keep.dim()))
         return torch.where(keep, x / (1.0 - self.p), 0.0)
@@ -273,7 +326,9 @@ class Dropout(nn.Module):
 class ChannelDropout(Dropout):
     """Channel dropout (`layers.py:411-420`; ``nn.Dropout3d`` semantics):
     each (sample, channel) map is kept or zeroed whole, so the keep mask
-    is (N, C)."""
+    is (N, C), the same on the S ranks of a sample."""
+
+    x_axis = None
 
     def __init__(self, p: float = 0.5):
         super().__init__(p)
@@ -289,6 +344,67 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     slightly different positions; in f32 they agree."""
     return F.interpolate(x, size=(2 * x.shape[2], 2 * x.shape[3]),
                          mode="bilinear", align_corners=True)
+
+
+def gathered_level(extent: int, downs: int) -> Optional[int]:
+    """The first of ``downs`` levels whose slab of ``extent`` planes at
+    level 0 is odd, halving from level to level: its down step gathers
+    (:class:`SpaceLevels`); None when every level halves evenly."""
+    for level in range(downs):
+        if extent % 2:
+            return level
+        extent //= 2
+    return None
+
+
+class SpaceLevels:
+    """Which levels of a U-shaped net (level 0 at full resolution, ``downs``
+    halvings below it) run on x slabs under a space split, and the moves
+    between them. A stride-2 down step (conv or pool) is slab-local where
+    the slab's extent is even; at the first level whose slab is odd (LA's
+    112 planes at S = 2: slabs of 56, 28, 14, 7) the activation is
+    gathered (``mesh.gather_space``) before the down step, the levels below
+    run replicated on the S ranks of a data index, and the matching up step
+    takes the slab back (``mesh.shard_space``), as XLA pads / replicates
+    small levels (JAX `mesh.py:24-27`). Outside a split every method is
+    the plain call."""
+
+    def __init__(self, extent: int, downs: int):
+        self.on = mesh.space_split()
+        #: the last sliced level, whose down step gathers (None: all sliced)
+        self.first = gathered_level(extent, downs) if self.on else None
+
+    def sliced(self, level: int) -> bool:
+        return self.on and (self.first is None or level <= self.first)
+
+    def run(self, level: int, fn, *args):
+        """``fn(*args)`` at ``level``: the split on there or off."""
+        if not self.on:
+            return fn(*args)
+        with mesh.split(self.sliced(level)):
+            return fn(*args)
+
+    def down(self, level: int, fn, x: torch.Tensor) -> torch.Tensor:
+        """The down step ``fn`` from ``level`` to the one below."""
+        if self.on and level == self.first:
+            x = mesh.gather_space(x)
+        return self.run(level + 1, fn, x)
+
+    def up(self, level: int, fn, x: torch.Tensor) -> torch.Tensor:
+        """The slab-local up step ``fn`` (a stride-2 deconv) from the level
+        below to ``level``."""
+        y = self.run(level + 1, fn, x)
+        return (mesh.shard_space(y, 2) if self.on and level == self.first
+                else y)
+
+    def upsample(self, level: int, fn, x: torch.Tensor) -> torch.Tensor:
+        """An up step ``fn`` of global coordinates (the align-corners
+        upsample) from the level below to ``level``: on the whole level
+        below (gathered if it is sliced), then this rank's slab."""
+        if self.sliced(level + 1):
+            x = mesh.gather_space(x)
+        y = fn(x)
+        return mesh.shard_space(y, 2) if self.sliced(level) else y
 
 
 def _modules(model: nn.Module, kind) -> list:
@@ -381,7 +497,8 @@ def draw_keep_masks(model: nn.Module, shapes: Sequence[Sequence[int]],
     (:func:`record_dropout_shapes`); with ``out`` the masks are written
     into those bool tensors (a CUDA graph's static inputs). ``groups`` is
     the forward's number of sub-batches (:func:`bn_groups`), which lays
-    out a world's global draw (:func:`draw_uniform`)."""
+    out a world's global draw (:func:`draw_uniform`); a dropout that ran
+    on a slab in the recorded forward keeps its slab of the whole draw."""
     drops = _modules(model, Dropout)
     if len(shapes) != len(drops):
         raise ValueError(f"{len(shapes)} mask shapes for {len(drops)} "
@@ -390,7 +507,7 @@ def draw_keep_masks(model: nn.Module, shapes: Sequence[Sequence[int]],
         device = generator.device
     keep = []
     for i, (m, shape) in enumerate(zip(drops, shapes)):
-        u = draw_uniform(shape, generator, device, groups)
+        u = draw_uniform(shape, generator, device, groups, m.slab_axis())
         keep.append(u < 1.0 - m.p if out is None
                     else torch.lt(u, 1.0 - m.p, out=out[i]))
     return keep

@@ -16,6 +16,14 @@ upsample and the concat skip (skip first), then a ConvBlock without
 dropout; a 3x3 head. Tensors are logical NCHW; on the card they run in
 channels_last, the layout cuDNN prefers. The convs are cuDNN's: no Pallas
 kernel runs on this model in the JAX package either.
+
+Under a space split (``parallel.mesh``) the rows (H, dim 2) are split:
+the 3x3 convs read their neighbours' rows, a 2x2 pool is slab-local where
+the slab is even (ACDC's 256 rows at S = 2 halve to 16 without a
+replicated level), the levels below the first odd slab run replicated
+(:class:`~bcp_tpu_torch.models.layers.SpaceLevels`), and the
+align-corners upsample, whose sample positions are global, runs on the
+gathered level and keeps this rank's slab.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from bcp_tpu_torch.models.layers import (Conv2d, Dropout, TorchBatchNorm,
+from bcp_tpu_torch.models.layers import (Conv2d, Dropout, SpaceLevels,
+                                         TorchBatchNorm,
                                          upsample2x_align_corners)
 
 
@@ -71,9 +80,12 @@ class UpBlock(nn.Module):
         self.conv1x1 = Conv2d(n_deep, n_skip, 1, dtype=dtype)
         self.conv = ConvBlock(2 * n_skip, n_out, 0.0, dtype)
 
-    def forward(self, x_deep, x_skip):
-        x = upsample2x_align_corners(self.conv1x1(x_deep))
-        return self.conv(torch.cat([x_skip.to(x.dtype), x], dim=1))
+    def forward(self, x_deep, x_skip, lv: SpaceLevels, level: int):
+        """From the level below to ``level``."""
+        x = lv.upsample(level, upsample2x_align_corners,
+                        lv.run(level + 1, self.conv1x1, x_deep))
+        return lv.run(level, self.conv,
+                      torch.cat([x_skip.to(x.dtype), x], dim=1))
 
 
 class Encoder(nn.Module):
@@ -86,12 +98,12 @@ class Encoder(nn.Module):
         self.down3 = DownBlock(ft[2], ft[3], dp[3], dtype)
         self.down4 = DownBlock(ft[3], ft[4], dp[4], dtype)
 
-    def forward(self, x):
-        x0 = self.in_conv(x)
-        x1 = self.down1(x0)
-        x2 = self.down2(x1)
-        x3 = self.down3(x2)
-        return x0, x1, x2, x3, self.down4(x3)
+    def forward(self, x, lv: SpaceLevels):
+        x0 = lv.run(0, self.in_conv, x)
+        x1 = lv.down(0, self.down1, x0)
+        x2 = lv.down(1, self.down2, x1)
+        x3 = lv.down(2, self.down3, x2)
+        return x0, x1, x2, x3, lv.down(3, self.down4, x3)
 
 
 class Decoder(nn.Module):
@@ -103,11 +115,11 @@ class Decoder(nn.Module):
         self.up4 = UpBlock(ft[1], ft[0], ft[0], dtype)
         self.out_conv = Conv2d(ft[0], n_classes, 3, padding=1, dtype=dtype)
 
-    def forward(self, feats):
+    def forward(self, feats, lv: SpaceLevels):
         x0, x1, x2, x3, x4 = feats
-        y = self.up3(self.up2(self.up1(x4, x3), x2), x1)
-        x_last = self.up4(y, x0)
-        return self.out_conv(x_last), x_last
+        y = self.up3(self.up2(self.up1(x4, x3, lv, 3), x2, lv, 2), x1, lv, 1)
+        x_last = self.up4(y, x0, lv, 0)
+        return lv.run(0, self.out_conv, x_last), x_last
 
 
 class UNet2D(nn.Module):
@@ -133,6 +145,7 @@ class UNet2D(nn.Module):
             x = x.to(self.compute_dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        logits, x_last = self.decoder(self.encoder(x))
+        lv = SpaceLevels(x.shape[2], 4)
+        logits, x_last = self.decoder(self.encoder(x, lv), lv)
         return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
             x_last

@@ -30,6 +30,15 @@ recomputed forward runs with the BatchNorm groups of the first and updates
 no running statistic (they move once a step), and no dropout lies inside
 a block. The flag adds no module, so a remat model's state_dict is a plain
 one's.
+
+Under a space split (``parallel.mesh``) each level runs on x slabs or
+replicated as :class:`~bcp_tpu_torch.models.layers.SpaceLevels` decides
+from the input slab's extent and the four down steps: LA's 112 planes at
+S = 2 give slabs of 56, 28, 14 and 7, so block_four_dw's input is
+gathered, block_five and block_five_up run replicated, and block_six
+takes its slab back; pancreas' 96 at S = 2 stays sliced to the bottom.
+A remat block's recompute runs with the split as its forward had it, so
+it re-issues the same halo exchanges in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -43,16 +52,21 @@ from torch.utils.checkpoint import checkpoint
 
 from bcp_tpu_torch.models.layers import (ChannelDropout, Conv3d, Conv3x3x3,
                                          ConvTranspose3d, InstanceNorm,
-                                         TorchBatchNorm)
+                                         SpaceLevels, TorchBatchNorm)
+from bcp_tpu_torch.parallel import mesh
+
+#: the V-Net's stride-2 down steps
+DOWNS = 4
 
 
 def _recompute_contexts(block: nn.Module):
     """``checkpoint``'s (forward, recompute) contexts for ``block``: the
-    recompute runs with the BatchNorm groups of this forward (the step's
-    ``bn_groups`` has exited by the backward) and leaves the running
-    statistics alone."""
+    recompute runs with the BatchNorm groups and the space split of this
+    forward (the step's ``bn_groups`` and the level's split have exited by
+    the backward) and leaves the running statistics alone."""
     bns = [m for m in block.modules() if isinstance(m, TorchBatchNorm)]
     groups = [m.groups for m in bns]
+    split = mesh.space_split()
 
     @contextlib.contextmanager
     def recompute():
@@ -60,7 +74,8 @@ def _recompute_contexts(block: nn.Module):
         for m, g in zip(bns, groups):
             m.groups, m.update_running = g, False
         try:
-            yield
+            with mesh.split(split):
+                yield
         finally:
             for m, (g, flag) in zip(bns, old):
                 m.groups, m.update_running = g, flag
@@ -148,13 +163,8 @@ class Encoder(nn.Module):
         self.block_four_dw = DownBlock(8 * nf, 16 * nf, dtype)
         self.block_five = ConvBlock(3, 16 * nf, 16 * nf, dtype, f)
 
-    def forward(self, x):
-        x1 = self.block_one(x)
-        x2 = self.block_two(self.block_one_dw(x1))
-        x3 = self.block_three(self.block_two_dw(x2))
-        x4 = self.block_four(self.block_three_dw(x3))
-        x5 = self.block_five(self.block_four_dw(x4))
-        return x1, x2, x3, x4, x5
+    def forward(self, x, lv: SpaceLevels):
+        return _encode(self, x, lv)
 
 
 class Decoder(nn.Module):
@@ -173,14 +183,30 @@ class Decoder(nn.Module):
         self.out_conv = Conv3d(nf, n_classes, 1, dtype=dtype)
         self.dropout = ChannelDropout() if has_dropout else nn.Identity()
 
-    def forward(self, feats):
-        x1, x2, x3, x4, x5 = feats
-        x6 = self.block_six(self.block_five_up(x5) + x4)
-        x7 = self.block_seven(self.block_six_up(x6) + x3)
-        x8 = self.block_eight(self.block_seven_up(x7) + x2)
-        x8_up = self.block_eight_up(x8) + x1
-        x9 = self.dropout(self.block_nine(x8_up))
+    def forward(self, feats, lv: SpaceLevels):
+        x8_up = _decode(self, feats, lv)
+        x9 = self.dropout(lv.run(0, self.block_nine, x8_up))
         return self.out_conv(x9), x8_up
+
+
+def _encode(m: nn.Module, x, lv: SpaceLevels):
+    """The V-Net encoder's five levels on ``m``'s blocks."""
+    x1 = lv.run(0, m.block_one, x)
+    x2 = lv.run(1, m.block_two, lv.down(0, m.block_one_dw, x1))
+    x3 = lv.run(2, m.block_three, lv.down(1, m.block_two_dw, x2))
+    x4 = lv.run(3, m.block_four, lv.down(2, m.block_three_dw, x3))
+    x5 = lv.run(4, m.block_five, lv.down(3, m.block_four_dw, x4))
+    return x1, x2, x3, x4, x5
+
+
+def _decode(m: nn.Module, feats, lv: SpaceLevels):
+    """The V-Net decoder on ``m``'s blocks up to x8_up, block_nine's
+    input."""
+    x1, x2, x3, x4, x5 = feats
+    x6 = lv.run(3, m.block_six, lv.up(3, m.block_five_up, x5) + x4)
+    x7 = lv.run(2, m.block_seven, lv.up(2, m.block_six_up, x6) + x3)
+    x8 = lv.run(1, m.block_eight, lv.up(1, m.block_seven_up, x7) + x2)
+    return lv.up(0, m.block_eight_up, x8) + x1
 
 
 def set_remat(model: nn.Module, on: bool) -> None:
@@ -219,8 +245,10 @@ class VNet3D(nn.Module):
             x = x.to(self.compute_dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last_3d)
-        x1, x2, x3, x4, x5 = self.encoder(x)
-        logits, x8_up = self.decoder((x1, x2, x3, x4, self.enc_dropout(x5)))
+        lv = SpaceLevels(x.shape[2], DOWNS)
+        x1, x2, x3, x4, x5 = self.encoder(x, lv)
+        logits, x8_up = self.decoder((x1, x2, x3, x4, self.enc_dropout(x5)),
+                                     lv)
         return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
             x8_up
 
@@ -269,15 +297,8 @@ class VNetPancreas(nn.Module):
             x = x.to(self.compute_dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last_3d)
-        x1 = self.block_one(x)
-        x2 = self.block_two(self.block_one_dw(x1))
-        x3 = self.block_three(self.block_two_dw(x2))
-        x4 = self.block_four(self.block_three_dw(x3))
-        x5 = self.block_five(self.block_four_dw(x4))
-        x6 = self.block_six(self.block_five_up(x5) + x4)
-        x7 = self.block_seven(self.block_six_up(x6) + x3)
-        x8 = self.block_eight(self.block_seven_up(x7) + x2)
-        x8_up = self.block_eight_up(x8) + x1
-        logits = self.branchs[0](x8_up)
+        lv = SpaceLevels(x.shape[2], DOWNS)
+        x8_up = _decode(self, _encode(self, x, lv), lv)
+        logits = lv.run(0, self.branchs[0], x8_up)
         return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
             x8_up

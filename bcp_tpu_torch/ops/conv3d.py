@@ -811,29 +811,41 @@ class Conv3x3x3Function(torch.autograd.Function):
     flipped, io-transposed weights; dW by kernel C in f32, cast to w's
     dtype. With ``fused``, when both gradients are needed and
     :func:`fused_bwd_eligible` (the gate of `layers.py:135-144`): both by
-    kernel D."""
+    kernel D.
+
+    With ``halo`` (a space split, ``parallel.mesh.halo``) x is a slab of
+    X + 2 planes whose first and last are its neighbours' planes (or
+    zeros): the kernels run on the padded slab and the output keeps its X
+    inner planes, the whole volume's conv there. The backward pads dy with
+    a zero plane on each side: B-as-dx (or D) then gives the gradient of
+    the padded slab, whose two halo planes the exchange sends back to
+    their owners, and C (or D's dW) on the padded x and dy gives this
+    slab's share of dW, which the step's gradient all-reduce sums."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, w: torch.Tensor,
-                fused: bool = False) -> torch.Tensor:
+                fused: bool = False, halo: bool = False) -> torch.Tensor:
         ctx.save_for_backward(x, w)
-        ctx.fused = fused
-        return conv3x3x3_same(x, w)
+        ctx.fused, ctx.halo = fused, halo
+        y = conv3x3x3_same(x, w)
+        return y[:, :, 1:-1] if halo else y
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
         x, w = ctx.saved_tensors
         dy = dy.to(x.dtype)
+        if ctx.halo:
+            dy = F.pad(dy, (0, 0, 0, 0, 1, 1))
         if dy.is_cuda:     # one layout copy, shared by dx and dW
             dy = dy.contiguous(memory_format=torch.channels_last_3d)
         if ctx.fused and all(ctx.needs_input_grad[:2]) \
                 and fused_bwd_eligible(x.shape[1], w.shape[0]):
             dx, dw = conv3x3x3_dxdw(x, dy, w)
-            return dx, dw.to(w.dtype), None
+            return dx, dw.to(w.dtype), None, None
         dx = conv3x3x3_dx(dy, w) if ctx.needs_input_grad[0] else None
         dw = (conv3x3x3_dw(x, dy).to(w.dtype) if ctx.needs_input_grad[1]
               else None)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 #: kernel launches; a caller sets them to 0 before the run it counts

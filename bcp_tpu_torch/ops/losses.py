@@ -13,6 +13,11 @@ are: a mean over samples or voxels is the mean of the ranks' means
 holds the global loss, and the gradient reaches each rank's rows
 unchanged; ``mesh`` derives why the parameter gradients are then summed
 over the ranks.
+
+Under a space split every slab holds an equal share of the voxels, so
+the world mean of the ranks' means and the world sums are still the
+global batch's; only ``masked_dice_loss``, whose Dice is per sample, sums
+its two spatial sums over the space group first (``mesh.sum_space``).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ def masked_dice_loss(logits: torch.Tensor, target: torch.Tensor,
                      mask: Optional[torch.Tensor] = None,
                      smooth: float = 1e-5) -> torch.Tensor:
     """`mask_DiceLoss` (`losses.py:52-74`): per-(sample, class) dice over
-    the spatial dims, the optional mask on both sums, ``1 - mean``."""
+    the spatial dims, the optional mask on both sums, ``1 - mean``. Under a
+    space split the sums are the whole volume's before the ratio."""
     probs = softmax_probs(logits)
     n, c = probs.shape[:2]
     p = probs.reshape(n, c, -1)
@@ -54,7 +60,10 @@ def masked_dice_loss(logits: torch.Tensor, target: torch.Tensor,
         m = mask.reshape(n, 1, -1).to(p.dtype)
         inter = inter * m
         union = union * m
-    dice = (2.0 * inter.sum(-1) + smooth) / (union.sum(-1) + smooth)
+    inter, union = inter.sum(-1), union.sum(-1)
+    if mesh.space_split():
+        inter, union = mesh.sum_space(torch.stack([inter, union])).unbind(0)
+    dice = (2.0 * inter + smooth) / (union + smooth)
     return 1.0 - mesh.mean_ranks(dice.mean())
 
 

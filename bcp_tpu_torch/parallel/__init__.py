@@ -1,1 +1,2 @@
-"""Data parallelism over several ranks (``parallel.mesh``)."""
+"""Data parallelism and spatial partitioning over several ranks
+(``parallel.mesh``)."""

@@ -48,8 +48,14 @@ pre-train graph those of the student's forward and backward, the losses
 and the gradient all-reduce. A capture records them on the capture stream
 like any kernel; every rank captures at the same iterations (a stage's
 second group, a learning-rate change), so every rank's graphs hold the
-same collectives in the same order. The NMS between them is rank-local
-and issues none, whatever its round count on each rank.
+same collectives in the same order. The NMS between them runs eagerly,
+whatever its round count on each rank: rank-local, or under a space split
+on the teacher's masks gathered over the space group (one all-gather
+before its rounds, ``steps.clean_masks``). Under a space split the
+graphs also hold the halo exchanges, the gathers of replicated levels and
+the space group's sums; the copy-paste mask buffer holds the whole patch
+and the steps take its slab; the keep masks are drawn whole and sliced as
+the recorded forward's dropouts were.
 
 The kernel wrappers count their launches (``kernels.count_launch``), and a
 replay bypasses them: each capture's counts are taken back and added again
@@ -176,8 +182,9 @@ class GraphStep:
         self.plab = None
         if stage == "self":
             n = like["uimg_a"].shape[0] + like["uimg_b"].shape[0]
-            self.plab = torch.empty((n, *cfg.patch_size), dtype=torch.int32,
-                                    device=dev)
+            # the labels' spatial shape: an x slab under a space split
+            self.plab = torch.empty((n, *like["lab_a"].shape[1:]),
+                                    dtype=torch.int32, device=dev)
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
         #: name -> (graph, its outputs, its launches, its learning rate)
         self.graphs: Dict[str, tuple] = {}

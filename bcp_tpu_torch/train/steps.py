@@ -35,7 +35,11 @@ on its rows of the global batch: the BatchNorm statistics (the teacher's
 included) and the losses are the global batch's, the update all-reduces
 the gradients once between ``backward`` and the optimizer step, and the
 returned losses are the global ones, as the JAX package's step on the
-sharded batch computes them.
+sharded batch computes them. Under a space split a rank's batch holds x
+slabs of its rows; the copy-paste mask comes whole (every rank draws the
+same one) and each step keeps its slab before the mix, and the NMS, a
+property of the whole volume, runs on the masks gathered over the space
+group (:func:`clean_masks`).
 
 Batches are dicts of tensors on the device: ``img_a``, ``img_b``,
 ``uimg_a``, ``uimg_b`` (N, 1, *S) and ``lab_a``, ``lab_b`` (N, *S) integer.
@@ -102,6 +106,7 @@ def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
     smoothing, in f32 (`steps.py:195-207`)."""
     _check(cfg)
     model = state.model
+    mask = mesh.shard_space(mask, 0)
     img = mix(batch["img_a"], batch["img_b"], mask)
     with _draws(model, dropout):
         logits = model(img)[0]
@@ -156,13 +161,18 @@ def clean_masks(masks: torch.Tensor, cfg: Config) -> torch.Tensor:
     """With ``cfg.nms`` each sample's largest component (``"binary"``) or
     each class's (``"argmax"``) of :func:`teacher_masks`; else the masks.
     The NMS reads a flag back every round (``ops.cc``), so a CUDA graph
-    step runs it between its two graphs."""
+    step runs it between its two graphs. Under a space split the largest
+    component is the whole volume's: the slabs are gathered over the space
+    group, cleaned whole on each of its ranks, and each keeps its slab."""
     if not cfg.nms:
         return masks
+    whole = mesh.gather_space(masks, 1)
     if cfg.pseudo_label == "argmax":
-        return cc.largest_cc_per_class(masks, cfg.num_classes,
-                                       cfg.cc_connectivity)
-    return cc.largest_cc_batch(masks, cfg.cc_connectivity)
+        whole = cc.largest_cc_per_class(whole, cfg.num_classes,
+                                        cfg.cc_connectivity)
+    else:
+        whole = cc.largest_cc_batch(whole, cfg.cc_connectivity)
+    return mesh.shard_space(whole, 1)
 
 
 def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -200,6 +210,7 @@ def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
     (`steps.py:323-334`)."""
     _check(cfg)
     model = state.model
+    mask = mesh.shard_space(mask, 0)
     usub = batch["uimg_a"].shape[0]
     plab = plab.long()
     plab_a, plab_b = plab[:usub], plab[usub:]

@@ -71,6 +71,15 @@ profiles, and every rank waits for it at the end of a stage, so the self
 stage reads the pre-train best once it is whole; ``resume`` reads the
 same ``last_state.pt`` on every rank.
 
+With ``cfg.sp_devices`` S > 1 (`trainer.py:153-166,308-313`) the world is
+N/S data indices by S space indices (``mesh.set_space``): the global
+batch is N/S reference batches, a data index's rows are split into x
+slabs over its S ranks (the feed's ``space``), and the step computes the
+one-device update of the global batch through the halo exchanges and
+gathers of ``parallel.mesh``. S must divide N and the patch's x extent.
+Validation runs with the split off (``flat_mesh``, JAX `mesh.py:66-72`):
+the evaluators shard windows or slices over all N ranks as without it.
+
 ``log_images=True`` writes the reference's TensorBoard image panels
 (``train.snapshots``; `trainer.py:465-486,633-680`) at its cadences: LA
 self-train at ``it % eval_every == 1``, ACDC both stages every 20
@@ -191,9 +200,6 @@ class BCPTrainer:
                  log_images: bool = False):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
-        if cfg.sp_devices != 1:
-            raise ValueError(f"sp_devices={cfg.sp_devices}: spatial "
-                             f"partitioning is not ported (ROADMAP A4)")
         if cfg.remat and cfg.net_type not in ("VNet", "VNet_pancreas"):
             # `trainer.py:177-182`
             raise ValueError(f"remat targets the V-Net pipelines; net_type="
@@ -204,8 +210,19 @@ class BCPTrainer:
                 f"num_devices={cfg.num_devices} but this process is in a "
                 f"world of {self.world}: start the ranks with "
                 f"parallel.mesh.launch (the CLIs' --num_devices)")
+        sp = max(int(cfg.sp_devices), 1)
+        if sp > 1 and self.world < sp:
+            # `trainer.py:157-166`
+            raise ValueError(
+                f"sp_devices={sp} needs a mesh with a matching 'space' "
+                f"axis: pass num_devices >= sp_devices (got num_devices="
+                f"{cfg.num_devices}, world of {self.world})")
+        if sp > 1 and cfg.patch_size[0] % sp:
+            raise ValueError(f"sp_devices={sp} must divide the patch's "
+                             f"leading spatial extent {cfg.patch_size[0]}")
+        mesh.set_space(sp)
         #: the feed's stream widening, the global batch's reference batches
-        self.data_scale = self.world
+        self.data_scale = self.world // sp
         self.cfg = cfg
         self.log_images = log_images
         self.device = resolve_device(device)
@@ -273,13 +290,15 @@ class BCPTrainer:
             torch.cuda.current_stream(self.device).wait_event(ready)
         self.eval_model.load_state_dict(weights)
         self.validations += 1
-        if self.cfg.variant == "acdc":
-            per_class = np.mean(self.evaluator.validate_volumes(
-                self._load_val_cases(), cache=True), axis=0)
-            out = float(per_class[:, 0].mean()), per_class
-        else:
-            out = self.evaluator.validate_dice(
-                self._load_val_cases(), rule=self.cfg.eval_rule), None
+        # every rank evaluates whole windows or slices
+        with mesh.split(False):
+            if self.cfg.variant == "acdc":
+                per_class = np.mean(self.evaluator.validate_volumes(
+                    self._load_val_cases(), cache=True), axis=0)
+                out = float(per_class[:, 0].mean()), per_class
+            else:
+                out = self.evaluator.validate_dice(
+                    self._load_val_cases(), rule=self.cfg.eval_rule), None
         # every rank takes rank 0's score, and so its best-model decision
         return mesh.broadcast_object(out)
 
@@ -337,8 +356,9 @@ class BCPTrainer:
                 "optimizer": [v for st in state.optimizer.state.values()
                               for v in st.values()
                               if isinstance(v, torch.Tensor)]})
-            logger.info("mesh over %d devices: data=%d space=1 (global "
+            logger.info("mesh over %d devices: data=%d space=%d (global "
                         "batch %d)", self.world, self.data_scale,
+                        mesh.space_size(),
                         cfg.batch_size * self.data_scale)
         K = check_dispatch(cfg, max_iterations - state.step)
         dataset = self.train_dataset
@@ -350,9 +370,13 @@ class BCPTrainer:
                        LAHeartDataset)(cfg.root_path, "train", cache=True)
         feeder = BCPBatchFeeder(cfg, stage, dataset, self.device,
                                 store_cache=self.feed_store_cache, stack=K,
-                                side_labels=self.log_images and main,
+                                side_labels=self.log_images and (
+                                    main or mesh.space_size() > 1),
                                 data_scale=self.data_scale,
-                                rank=mesh.rank() if mesh.active() else None)
+                                rank=(mesh.data_index() if mesh.active()
+                                      else None),
+                                space=(mesh.space_index(),
+                                       mesh.space_size()))
         logger.info("%d iterations per epoch (device-store init %.1fs)",
                     feeder.steps_per_epoch, feeder.store_init_s)
         stage_seed = cfg.seed + (0 if stage == "pre" else 1)
@@ -480,21 +504,34 @@ class BCPTrainer:
             """The groups' ``before_update``: iteration ``it``'s panels
             when they are due (``ulabs``: the batch's true unlabelled
             labels, K-stacked when K > 1); rank 0's rows hold the global
-            batch's first samples."""
-            if not (self.log_images and main):
+            batch's first samples. Under a space split every rank gathers
+            its rows' whole volumes over its space group, and rank 0 makes
+            the panels with the split off."""
+            sp = mesh.space_size() > 1
+            if not (self.log_images and (main or sp)):
                 return None
 
             def hook(it, sub, mask, plab):
                 if not self._snapshot_due(it, stage):
                     return
-                if cfg.variant == "la":
-                    panels = make_la_snapshot(state, sub, mask, plab)
-                else:
-                    ul = {k: v if K == 1 else v[it - first]
-                          for k, v in ulabs.items()}
-                    panels = make_acdc_snapshot(
-                        state, sub, mask, cfg, stage, ul.get("ulab_a"),
-                        ul.get("ulab_b"))
+                ul = {k: v if K == 1 else v[it - first]
+                      for k, v in ulabs.items()}
+                if sp:
+                    sub = {k: mesh.gather_space(v, 1 if k.startswith("lab")
+                                                else 2)
+                           for k, v in sub.items()}
+                    ul = {k: mesh.gather_space(v, 1) for k, v in ul.items()}
+                    if plab is not None:
+                        plab = mesh.gather_space(plab, 1)
+                if not main:
+                    return
+                with mesh.split(False):
+                    if cfg.variant == "la":
+                        panels = make_la_snapshot(state, sub, mask, plab)
+                    else:
+                        panels = make_acdc_snapshot(
+                            state, sub, mask, cfg, stage, ul.get("ulab_a"),
+                            ul.get("ulab_b"))
                 snaps.append((it, panels))
             return hook
 

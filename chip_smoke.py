@@ -147,6 +147,21 @@ described by their functions.)
     the self-train step's ms and peak memory with and without remat, in
     turns, the updates equal.
 
+15. Spatial partitioning (``phase_spatial_slabs``,
+    ``phase_spatial_shared_card``, ``phase_spatial_cards``): (a) every
+    halo'd conv of LA and pancreas at full width, S = 2 and 4, slab by
+    slab in one process (neighbour planes through the exchange's own pad)
+    against the whole-volume launch: B forward, B-as-dx, C, D and
+    block_one's ``F.conv3d``, within phase 2's limits, each level printed
+    as sliced or replicated; (b) the f32 update of LA and pancreas at S =
+    2 by two gloo ranks sharing this card (K = 1) against one process,
+    under phase 3's rule, with each rank's peak memory beside the one
+    process's; (c) with two or more visible cards the same on two NCCL
+    ranks, ``train_la --num_devices 2 --sp_devices 2 --steps_per_dispatch
+    4`` and, with four, ``--num_devices 4 --sp_devices 2``, else a line
+    that it was skipped; ``python3 chip_smoke.py --only spatial_cards``
+    runs (c) alone.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -3692,6 +3707,452 @@ def phase_remat(torch, workdir: str, smi: str):
     return launches
 
 
+#: phase 15's splits of the leading spatial axis
+SP_SPLITS = (2, 4)
+#: phase 15 (a)'s batch: the self-train student's concat batch of a rank
+SP_BATCH = 4
+
+
+def sp_levels(patch, nf: int):
+    """(level, channels, shape) of the V-Net's five levels at ``patch``."""
+    return [(lvl, nf << lvl, tuple(s >> lvl for s in patch))
+            for lvl in range(5)]
+
+
+def phase_spatial_slabs(torch, smi: str):
+    """Phase 15 (a): every halo'd conv of a space split, slab by slab in one
+    process, against the whole-volume launch, at LA's (112x112x80) and
+    pancreas' (96^3) full width (n_filters 16), S = 2 and 4, bf16, batch
+    SP_BATCH. Each slab gets its neighbours' planes through
+    ``mesh.halo_slabs`` (the exchange's own ``pad_slab``); at each sliced
+    level (``layers.gathered_level``) with Ci = Co: kernel B on the padded
+    slabs through ``Conv3x3x3Function``'s halo forward (its crop) against B
+    on the whole volume; B-as-dx on the zero-padded dy of each slab,
+    folded back by ``mesh.fold_slabs``, against B-as-dx of the whole; C's
+    f32 dW summed over the slabs against C of the whole; D's dx and dW the
+    same way; at level 0 block_one's ``F.conv3d`` (Ci = 1, VALID in x).
+    Limits are phase 2's: forward and dx max|slabs - whole| <= 1e-2
+    max|whole|, dW 1e-3. Prints each level as sliced or replicated, and
+    the CUDA-event ms of B's forward on the whole volume beside the S
+    slabs' pads and forwards (the split's overhead on one card: the pad
+    copies and the 2 / Xs extra planes). Returns the launches made on the
+    slabs."""
+    from bcp_tpu_torch.models.layers import gathered_level
+    from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
+                                          conv3x3x3_dx, conv3x3x3_dxdw,
+                                          conv3x3x3_same)
+    from bcp_tpu_torch.parallel import mesh
+    import torch.nn.functional as F
+    counters = kernel_counters()
+    report, launches = {"card": smi}, {}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    cl = torch.channels_last_3d
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item() / max(
+            b.float().abs().max().item(), 1e-30)
+
+    for variant, patch in (("la", PATCH), ("pancreas", PANC_PATCH)):
+        for S in SP_SPLITS:
+            first = gathered_level(patch[0] // S, 4)
+            rows = []
+            for lvl, C, shape in sp_levels(patch, 16):
+                sliced = first is None or lvl <= first
+                row = {"level": lvl, "channels": C, "shape": list(shape),
+                       "slab": shape[0] // S if sliced else shape[0],
+                       "split": "sliced" if sliced else "replicated"}
+                rows.append(row)
+                if not sliced:
+                    continue
+                x, dy = rnd(SP_BATCH, C, *shape), rnd(SP_BATCH, C, *shape)
+                w = rnd(C, C, 3, 3, 3).contiguous()
+                with torch.no_grad():
+                    want = {"forward": conv3x3x3_same(x, w),
+                            "dx": conv3x3x3_dx(dy, w),
+                            "dw": conv3x3x3_dw(x, dy)}
+                    want["dxdw_dx"], want["dxdw_dw"] = conv3x3x3_dxdw(x, dy,
+                                                                      w)
+                    read_launches(counters, reset=True)
+                    pads = mesh.halo_slabs(x, S)
+                    dys = [F.pad(d, (0, 0, 0, 0, 1, 1)).contiguous(
+                        memory_format=cl) for d in dy.chunk(S, 2)]
+                    got = {"forward": torch.cat([Conv3x3x3Function.apply(
+                               p, w, False, True) for p in pads], 2),
+                           "dx": mesh.fold_slabs([conv3x3x3_dx(d, w)
+                                                  for d in dys]),
+                           "dw": sum(conv3x3x3_dw(p, d)
+                                     for p, d in zip(pads, dys))}
+                    fused = [conv3x3x3_dxdw(p, d, w)
+                             for p, d in zip(pads, dys)]
+                    got["dxdw_dx"] = mesh.fold_slabs([f[0] for f in fused])
+                    got["dxdw_dw"] = sum(f[1] for f in fused)
+                    counts = read_launches(counters)
+                    row["whole_forward_ms"] = cuda_ms(
+                        torch, lambda: conv3x3x3_same(x, w))
+                    row["slabs_pad_and_forward_ms"] = cuda_ms(
+                        torch, lambda: [Conv3x3x3Function.apply(
+                            p, w, False, True)
+                            for p in mesh.halo_slabs(x, S)])
+                    read_launches(counters, reset=True)
+                launches = {k: launches.get(k, 0) + v
+                            for k, v in counts.items()}
+                for k in want:
+                    row[k] = err(got[k], want[k])
+                    limit = 1e-3 if k.endswith("dw") else 1e-2
+                    if not row[k] <= limit:
+                        fail(f"phase 15 (a) {variant} S={S} level {lvl}: "
+                             f"{k} of the slabs differs from the whole "
+                             f"volume's: {row}")
+                if lvl == 0:    # block_one: Ci = 1, F.conv3d
+                    x1, w1 = rnd(SP_BATCH, 1, *shape), rnd(C, 1, 3, 3, 3)
+                    with torch.no_grad():
+                        whole = F.conv3d(x1, w1, padding=1)
+                        part = torch.cat([F.conv3d(p, w1, padding=(0, 1, 1))
+                                          for p in mesh.halo_slabs(x1, S)],
+                                         2)
+                    row["block_one_f_conv3d"] = err(part, whole)
+                    if not row["block_one_f_conv3d"] <= 1e-2:
+                        fail(f"phase 15 (a) {variant} S={S}: block_one's "
+                             f"F.conv3d on the slabs differs: {row}")
+                del x, dy, w, want, got, fused, pads, dys
+            report[f"{variant}_S{S}"] = {"gathered_level": first,
+                                         "levels": rows}
+            print(f"spatial slabs {variant} S={S}: " + json.dumps(
+                report[f"{variant}_S{S}"]), flush=True)
+    return launches
+
+
+def _sp_config(variant: str):
+    from bcp_tpu_torch.config import la_config, pancreas_config
+    if variant == "la":
+        return la_config(labelnum=4, patch_size=PATCH,
+                         compute_dtype="float32")
+    return pancreas_config(compute_dtype="float32")
+
+
+def sp_inputs(torch, variant: str):
+    """Phase 15's global f32 inputs of one data index: the reference batch
+    (2 + 2 labelled, 2 + 2 unlabelled rows) of blob volumes at the
+    variant's full-width patch, the copy-paste mask, LA's channel-dropout
+    keep masks, the seeded start state_dict."""
+    from bcp_tpu_torch.data.synthetic import la_cases
+    from bcp_tpu_torch.ops.masks import (cuboid_mask, cuboid_mask_fixed,
+                                         cuboid_starts, fixed_starts)
+    from bcp_tpu_torch.train.state import build_model
+    cfg = _sp_config(variant)
+    patch = tuple(cfg.patch_size)
+    cases = la_cases(8, patch, seed=SEED + 41)
+    img = np.stack([c[0] for c in cases])[:, None]
+    lab = np.stack([c[1] for c in cases]).astype(np.uint8)
+    host = {"img_a": img[0:2], "img_b": img[2:4], "uimg_a": img[4:6],
+            "uimg_b": img[6:8], "lab_a": lab[0:2], "lab_b": lab[2:4]}
+    rng = np.random.default_rng(SEED + 42)
+    start = build_model(cfg, "train", "cpu", seed=SEED).state_dict()
+    if variant == "la":
+        mask = cuboid_mask(patch, cuboid_starts(rng, patch))
+        nf = start["encoder.block_one.conv.0.weight"].shape[0]
+
+        def keep(rows):   # the V-Net's two channel dropouts
+            return [rng.random((rows, 16 * nf)) < 0.5,
+                    rng.random((rows, nf)) < 0.5]
+        # pre-train: the 2 mixed labelled rows; the teacher's and the
+        # student's concat forwards: 2 + 2 rows in two groups
+        keeps = {"pre": (1, keep(2)), "teacher": (2, keep(4)),
+                 "student": (2, keep(4))}
+    else:
+        mask = cuboid_mask_fixed(patch, fixed_starts(rng, patch,
+                                                     cfg.mask_patch),
+                                 cfg.mask_patch)
+        keeps = {}
+    return host, mask.numpy().astype(np.int32), keeps, start
+
+
+def _sp_updates(torch, variant: str, inputs, plab, sp: int):
+    """One f32 pre-train and one self-train update of ``variant`` at full
+    width from phase 15's ``inputs`` on this rank's part of the global
+    batch (a world of one data index: every row, x slab s of ``sp``; the
+    whole batch outside a world), the self-train update on the pseudo-
+    labels ``plab`` (the one process's) when given. Returns (parameter
+    gradients, f32 updates and optimizer state of the two updates, losses,
+    this side's own whole pseudo-labels, the peak GiB of the updates from
+    after the state is built, the launches, and in a world the
+    collectives the self-train step issued, by ``c10d`` op, from a host
+    trace of it)."""
+    import copy
+    from bcp_tpu_torch.parallel import mesh
+    from bcp_tpu_torch.train.state import (TrainState, build_model,
+                                           build_optimizer)
+    from bcp_tpu_torch.train.steps import (pretrain_step, pseudo_labels,
+                                           selftrain_update)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.set_space(sp if mesh.active() else 1)
+    if mesh.data_size() != 1:
+        raise ValueError("phase 15's updates run one data index")
+    host, mask, keeps, start = inputs
+    cfg = _sp_config(variant)
+
+    def state():
+        m = build_model(cfg, "train", DEVICE)
+        m.load_state_dict(start)
+        t = copy.deepcopy(m)
+        for p in t.parameters():
+            p.requires_grad_(False)
+        return TrainState(m, t, build_optimizer(cfg, m.parameters()))
+    batch = {k: mesh.shard_space(torch.from_numpy(v), 1 if k.startswith(
+        "lab") else 2).contiguous().to(DEVICE) for k, v in host.items()}
+    mask_t = torch.from_numpy(mask).to(DEVICE)
+    k = {n: [mesh.rank_rows(torch.from_numpy(a), grp).to(DEVICE)
+             for a in v] for n, (grp, v) in keeps.items()}
+    counters = kernel_counters()
+    read_launches(counters, reset=True)
+    pre = state()
+    st = state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m_pre = pretrain_step(pre, batch, mask_t, cfg, dropout=k.get("pre"))
+    # the self-train step's collectives, counted on the host
+    trace = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU]) if mesh.active()
+        else contextlib.nullcontext())
+    with trace:
+        own = pseudo_labels(st, batch, cfg, dropout=k.get("teacher"))
+        own = mesh.gather_space(own, 1).cpu()
+        use = own if plab is None else torch.from_numpy(plab)
+        m_self = selftrain_update(st, batch, mesh.shard_space(
+            use, 1).to(DEVICE), mask_t, cfg, dropout=k.get("student"))
+        torch.cuda.synchronize()
+    calls = ({e.key: e.count for e in trace.key_averages()
+              if e.key.startswith("c10d::")} if mesh.active() else {})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = {f"{tag}.{n}": p.grad.cpu().double()
+             for tag, s_ in (("pre", pre), ("self", st))
+             for n, p in s_.model.named_parameters()}
+    delta = {}
+    for tag, mod in (("pre", pre.model), ("self", st.model),
+                     ("teacher", st.teacher)):
+        for n, v in mod.state_dict().items():
+            if not n.endswith("num_batches_tracked"):
+                delta[f"{tag}.{n}"] = (v.cpu().double()
+                                       - start[n].double()).float()
+    for tag, s_ in (("pre", pre), ("self", st)):
+        for n, p in s_.model.named_parameters():
+            buf = s_.optimizer.state[p].get("momentum_buffer")
+            if buf is not None:
+                delta[f"{tag}.momentum.{n}"] = buf.cpu().float()
+    losses = {f"pre.{n}": float(v) for n, v in m_pre.items()}
+    losses.update({f"self.{n}": float(v) for n, v in m_self.items()})
+    return (grads, delta, losses, own.numpy(), peak, read_launches(counters),
+            calls)
+
+
+def _hold_sp(torch, variant, want, got, start, extra, label):
+    """The split run's update ``got`` against the one process's ``want``
+    under phase 3's rule: LA's updates and momentum buffers (SGD) as phase
+    14 (c) holds them; pancreas' gradients as phase 9 does (Adam's first
+    update turns the zero gradient of a conv bias in front of an instance
+    norm into a move of about lr with a sign the rounding picks: those
+    biases must stay below BIAS_NOISE of their module's weight
+    gradient)."""
+    wg, wd, wl, plab = want[:4]
+    gg, gd, gl, gplab = got[:4]
+    extra = dict(extra, pseudo_label_flips=int((gplab != plab).sum()),
+                 pseudo_label_voxels=int(plab.size))
+    if gplab.shape != plab.shape or \
+            extra["pseudo_label_flips"] > FLIP_SHARE * plab.size:
+        fail(f"{label}: the pseudo-labels differ: {extra}")
+    if variant == "la":
+        def group(name):
+            head, last = name.rsplit(".", 1)
+            return head, last.startswith("running")
+        scale = {}
+        for name, d in wd.items():
+            scale[group(name)] = max(scale.get(group(name), 0.0),
+                                     d.abs().max().item())
+        return _compare_step(
+            torch, {k: v.double() for k, v in wd.items()}, wl,
+            {k: v.double() for k, v in gd.items()}, gl, start, scale,
+            float(np.finfo(np.float32).eps), group, extra, patch=PATCH,
+            label=label)
+
+    def cancelling(n):      # a conv bias in front of an instance norm
+        return n.endswith(".bias") and ".branchs.0.1." not in n
+    scale = {}
+    for n, g_ in wg.items():
+        if not cancelling(n):
+            mod = n.rsplit(".", 1)[0]
+            scale[mod] = max(scale.get(mod, 0.0), g_.abs().max().item())
+    ratios, noise = [], []
+    for n, g_ in wg.items():
+        s_ = scale[n.rsplit(".", 1)[0]]
+        if cancelling(n):
+            e = max(gg[n].abs().max().item(), g_.abs().max().item())
+            noise.append((e / s_ if s_ else (0.0 if e == 0 else np.inf), n))
+        else:
+            e = (gg[n] - g_).abs().max().item()
+            ratios.append((e / (STEP_REL * s_) if s_ else
+                           (0.0 if e == 0 else np.inf), n))
+    ratios.sort(reverse=True)
+    noise.sort(reverse=True)
+    lworst = max((abs(gl[n] - wl[n]) / max(abs(wl[n]), 1e-12), n)
+                 for n in wl)
+    result = {"patch": list(PANC_PATCH), "tensors": len(wg),
+              "rel_limit": STEP_REL,
+              "worst_grad_err_over_limit": ratios[0][0],
+              "worst_tensor": ratios[0][1],
+              "next_worst": [[r, n] for r, n in ratios[1:4]],
+              "worst_bias_grad_over_weight_grad": noise[0][0],
+              "bias_noise_limit": BIAS_NOISE, "max_rel_loss_err": lworst[0],
+              **extra}
+    print(f"{label}: " + json.dumps(result), flush=True)
+    if not all(np.isfinite(v) for v in gl.values()) or ratios[0][0] > 1.0 \
+            or noise[0][0] > BIAS_NOISE or lworst[0] > 1e-4:
+        fail(f"{label}: the split update differs: {result}")
+    return result
+
+
+def _sp_rank(*args):
+    import torch
+    return _sp_updates(torch, *args)
+
+
+def _shared_card_rank(rank: int, tmp: str, variant: str, inputs, plab):
+    """One of two gloo ranks sharing ``cuda:0`` (phase 15 (b)):
+    :func:`_sp_updates` at S = 2 (gloo reduces, all-gathers and
+    reduce-scatters CUDA tensors through the host). Each rank writes its
+    result."""
+    import pickle
+    import torch
+    from bcp_tpu_torch import kernels
+    from bcp_tpu_torch.parallel import mesh
+    with mesh.process_group(rank, 2, "cuda:0", "file://" + os.path.join(
+            tmp, "store"), backend="gloo"):
+        kernels.build_for_world()
+        out = _sp_updates(torch, variant, inputs, plab, 2)
+    with open(os.path.join(tmp, f"result{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_spatial_shared_card(torch, smi: str):
+    """Phase 15 (b): ``train_la``'s and ``train_pancreas``' f32 update at
+    full width with S = 2 on this one card: two gloo ranks share
+    ``cuda:0`` (NCCL refuses two ranks on one card), K = 1 (gloo captures
+    nothing), against one process on the whole batch under phase 3's rule
+    (:func:`_hold_sp`), with each rank's peak memory beside the one
+    process's and the collectives of rank 0's self step. Returns the
+    launches of rank 0's updates."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    launches, report = {}, {"card": smi}
+    for variant in ("la", "pancreas"):
+        inputs = sp_inputs(torch, variant)
+        one = _sp_updates(torch, variant, inputs, None, 1)
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix="bcp_sp_")
+        try:
+            t0 = time.perf_counter()
+            mp.start_processes(_shared_card_rank,
+                               args=(tmp, variant, inputs, one[3]),
+                               nprocs=2, join=True, start_method="spawn")
+            t_two = time.perf_counter() - t0
+            outs = []
+            for r in range(2):
+                with open(os.path.join(tmp, f"result{r}.pkl"), "rb") as f:
+                    outs.append(pickle.load(f))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        got = outs[0]
+        report[variant] = _hold_sp(
+            torch, variant, one, got, inputs[3],
+            {"card": smi, "S": 2, "ranks_on_one_card": 2,
+             "peak_gib_one_process": one[4],
+             "peak_gib_ranks": [o[4] for o in outs],
+             "self_step_collectives_rank0": got[6], "ranks_s": t_two},
+            f"spatial S=2 two gloo ranks on one card vs one process "
+            f"({variant})")
+        launches[f"train_{variant}_sp2_shared_card"] = got[5]
+    return launches
+
+
+def phase_spatial_cards(torch, workdir: str, smi: str):
+    """Phase 15 (c), with two or more visible cards: the f32 full-width
+    update of LA and pancreas at N = S = 2 on two NCCL ranks against one
+    process (:func:`_hold_sp`, each rank's peak memory beside the one
+    process's); then ``cli.train_la`` at LA's full width with
+    ``--num_devices 2 --sp_devices 2 --steps_per_dispatch 4`` (host feed,
+    2 x 4 iterations a stage: the second group's CUDA graphs capture the
+    halo all-gathers, the gathers and the space sums) and, with four
+    cards, ``--num_devices 4 --sp_devices 2`` for one step a stage; their
+    losses finite. On one card it prints that it was skipped and why."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"spatial partitioning over cards: skipped, {n} card visible "
+              f"(it needs two; on a machine with several cards run "
+              f"python3 chip_smoke.py --only spatial_cards)", flush=True)
+        return {}
+    from bcp_tpu_torch.cli import train_la
+    from bcp_tpu_torch.parallel import mesh
+    report = {"card": smi, "cards": n}
+    for variant in ("la", "pancreas"):
+        inputs = sp_inputs(torch, variant)
+        t0 = time.perf_counter()
+        one = _sp_updates(torch, variant, inputs, None, 1)
+        t_one = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = mesh.launch(_sp_rank, 2, DEVICE, variant, inputs, one[3], 2)
+        t_two = time.perf_counter() - t0
+        report[variant] = _hold_sp(
+            torch, variant, one, got, inputs[3],
+            {"card": smi, "S": 2, "peak_gib_one_process": one[4],
+             "peak_gib_rank0": got[4], "launches_rank0": got[5],
+             "self_step_collectives_rank0": got[6],
+             "one_process_s": t_one, "two_ranks_s": t_two},
+            f"spatial S=2 two NCCL ranks vs one process ({variant})")
+    data = dispatch_data("la")
+    runs = [("n2_sp2_k4", 2, ["--steps_per_dispatch", str(DISPATCH_K)],
+             2 * DISPATCH_K)]
+    if n >= 4:
+        runs.append(("n4_sp2_k1", 4, [], 1))
+    for tag, ranks, extra, iters in runs:
+        root = os.path.join(workdir, f"sp_cards_{tag}")
+        os.makedirs(root)
+        args = train_la.build_parser().parse_args(
+            ["--labelnum", "4", "--root_path", root, "--snapshot_root", root,
+             "--device", DEVICE, "--pre_max_iteration", str(iters),
+             "--self_max_iteration", str(iters), "--device_data_cache", "0",
+             "--num_devices", str(ranks), "--sp_devices", "2", *extra])
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            _, stages = train_la.train(args, train_dataset=data[0],
+                                       val_cases=data[1], patch_size=PATCH,
+                                       eval_every=iters)
+        entry = {"ranks": ranks, "sp": 2, "iterations": iters,
+                 "cli_s": time.perf_counter() - t0}
+        for stage in ("pre", "self"):
+            found = logged_losses(stages[stage][1])
+            if sorted(found) != list(range(1, iters + 1)) \
+                    or not all(np.isfinite(v) for m in found.values()
+                               for v in m.values()):
+                fail(f"train_la {tag} {stage}-train: losses {found}")
+            entry[f"{stage}_last_losses"] = found[iters]
+            log = open(os.path.join(os.path.dirname(stages[stage][1]),
+                                    "log.txt")).read()
+            want = (f"mesh over {ranks} devices: data={ranks // 2} space=2 "
+                    f"(global batch {8 * ranks // 2})")
+            if want not in log:
+                fail(f"train_la {tag}: no mesh line {want!r}")
+        report[f"train_la_{tag}"] = entry
+        print(f"spatial train_la {tag}: " + json.dumps(entry), flush=True)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3719,11 +4180,14 @@ def main() -> int:
     work_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "_work")
     os.makedirs(work_root, exist_ok=True)
-    if sys.argv[1:] == ["--only", "data_parallel_cards"]:
-        # phase 14 (c) alone, for a machine with several cards
+    only = {"data_parallel_cards": phase_data_parallel_cards,
+            "spatial_cards": phase_spatial_cards}
+    if len(sys.argv) == 3 and sys.argv[1] == "--only" \
+            and sys.argv[2] in only:
+        # phase 14 (c) or 15 (c) alone, for a machine with several cards
         with tempfile.TemporaryDirectory(dir=work_root) as workdir:
-            if not phase_data_parallel_cards(torch, workdir, smi):
-                fail("phase 14 (c) needs two visible cards")
+            if not only[sys.argv[2]](torch, workdir, smi):
+                fail(f"--only {sys.argv[2]} needs two visible cards")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -3731,7 +4195,7 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
-             f"--only data_parallel_cards")
+             f"--only data_parallel_cards or --only spatial_cards")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
@@ -3772,6 +4236,10 @@ def main() -> int:
             torch, os.path.join(workdir, "data_parallel_cards"), smi)
         launches.update(phase_remat(torch, os.path.join(workdir, "remat"),
                                     smi))
+        launches["spatial_slabs"] = phase_spatial_slabs(torch, smi)
+        launches.update(phase_spatial_shared_card(torch, smi))
+        phase_spatial_cards(torch, os.path.join(workdir, "spatial_cards"),
+                            smi)
     for e in entries:
         if e["name"] in pancreas:
             # B's, B-as-dx's and C's device times at the 96^3 stage shapes

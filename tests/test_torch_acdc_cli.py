@@ -278,8 +278,18 @@ TOO_MANY = str(torch.cuda.device_count() + 2)
     (["--num_devices", TOO_MANY, "--device", "cuda"], "multi-GPU"),
     (["--sp_devices", "2"], "multi-GPU")])
 def test_train_acdc_refuses_what_the_port_lacks(tmp_path, flag, item):
-    """Spatial partitioning stays refused (ROADMAP A4); ``--num_devices``
-    is refused when fewer cards are visible, never run on fewer."""
+    """``--num_devices`` is refused when fewer cards are visible, never run
+    on fewer. ``--sp_devices 2`` with two ranks reaches the config, and
+    ``--sp_devices 3 --num_devices 2`` is refused: S must divide N."""
+    if flag[0] == "--sp_devices":
+        cfg = train_acdc.config_from_args(
+            _args(tmp_path, *flag, "--num_devices", "2"))
+        assert (cfg.sp_devices, cfg.num_devices) == (2, 2)
+        with pytest.raises(SystemExit, match="error: --sp_devices: "
+                                             "sp_devices=3 must divide"):
+            train_acdc.train(_args(tmp_path, "--sp_devices", "3",
+                                   "--num_devices", "2"))
+        return
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP.*{item}"):
         train_acdc.train(_args(tmp_path, *flag))
 

@@ -244,12 +244,22 @@ TOO_MANY = str(torch.cuda.device_count() + 2)
     (["--remat", "1"], "A4, remat")])
 def test_train_pancreas_refuses_what_the_port_lacks(root, tmp_path, flag,
                                                     item):
-    """Spatial partitioning stays refused; ``--num_devices`` is refused
-    when fewer cards are visible, never run on fewer; ``--remat 1`` is
-    ported and reaches the config."""
+    """``--num_devices`` is refused when fewer cards are visible, never run
+    on fewer; ``--sp_devices 2`` with two ranks reaches the config, and
+    ``--sp_devices 3 --num_devices 2`` is refused (S must divide N);
+    ``--remat 1`` reaches the config."""
     if item.endswith("remat"):
         assert train_pancreas.config_from_args(
             _args(root, tmp_path, *flag)).remat
+        return
+    if flag[0] == "--sp_devices":
+        cfg = train_pancreas.config_from_args(
+            _args(root, tmp_path, *flag, "--num_devices", "2"))
+        assert (cfg.sp_devices, cfg.num_devices) == (2, 2)
+        with pytest.raises(SystemExit, match="error: --sp_devices: "
+                                             "sp_devices=3 must divide"):
+            train_pancreas.train(_args(root, tmp_path, "--sp_devices", "3",
+                                       "--num_devices", "2"))
         return
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP {item}"):
         train_pancreas.train(_args(root, tmp_path, *flag))

@@ -11,9 +11,11 @@ tiny size (n_filters 4, 16^3 or 32x32 patches).
   ``test_pancreas``. Each test CLI's metrics equal its ``--num_devices 1``
   run's, as ``tests/test_parallel.py::test_eval_cli_sharded_matches_single``
   holds the JAX CLI's.
-- ``--sp_devices 2`` is refused by every CLI (ROADMAP A4); more cards than
-  are visible are refused, nothing runs on fewer; ``--remat 1`` reaches
-  the train model of ``train_la`` and ``train_pancreas`` only."""
+- ``--sp_devices 2`` reaches the config of every train CLI, and
+  ``--sp_devices 3 --num_devices 2`` is refused (S must divide N); the
+  test CLIs have no ``--sp_devices``, as the JAX package's; more cards
+  than are visible are refused, nothing runs on fewer; ``--remat 1``
+  reaches the train model of ``train_la`` and ``train_pancreas`` only."""
 
 import os
 
@@ -150,6 +152,11 @@ def test_pancreas_clis_on_two_ranks(world_clis, monkeypatch):
                                atol=1e-8)
 
 
+def _pancreas_lists():
+    lab, unlab, _ = pancreas_cases(2, 4, 0, ((20, 18, 22),), seed=3)
+    return PancreasList(lab), PancreasList(unlab, "train_unlab")
+
+
 PARSERS = {"train_la": train_la, "train_acdc": train_acdc,
            "train_pancreas": train_pancreas, "test_la": test_la,
            "test_acdc": test_acdc, "test_pancreas": test_pancreas}
@@ -158,17 +165,26 @@ PARSERS = {"train_la": train_la, "train_acdc": train_acdc,
 @pytest.mark.parametrize("cli", sorted(PARSERS))
 def test_every_cli_refuses_spatial_partitioning_and_missing_cards(cli,
                                                                   tmp_path):
-    """``--sp_devices 2`` where the CLI has it (ROADMAP A4), and more cards
-    than are visible: SystemExit before anything runs."""
+    """``--sp_devices`` where the CLI has it (the train CLIs, as in the JAX
+    package): 2 of two ranks reaches the config, 3 of two is refused; and
+    more cards than are visible: SystemExit before anything runs."""
     mod = PARSERS[cli]
     base = ["--snapshot_root", str(tmp_path)]
     parser = mod.build_parser()
-    if any(a.dest == "sp_devices" for a in parser._actions):
-        args = parser.parse_args(base + ["--sp_devices", "2", "--device",
-                                         "cpu"])
-        with pytest.raises(SystemExit, match="ROADMAP A4"):
-            (mod.train if cli.startswith("train") else
-             mod.test_calculate_metric)(args)
+    has_sp = any(a.dest == "sp_devices" for a in parser._actions)
+    assert has_sp == cli.startswith("train")
+    if has_sp:
+        args = parser.parse_args(base + ["--sp_devices", "2", "--num_devices",
+                                         "2", "--device", "cpu"])
+        assert args.sp_devices == 2
+        assert mod.config_from_args(args, **(
+            {"train_dataset": _pancreas_lists()} if cli == "train_pancreas"
+            else {})).sp_devices == 2
+        args = parser.parse_args(base + ["--sp_devices", "3", "--num_devices",
+                                         "2", "--device", "cpu"])
+        with pytest.raises(SystemExit, match="sp_devices=3 must divide the "
+                                             "mesh size 2"):
+            mod.train(args)
     n = torch.cuda.device_count() + 2
     args = parser.parse_args(base + ["--num_devices", str(n), "--device",
                                      "cuda"])
@@ -184,10 +200,7 @@ def test_remat_flag_reaches_the_train_model_only(cli, tmp_path):
     args = mod.build_parser().parse_args(
         ["--snapshot_root", str(tmp_path), "--device", "cpu", "--remat",
          "1"])
-    lists = None
-    if cli == "train_pancreas":
-        lab, unlab, _ = pancreas_cases(2, 4, 0, ((20, 18, 22),), seed=3)
-        lists = (PancreasList(lab), PancreasList(unlab, "train_unlab"))
+    lists = _pancreas_lists() if cli == "train_pancreas" else None
     trainer = mod.build_trainer(args, train_dataset=lists, val_cases=[],
                                 **TINY)
     assert trainer.cfg.remat

@@ -3,8 +3,8 @@ through the trainer with the CLI's defaults (device store, background
 validation), call its per-iteration hook, hand off through the pre-train
 stage's best .pth and write reference-layout checkpoints that load
 strictly into the eval model, also in groups of ``--steps_per_dispatch``;
-the flags the port lacks are refused with the ROADMAP item that brings
-them, the ported ones reach the config."""
+the ported flags reach the config, and what the CLI cannot run is refused
+before anything runs."""
 
 import os
 import re
@@ -64,12 +64,24 @@ TOO_MANY = str(torch.cuda.device_count() + 2)
     (["--num_devices", TOO_MANY, "--device", "cuda"], "multi-GPU"),
     (["--sp_devices", "2"], "multi-GPU"), (["--remat", "1"], "remat")])
 def test_refuses_what_the_port_lacks(tmp_path, flag, item):
-    """Spatial partitioning stays refused (ROADMAP A4). ``--num_devices``
-    runs on that many cards (``tests/test_torch_parallel_cli.py``) and is
-    refused when fewer are visible: it never runs on fewer. ``--remat 1``
-    is ported: it reaches the config."""
+    """``--num_devices`` runs on that many cards
+    (``tests/test_torch_parallel_cli.py``) and is refused when fewer are
+    visible: it never runs on fewer. ``--sp_devices 2`` with two ranks
+    reaches the config (``tests/test_torch_spatial_cli.py`` runs it), and
+    ``--sp_devices 3 --num_devices 2`` is refused: S must divide N.
+    ``--remat 1`` reaches the config."""
     if item == "remat":
         assert train_la.config_from_args(_args(tmp_path, *flag)).remat
+        return
+    if flag[0] == "--sp_devices":
+        cfg = train_la.config_from_args(
+            _args(tmp_path, *flag, "--num_devices", "2"))
+        assert (cfg.sp_devices, cfg.num_devices) == (2, 2)
+        with pytest.raises(SystemExit, match="error: --sp_devices: "
+                                             "sp_devices=3 must divide"):
+            train_la.train(_args(tmp_path, "--sp_devices", "3",
+                                 "--num_devices", "2"))
+        assert not os.listdir(tmp_path)
         return
     with pytest.raises(SystemExit, match=f"error: .*ROADMAP.*{item}"):
         train_la.train(_args(tmp_path, *flag))
