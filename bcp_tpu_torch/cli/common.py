@@ -18,7 +18,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from bcp_tpu_torch.config import Config
-from bcp_tpu_torch.convert import load_reference_checkpoint
+from bcp_tpu_torch.convert import load_checkpoint, load_reference_checkpoint
 from bcp_tpu_torch.data.preprocess import write_nifti
 from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.state import build_model
@@ -92,9 +92,11 @@ def on_ranks(fn: Callable, n: int, device, *args):
 def load_eval_model(cfg: Config, ckpt_path: str,
                     torch_ckpt: Optional[str] = None, device=None):
     """The eval-mode model of ``cfg`` on ``device``, its weights from the
-    reference-layout ``.pth`` ``torch_ckpt``, else ``ckpt_path``. The JAX
-    package's orbax snapshots need JAX to read and wait for the trainer
-    slice."""
+    reference-layout ``.pth`` ``torch_ckpt`` (a zoo net with no known
+    reference layout raises the JAX converter's ``KeyError``), else the
+    port's own checkpoint ``ckpt_path``. The JAX package's orbax snapshots
+    need JAX to read: ``bcp_tpu/cli/export_torch.py`` turns one into a
+    ``.pth``."""
     path = torch_ckpt or ckpt_path
     if not os.path.exists(path):
         raise SystemExit(
@@ -102,8 +104,8 @@ def load_eval_model(cfg: Config, ckpt_path: str,
             f"reference-layout .pth (orbax snapshots of the JAX package are "
             f"not readable by the port yet)")
     model = build_model(cfg, "test", device)
-    model.load_state_dict(load_reference_checkpoint(path, cfg.net_type),
-                          strict=True)
+    load = load_reference_checkpoint if torch_ckpt else load_checkpoint
+    model.load_state_dict(load(path, cfg.net_type), strict=True)
     return model
 
 

@@ -12,17 +12,28 @@ go through :func:`state_dict_from_flax`, with the transposes of
 - transposed-conv kernel (*k, Ci, Co) -> weight (Ci, Co, *k), spatially
   un-flipped (flax lowers it as an un-flipped fractionally-strided
   correlation, torch's is the conv adjoint);
+- dense kernel (in, out) -> ``Linear.weight`` (out, in);
 - TorchBatchNorm scale/bias + batch_stats mean/var -> weight/bias +
-  running_mean/running_var, and a zero ``num_batches_tracked``.
+  running_mean/running_var, and a zero ``num_batches_tracked``;
+- LayerNorm scale/bias -> weight/bias; a bare parameter (UNETR's
+  ``position_embeddings``) as it is.
 
-Mappings: the LA ``"VNet"``, the ACDC ``"unet"`` and the pancreas
+Mappings: the LA ``"VNet"``, the ACDC ``"unet"``, the pancreas
 ``"VNet_pancreas"`` (flat names, no BN leaves: its instance norm holds no
-state).
+state) and ``"git_VNet"`` (flat, no norm) have the reference's layouts,
+which the JAX converter maps too (`torch_ckpt.py:148-153`). The other zoo
+nets' modules are named after their flax paths (``conv_blk1.conv1``,
+``layer3.attn.query``): their mapping walks the variables, and the 2-D
+extras' ``body`` is the ``unet`` mapping under ``body.``. No reference
+layout is known for those, so :func:`load_reference_checkpoint` refuses
+them as the JAX converter does; the port's own checkpoints of any net type
+load through :func:`load_checkpoint`.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
+from collections.abc import Mapping
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -121,8 +132,84 @@ def _vnet_pancreas_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
     return out
 
 
+def _git_vnet_mapping() -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(state_dict prefix, flax path, kind) of ``git_VNet``
+    (`torch_ckpt.py:62-102` with ``normalization="none"``): flat names,
+    each block's Sequential stepping over [conv, relu]."""
+    out = []
+    for blk, n in (("block_one", 1), ("block_two", 2), ("block_three", 3),
+                   ("block_four", 3), ("block_five", 3), ("block_six", 3),
+                   ("block_seven", 3), ("block_eight", 2), ("block_nine", 1)):
+        out += [(f"{blk}.conv.{2 * i}", (blk, f"conv{i}"), "conv")
+                for i in range(n)]
+    for blk in ("block_one_dw", "block_two_dw", "block_three_dw",
+                "block_four_dw"):
+        out.append((f"{blk}.conv.0", (blk, "conv"), "conv"))
+    for blk in ("block_five_up", "block_six_up", "block_seven_up",
+                "block_eight_up"):
+        out.append((f"{blk}.conv.0", (blk, "deconv"), "deconv"))
+    out.append(("out_conv", ("out_conv",), "conv"))
+    return out
+
+
+def _is_deconv(name: str) -> bool:
+    """The zoo's transposed convs: UNet3D's and UNETR's ``deconv`` and
+    UNETR's ``decoder*_upsampler``."""
+    return name == "deconv" or name.endswith("_upsampler")
+
+
+def _flax_paths(variables, root: Tuple[str, ...] = (),
+                prefix: str = "") -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(state_dict prefix, flax path, kind) of every module under ``root``
+    of a net whose port modules are named after the flax paths: a kernel
+    is a dense layer (2-D), a transposed conv (:func:`_is_deconv`) or a
+    conv; scale and bias are a BatchNorm where batch_stats hold its mean,
+    else a LayerNorm; a bare array is a parameter."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = []
+
+    def walk(node, path):
+        name = prefix + ".".join(path[len(root):])
+        if not isinstance(node, Mapping):
+            out.append((name, path, "param"))
+        elif "kernel" in node:
+            kind = ("dense" if np.ndim(node["kernel"]) == 2 else
+                    "deconv" if _is_deconv(path[-1]) else "conv")
+            out.append((name, path, kind))
+        elif "scale" in node:
+            try:
+                _get(stats, path)
+                out.append((name, path, "bn"))
+            except KeyError:
+                out.append((name, path, "ln"))
+        else:
+            for key in node:
+                walk(node[key], path + (key,))
+
+    walk(_get(params, root), root)
+    return out
+
+
+def _unet2d_body_mapping(variables):
+    """The 2-D extras: the ``unet`` mapping under ``body.``, and the
+    contrastive heads (if any) by their flax paths under ``heads.``."""
+    out = [(f"body.{p}", ("body",) + f, k) for p, f, k in _unet2d_mapping()]
+    if "heads" in variables["params"]:
+        out += _flax_paths(variables, ("heads",), "heads.")
+    return out
+
+
 _MAPPINGS = {"VNet": _vnet_mapping, "unet": _unet2d_mapping,
-             "VNet_pancreas": _vnet_pancreas_mapping}
+             "VNet_pancreas": _vnet_pancreas_mapping,
+             "git_VNet": _git_vnet_mapping}
+#: the net types whose mapping reads the variables
+_TREE_MAPPINGS = {"unet_3D": _flax_paths, "unet_3D_dtc": _flax_paths,
+                  "unetr": _flax_paths, "unetr_dtc": _flax_paths,
+                  "net_D": _flax_paths, "unet_3D_trilinear": _flax_paths,
+                  "sep_unet_2d": _unet2d_body_mapping,
+                  "unet_2d_bcp": _unet2d_body_mapping,
+                  "unet_tsne": _unet2d_body_mapping}
 
 
 def _get(tree, path: Tuple[str, ...]):
@@ -140,13 +227,26 @@ def state_dict_from_flax(variables: Dict[str, dict], net_type: str = "VNet",
     """The JAX package's ``{"params", "batch_stats"}`` -> the port's
     state_dict (loads with ``strict=True``), floats as ``dtype`` (f64 for
     the double-precision step tests)."""
-    if net_type not in _MAPPINGS:
-        raise KeyError(f"no mapping for net_type {net_type!r}; "
-                       f"have {sorted(_MAPPINGS)}")
+    if net_type in _MAPPINGS:
+        mapping = _MAPPINGS[net_type]()
+    elif net_type in _TREE_MAPPINGS:
+        mapping = _TREE_MAPPINGS[net_type](variables)
+    else:
+        raise KeyError(f"no mapping for net_type {net_type!r}; have "
+                       f"{sorted({**_MAPPINGS, **_TREE_MAPPINGS})}")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    for prefix, fpath, kind in _MAPPINGS[net_type]():
+    for prefix, fpath, kind in mapping:
+        if kind == "param":
+            out[prefix] = _tensor(_get(params, fpath), dtype)
+            continue
+        if kind == "ln":
+            out[f"{prefix}.weight"] = _tensor(_get(params, fpath + ("scale",)),
+                                              dtype)
+            out[f"{prefix}.bias"] = _tensor(_get(params, fpath + ("bias",)),
+                                            dtype)
+            continue
         if kind == "bn":
             for suffix, col, leaf in _BN_LEAVES:
                 src = params if col == "params" else stats
@@ -157,25 +257,30 @@ def state_dict_from_flax(variables: Dict[str, dict], net_type: str = "VNet",
             continue
         w = np.asarray(_get(params, fpath + ("kernel",)), dtype)
         nsp = w.ndim - 2
-        if kind == "conv":      # (*k, Ci, Co) -> (Co, Ci, *k)
+        if kind == "dense":     # (in, out) -> (out, in)
+            w = w.T
+        elif kind == "conv":    # (*k, Ci, Co) -> (Co, Ci, *k)
             w = np.transpose(w, (nsp + 1, nsp) + tuple(range(nsp)))
         else:                   # un-flip, then (*k, Ci, Co) -> (Ci, Co, *k)
             w = np.transpose(np.flip(w, axis=tuple(range(nsp))),
                              (nsp, nsp + 1) + tuple(range(nsp)))
         out[f"{prefix}.weight"] = _tensor(w, dtype)
-        out[f"{prefix}.bias"] = _tensor(_get(params, fpath + ("bias",)), dtype)
+        node = _get(params, fpath)
+        if "bias" in node:      # UNet3D's residual adapters have none
+            out[f"{prefix}.bias"] = _tensor(node["bias"], dtype)
     return out
 
 
-def load_reference_checkpoint(path: str, net_type: Optional[str] = None
-                              ) -> "OrderedDict[str, torch.Tensor]":
-    """A reference ``.pth`` as a state_dict for the port's ``net_type``
-    module. Accepts a raw state_dict (LA, `LA_BCP_train.py:287`),
-    ``{'net': ...}`` (pancreas, `pancreas_utils.py:160-166`) and
-    ``{'state_dict': ...}``; strips a ``module.`` (DataParallel) prefix and
-    drops the dead heads. ``branchs`` is dead in the LA V-Net and the U-Net
-    (and when no ``net_type`` is given); ``VNet_pancreas`` keeps it, and a
-    head at ``branchs.0.2`` (a branch built with a ``Dropout3d``,
+def load_checkpoint(path: str, net_type: Optional[str] = None
+                    ) -> "OrderedDict[str, torch.Tensor]":
+    """A ``.pth`` as a state_dict for the port's ``net_type`` module: the
+    port's own checkpoints of any net type, and the reference's layouts.
+    Accepts a raw state_dict (LA, `LA_BCP_train.py:287`), ``{'net': ...}``
+    (pancreas, `pancreas_utils.py:160-166`) and ``{'state_dict': ...}``;
+    strips a ``module.`` (DataParallel) prefix and drops the dead heads.
+    ``branchs`` is dead in the LA V-Net and the U-Net (and when no
+    ``net_type`` is given); ``VNet_pancreas`` keeps it, and a head at
+    ``branchs.0.2`` (a branch built with a ``Dropout3d``,
     `torch_ckpt.py:141-144`) moves to the port's ``branchs.0.1``."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     for wrapper in ("net", "state_dict"):
@@ -193,3 +298,14 @@ def load_reference_checkpoint(path: str, net_type: Optional[str] = None
             k = "branchs.0.1." + k[len("branchs.0.2."):]
         out[k] = v
     return out
+
+
+def load_reference_checkpoint(path: str, net_type: Optional[str] = None
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference ``.pth`` (:func:`load_checkpoint`) of a net type whose
+    reference layout is known, the JAX converter's four
+    (`torch_ckpt.py:148-153`); the other zoo nets raise its ``KeyError``."""
+    if net_type is not None and net_type not in _MAPPINGS:
+        raise KeyError(f"no torch mapping for net_type {net_type!r}; "
+                       f"have {sorted(_MAPPINGS)}")
+    return load_checkpoint(path, net_type)

@@ -103,6 +103,15 @@ def center_crop(image: np.ndarray, label: np.ndarray,
     return image[sl], label[sl]
 
 
+def random_noise(image: np.ndarray, rng: np.random.Generator,
+                 mu: float = 0.0, sigma: float = 0.1):
+    """Clipped gaussian noise (`transforms.py:105-110`, `RandomNoise`,
+    `dataset.py:242-252`)."""
+    noise = np.clip(sigma * rng.standard_normal(image.shape),
+                    -2 * sigma, 2 * sigma) + mu
+    return image + noise
+
+
 def pancreas_train_transform(image, label, patch_size, rng):
     """RandomCrop only, +1 padding (`transforms.py:121-125`,
     `pancreas/dataloaders.py:120-125`)."""

@@ -79,7 +79,8 @@ class Slice2DEvaluator:
         forward and an event marks its end. ``cache_token`` keeps the
         zoomed volume on the device for the next call with that token."""
         x_dev = self._prepare(np.asarray(image), cache_token)
-        logits = self.model(x_dev)[0]
+        out = self.model(x_dev)     # a tuple's first element, as in 3-D
+        logits = out[0] if isinstance(out, tuple) else out
         label = torch.argmax(torch.softmax(logits, dim=1), dim=1).to(
             torch.uint8)
         if mesh.world_size() > 1:

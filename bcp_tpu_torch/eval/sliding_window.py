@@ -93,7 +93,11 @@ class SlidingWindowEvaluator:
         px, py, pz = self.patch
         patches = torch.stack([volume[sx:sx + px, sy:sy + py, sz:sz + pz]
                                for sx, sy, sz in starts.tolist()])[:, None]
-        logits = self.model(patches)[0]
+        # the JAX evaluator's rule (`sliding_window.py:134-140`): the first
+        # element of a tuple, the logits of (logits, feature) nets and the
+        # tanh head of the dual-task (tanh, seg) nets; a bare tensor as is
+        out = self.model(patches)
+        logits = out[0] if isinstance(out, tuple) else out
         # (B, C, px, py, pz) -> (B, px, py, pz, C), the score map's layout
         # (a view when the net ran channels_last_3d, as it does on the card)
         logits = logits.float().permute(0, 2, 3, 4, 1).contiguous()

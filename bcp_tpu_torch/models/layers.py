@@ -1,6 +1,9 @@
 """Building blocks of the port's models: convs with a compute dtype, the
-JAX package's grouped BatchNorm, the parameter-free instance norm,
-element-wise and channel dropout, and the align-corners upsample.
+JAX package's grouped BatchNorm, flax's own BatchNorm, the parameter-free
+instance norm, element-wise and channel dropout, the align-corners
+upsample, and what the model zoo adds: flax's SAME transposed conv, dense
+layers and LayerNorm with a compute dtype, the trilinear resize and the
+gradient reversal.
 
 Counterpart of ``bcp_tpu/models/layers.py``. Parameters stay f32 and keep
 ``nn.Conv2d`` / ``nn.Conv3d`` / ``nn.BatchNorm*d`` names and layouts, so a
@@ -89,7 +92,9 @@ class Conv2d(nn.Conv2d):
 
 class Conv3d(nn.Conv3d):
     """``nn.Conv3d`` computed in the compute dtype (the flax ``nn.Conv``
-    with ``dtype``): the V-Net's stride-2 down-convs and 1^3 head."""
+    with ``dtype``): the V-Net's stride-2 down-convs and 1^3 head, the
+    zoo's 1^3 heads and bias-free residual adapters, UNETR's patch
+    embedding."""
 
     def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
         super().__init__(*args, **kw)
@@ -97,8 +102,8 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
@@ -117,6 +122,117 @@ class ConvTranspose3d(nn.ConvTranspose3d):
                                   self.bias.to(x.dtype), self.stride,
                                   self.padding, self.output_padding,
                                   self.groups, self.dilation)
+
+
+class ConvTransposeSame3d(ConvTranspose3d):
+    """flax ``nn.ConvTranspose(k, strides=2, padding="SAME")`` for a 3^3
+    kernel (UNet3D's ``Deconv3DBlock``, `unet3d.py:51-63`): 2n planes out
+    of n. lax pads the stride-dilated input by (2, 1) and correlates it
+    with the un-flipped kernel; with the weight ``convert`` un-flips, that
+    is torch's transposed conv without padding (2n + 1 planes) cropped to
+    its first 2n. torch's ``padding=1, output_padding=1`` would keep planes
+    1..2n instead, one plane off (``tests/test_torch_zoo_layers.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_channels, out_channels, 3, stride=2,
+                         dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        X, Y, Z = x.shape[2:]
+        return super().forward(x)[:, :, :2 * X, :2 * Y, :2 * Z]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computed in the compute dtype: flax's ``nn.Dense``
+    with ``dtype`` (kernel (in, out) is the transposed weight)."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _cast(x, self.compute_dtype)
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(epsilon, dtype)`` over the last axis: the mean
+    and variance in f32 (f64 stays f64), the result in the compute dtype
+    (x's own without one); ``weight`` / ``bias`` are flax's scale / bias."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or x.dtype
+        sdt = torch.promote_types(torch.float32, x.dtype)
+        return F.layer_norm(x.to(sdt), self.normalized_shape,
+                            self.weight.to(sdt), self.bias.to(sdt),
+                            self.eps).to(dt)
+
+
+def resize_trilinear(x: torch.Tensor, scale: Sequence[int]) -> torch.Tensor:
+    """(N, C, D, H, W) resized by integer factors ``scale`` on torch's
+    ``align_corners=False`` (half-pixel) grid: ``jax.image.resize(method=
+    "trilinear")``, ``resize_trilinear`` of `unet_extras.py:214-220`."""
+    size = [n * s for n, s in zip(x.shape[2:], scale)]
+    return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+
+
+class GradReverse(torch.autograd.Function):
+    """Identity forward, ``-lambd`` times the gradient backward: the
+    gradient-reversal layer (``grad_reverse``'s custom VJP,
+    `unet_extras.py:34-50`; `networks/unet.py:318-331`)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, lambd: float) -> torch.Tensor:
+        ctx.lambd = lambd
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return -ctx.lambd * g, None
+
+
+def grad_reverse(x: torch.Tensor, lambd: float) -> torch.Tensor:
+    return GradReverse.apply(x, lambd)
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax's own ``nn.BatchNorm`` over (N, C) rows (``ClassSelector``,
+    `contrastive.py:21-31`), not the reference-style
+    :class:`TorchBatchNorm`: train mode normalises with the batch mean and
+    the biased variance E[x^2] - mean^2, both in f32, and folds those into
+    the running averages with momentum 0.99 (no Bessel correction); eval
+    mode uses the running averages. eps 1e-5."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sdt = torch.promote_types(torch.float32, x.dtype)
+        xf = x.to(sdt)
+        if self.training:
+            mean = xf.mean(0)
+            var = torch.clamp(xf.square().mean(0) - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+                self.running_var.mul_(m).add_((1 - m) * var.detach())
+        else:
+            mean, var = self.running_mean.to(sdt), self.running_var.to(sdt)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight.to(sdt) + self.bias.to(sdt)).to(x.dtype)
 
 
 class TorchBatchNorm(nn.Module):

@@ -129,14 +129,18 @@ class UNet2D(nn.Module):
     returns ``(logits, x_last)`` with the logits promoted to at least f32.
     ``dtype`` is the compute dtype; parameters stay f32. The dropouts act
     in train mode only and hold no parameters, so train and eval models
-    share one state_dict layout."""
+    share one state_dict layout. ``expose_bottleneck`` appends the
+    encoder's last feature to the outputs (``Sep_UNet_2d``'s forward pools
+    it, `unet2d.py:76,104`)."""
 
     def __init__(self, n_channels: int = 1, n_classes: int = 4,
                  feature_chns: Sequence[int] = (16, 32, 64, 128, 256),
                  dropout: Sequence[float] = (0.05, 0.1, 0.2, 0.3, 0.5),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 expose_bottleneck: bool = False):
         super().__init__()
         self.compute_dtype = dtype
+        self.expose_bottleneck = expose_bottleneck
         self.encoder = Encoder(n_channels, feature_chns, dropout, dtype)
         self.decoder = Decoder(n_classes, feature_chns, dtype)
 
@@ -146,6 +150,9 @@ class UNet2D(nn.Module):
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
         lv = SpaceLevels(x.shape[2], 4)
-        logits, x_last = self.decoder(self.encoder(x, lv), lv)
-        return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
-            x_last
+        feats = self.encoder(x, lv)
+        logits, x_last = self.decoder(feats, lv)
+        logits = logits.to(torch.promote_types(torch.float32, logits.dtype))
+        if self.expose_bottleneck:
+            return logits, x_last, feats[4]
+        return logits, x_last

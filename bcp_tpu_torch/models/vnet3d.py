@@ -98,14 +98,17 @@ class _Remat(nn.Module):
         return self.conv(x)
 
 
-def _norm(kind: str, n: int, dtype) -> nn.Module:
+def _norm(kind: str, n: int, dtype) -> list:
     """The reference's ``normalization`` strings (`VNet.py:18-25`) the port
-    has: ``"batchnorm"`` (LA) and ``"instancenorm"`` (pancreas). Either
-    takes the Sequential slot after its conv, so indices step by 3."""
+    has: ``"batchnorm"`` (LA) and ``"instancenorm"`` (pancreas) take the
+    Sequential slot after their conv, so indices step by 3; ``"none"``
+    (git_VNet) takes none, so they step by 2."""
     if kind == "batchnorm":
-        return TorchBatchNorm(n, dtype=dtype)
+        return [TorchBatchNorm(n, dtype=dtype)]
     if kind == "instancenorm":
-        return InstanceNorm(dtype=dtype)
+        return [InstanceNorm(dtype=dtype)]
+    if kind == "none":
+        return []
     raise ValueError(f"unknown normalization {kind!r}")
 
 
@@ -120,7 +123,7 @@ class ConvBlock(_Remat):
         for i in range(n_stages):
             ops += [Conv3x3x3(n_in if i == 0 else n_out, n_out, dtype=dtype,
                               fused_bwd=fused_bwd),
-                    _norm(norm, n_out, dtype), nn.ReLU()]
+                    *_norm(norm, n_out, dtype), nn.ReLU()]
         self.conv = nn.Sequential(*ops)
 
 
@@ -133,7 +136,7 @@ class DownBlock(_Remat):
         super().__init__()
         self.conv = nn.Sequential(
             Conv3d(n_in, n_out, 2, stride=2, dtype=dtype),
-            _norm(norm, n_out, dtype), nn.ReLU())
+            *_norm(norm, n_out, dtype), nn.ReLU())
 
 
 class UpBlock(_Remat):
@@ -145,7 +148,7 @@ class UpBlock(_Remat):
         super().__init__()
         self.conv = nn.Sequential(
             ConvTranspose3d(n_in, n_out, 2, stride=2, dtype=dtype),
-            _norm(norm, n_out, dtype), nn.ReLU())
+            *_norm(norm, n_out, dtype), nn.ReLU())
 
 
 class Encoder(nn.Module):
@@ -300,5 +303,58 @@ class VNetPancreas(nn.Module):
         lv = SpaceLevels(x.shape[2], DOWNS)
         x8_up = _decode(self, _encode(self, x, lv), lv)
         logits = lv.run(0, self.branchs[0], x8_up)
+        return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
+            x8_up
+
+
+class GitVNet(nn.Module):
+    """`git_VNet.VNet` (`networks/git_VNet.py:145-240`, ``VNet3D(
+    normalization="none")`` in the JAX package, `factory.py:82-91`): the
+    V-Net topology without norms, channel dropout after block_five and
+    block_nine only with ``has_dropout``, and the reference's flat names,
+    each block's Sequential stepping over [conv, relu]
+    (``block_one.conv.0.weight`` ... ``block_eight_up.conv.0.bias``,
+    ``out_conv.weight``), the JAX converter's non-nested mapping
+    (`torch_ckpt.py:150-153`). ``forward`` is :class:`VNet3D`'s."""
+
+    def __init__(self, n_channels: int = 1, n_classes: int = 2,
+                 n_filters: int = 16, dtype: Optional[torch.dtype] = None,
+                 has_dropout: bool = False, fused_bwd: bool = False,
+                 remat: bool = False):
+        super().__init__()
+        nf, f, n = n_filters, fused_bwd, "none"
+        self.compute_dtype = dtype
+        self.block_one = ConvBlock(1, n_channels, nf, dtype, f, n)
+        self.block_one_dw = DownBlock(nf, 2 * nf, dtype, n)
+        self.block_two = ConvBlock(2, 2 * nf, 2 * nf, dtype, f, n)
+        self.block_two_dw = DownBlock(2 * nf, 4 * nf, dtype, n)
+        self.block_three = ConvBlock(3, 4 * nf, 4 * nf, dtype, f, n)
+        self.block_three_dw = DownBlock(4 * nf, 8 * nf, dtype, n)
+        self.block_four = ConvBlock(3, 8 * nf, 8 * nf, dtype, f, n)
+        self.block_four_dw = DownBlock(8 * nf, 16 * nf, dtype, n)
+        self.block_five = ConvBlock(3, 16 * nf, 16 * nf, dtype, f, n)
+        self.enc_dropout = ChannelDropout() if has_dropout else nn.Identity()
+        self.block_five_up = UpBlock(16 * nf, 8 * nf, dtype, n)
+        self.block_six = ConvBlock(3, 8 * nf, 8 * nf, dtype, f, n)
+        self.block_six_up = UpBlock(8 * nf, 4 * nf, dtype, n)
+        self.block_seven = ConvBlock(3, 4 * nf, 4 * nf, dtype, f, n)
+        self.block_seven_up = UpBlock(4 * nf, 2 * nf, dtype, n)
+        self.block_eight = ConvBlock(2, 2 * nf, 2 * nf, dtype, f, n)
+        self.block_eight_up = UpBlock(2 * nf, nf, dtype, n)
+        self.block_nine = ConvBlock(1, nf, nf, dtype, f, n)
+        self.dec_dropout = ChannelDropout() if has_dropout else nn.Identity()
+        self.out_conv = Conv3d(nf, n_classes, 1, dtype=dtype)
+        set_remat(self, remat)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        if x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last_3d)
+        lv = SpaceLevels(x.shape[2], DOWNS)
+        x1, x2, x3, x4, x5 = _encode(self, x, lv)
+        x8_up = _decode(self, (x1, x2, x3, x4, self.enc_dropout(x5)), lv)
+        x9 = self.dec_dropout(lv.run(0, self.block_nine, x8_up))
+        logits = self.out_conv(x9)
         return logits.to(torch.promote_types(torch.float32, logits.dtype)), \
             x8_up

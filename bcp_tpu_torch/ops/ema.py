@@ -2,7 +2,8 @@
 teacher + (1 - alpha) * student, in place. The LA flavour
 (`BCP_utils.py:78-81`) moves the parameters only; ACDC's
 (`ACDC_BCP_train.py:123-129`, ``Config.ema_full_state``) the whole state,
-the BatchNorms' running statistics included."""
+the BatchNorms' running statistics included. The two-student flavour
+(`ema.py:50-55`) averages two students into the teacher."""
 
 from __future__ import annotations
 
@@ -24,3 +25,16 @@ def ema_update(teacher: torch.nn.Module, student: torch.nn.Module,
         s += [b for b in student.buffers() if b.is_floating_point()]
     torch._foreach_mul_(t, alpha)
     torch._foreach_add_(t, torch._foreach_mul(s, 1.0 - alpha))
+
+
+@torch.no_grad()
+def ema_update_two_students(teacher: torch.nn.Module,
+                            student1: torch.nn.Module,
+                            student2: torch.nn.Module, alpha: float) -> None:
+    """teacher <- alpha * teacher + (1 - alpha) / 2 * (s1 + s2) over the
+    parameters, in place (`update_ema_students`, `BCP_utils.py:83-86`)."""
+    t = list(teacher.parameters())
+    both = torch._foreach_add(list(student1.parameters()),
+                              list(student2.parameters()))
+    torch._foreach_mul_(t, alpha)
+    torch._foreach_add_(t, torch._foreach_mul(both, 0.5 * (1.0 - alpha)))

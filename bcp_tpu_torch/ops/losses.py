@@ -1,4 +1,4 @@
-"""The LA and ACDC losses: ``bcp_tpu/ops/losses.py`` :34-152 for the port.
+"""The LA and ACDC losses: ``bcp_tpu/ops/losses.py`` :34-168 for the port.
 
 Logits are (N, C, *S) (the JAX package's are channels-last), integer
 targets (N, *S). Same smoothing constants and reductions as the reference
@@ -141,3 +141,20 @@ def mix_loss_slice(logits: torch.Tensor, img_l: torch.Tensor,
     ce = image_w * masked_cross_entropy(logits, img_l, mask)
     ce = ce + patch_w * masked_cross_entropy(logits, patch_l, patch_mask)
     return dice, ce
+
+
+def sup_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """(mask_DiceLoss + mean CE) / 2 (`losses.py:155-158`,
+    `BCP_utils.py:71-76`)."""
+    return (masked_dice_loss(logits, target)
+            + cross_entropy_mean(logits, target)) / 2.0
+
+
+def softmax_mse(input_logits: torch.Tensor,
+                target_logits: torch.Tensor) -> torch.Tensor:
+    """Element-wise squared difference of the class softmaxes, no
+    reduction; no gradient reaches ``target_logits``
+    (`losses.py:161-168`, `pancreas/losses.py:114-127`)."""
+    a = torch.softmax(input_logits, dim=1)
+    b = torch.softmax(target_logits.detach(), dim=1)
+    return (a - b) ** 2

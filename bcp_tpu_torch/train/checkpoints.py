@@ -9,7 +9,7 @@ new best validation, ``{model}_best_model.pth`` (the stage hand-off,
 optimizer too (``Config.load_opt_state``, ACDC) these files hold the
 reference's ``save_net_opt`` layout, ``{'net': state_dict, 'opt':
 optimizer state}`` (`ACDC_BCP_train.py:60-74`), which
-``convert.load_reference_checkpoint`` unwraps to the state_dict.
+``convert.load_checkpoint`` unwraps to the state_dict.
 
 Beside them, ``last_state.pt`` holds the stage's full train state at its
 last validation (student, teacher, optimizer with its momentum buffers,

@@ -108,9 +108,10 @@ from bcp_tpu_torch.data.datasets import (ACDCDataset, LAHeartDataset,
 from bcp_tpu_torch.data.feed import BCPBatchFeeder
 from bcp_tpu_torch.data.transforms import pancreas_test_transform
 from bcp_tpu_torch.device import resolve_device
-from bcp_tpu_torch.convert import load_reference_checkpoint
+from bcp_tpu_torch.convert import load_checkpoint
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
+from bcp_tpu_torch.models.factory import VNETS
 from bcp_tpu_torch.ops.masks import (Box, boxes_mask, cuboid_sizes,
                                      cuboid_starts, fixed_starts, grid_boxes,
                                      grid_starts, slab_box, slab_start)
@@ -200,7 +201,7 @@ class BCPTrainer:
                  log_images: bool = False):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
-        if cfg.remat and cfg.net_type not in ("VNet", "VNet_pancreas"):
+        if cfg.remat and cfg.net_type not in VNETS:
             # `trainer.py:177-182`
             raise ValueError(f"remat targets the V-Net pipelines; net_type="
                              f"{cfg.net_type!r} has no remat support")
@@ -332,7 +333,7 @@ class BCPTrainer:
         logger.info("config: %s", cfg)
         state = init_state(cfg, self.device)
         if init_from is not None:
-            weights = load_reference_checkpoint(init_from, cfg.net_type)
+            weights = load_checkpoint(init_from, cfg.net_type)
             if cfg.load_opt_state:
                 # student and optimizer (`ACDC_BCP_train.py:335-336`)
                 load_with_opt(state, weights, load_optimizer_state(init_from))

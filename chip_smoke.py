@@ -162,6 +162,26 @@ described by their functions.)
     that it was skipped; ``python3 chip_smoke.py --only spatial_cards``
     runs (c) alone.
 
+16. The model zoo at full width (``phase_zoo``): (b) each 3-D zoo net
+    (``unet_3D``, ``unet_3D_dtc`` and ``git_VNet`` and
+    ``unet_3D_trilinear`` at the LA patch, batch 2; ``unetr`` and
+    ``unetr_dtc`` at their 128^3 window, batch 1) through one bf16
+    train-mode forward and backward: finite outputs and gradients, B,
+    B-as-dx and C launched exactly once per kernel-taking conv, ms and
+    peak GiB; (a) B, B-as-dx and C at every (batch, extent, Ci, Co) those
+    convs launched (up to 1024 channels), within phase 2's limits and the
+    same bits twice, each with its variants and its time beside
+    ``F.conv3d`` / ``conv3d_input`` / ``conv3d_weight`` and its bound;
+    the f32 eval forward of every zoo net on the card against the CPU at
+    full width (the 3-D nets at 32^3, the 2-D nets at 256x256 with their
+    heads, ``net_D`` on Sep_UNet_2d's feature), probabilities to atol
+    1e-3; (d) ``cli.test_la --model unet_3D`` on one 240x200x96 volume
+    from the port's own checkpoint (34 launches of A's fused entry, B 17
+    a chunk, s/volume) and the evaluator's f32 score map card against CPU
+    on a reduced volume; (e) ``cli.export_torch`` loading strictly into a
+    module with the reference's dead heads and ``cli.kde_demo`` writing
+    its PNG. ``python3 chip_smoke.py --only zoo`` runs phase 16 alone.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -4153,6 +4173,485 @@ def phase_spatial_cards(torch, workdir: str, smi: str):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the model zoo at full width
+
+#: (net type, factory kwargs, input extent, batch) of each 3-D zoo net's
+#: bf16 train-mode forward and backward: UNet3D, git_VNet and the trilinear
+#: net at the LA patch, batch 2; UNETR at its 128^3 window, batch 1
+ZOO_BATCH = 2
+UNETR_WINDOW = (128, 128, 128)
+ZOO_3D = (("unet_3D", {}, PATCH, ZOO_BATCH),
+          ("unet_3D_dtc", {}, PATCH, ZOO_BATCH),
+          ("unetr", {"img_shape": UNETR_WINDOW}, UNETR_WINDOW, 1),
+          ("unetr_dtc", {"img_shape": UNETR_WINDOW}, UNETR_WINDOW, 1),
+          ("git_VNet", {}, PATCH, ZOO_BATCH),
+          ("unet_3D_trilinear", {}, PATCH, ZOO_BATCH))
+#: the f32 eval forward, card against CPU, at full width on a small extent
+ZOO_SMALL = (32, 32, 32)
+ZOO_2D = ("sep_unet_2d", "unet_2d_bcp", "unet_tsne")
+ZOO_SLICE = (256, 256)
+#: the reduced volume and window of the evaluator's f32 card-vs-CPU check
+ZOO_EVAL_VOLUME = (40, 36, 32)
+ZOO_EVAL_PATCH = (32, 32, 32)
+
+
+def calibrate_bn(torch, model, x):
+    """Set every TorchBatchNorm's running statistics to its input's batch
+    statistics in one eval-mode forward of ``x``, so that a randomly
+    initialised net keeps its activations at unit scale in eval mode."""
+    from bcp_tpu_torch.models.layers import TorchBatchNorm
+
+    def set_stats(mod, inputs):
+        v = inputs[0].float()
+        dims = (0,) + tuple(range(2, v.dim()))
+        mod.running_mean.copy_(v.mean(dim=dims))
+        mod.running_var.copy_(v.var(dim=dims))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+             if isinstance(m, TorchBatchNorm)]
+    with torch.no_grad():
+        model.eval()(x)
+    for h in hooks:
+        h.remove()
+    return model
+
+
+def zoo_model(torch, net_type, kw, mode="train", dtype=None, device=None,
+              calib=None):
+    """``net_type`` from the factory with torch's default init drawn from
+    SEED, its BN statistics calibrated on ``calib`` (a CPU tensor)."""
+    from bcp_tpu_torch.models import create_model
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = create_model(net_type, 4 if net_type in ZOO_2D else 2,
+                             mode=mode, compute_dtype=dtype, device="cpu",
+                             **kw)
+    if calib is not None:
+        calibrate_bn(torch, model, calib)
+    return model.train(mode == "train").to(device or DEVICE)
+
+
+def kernel_convs(model):
+    """The model's 3^3 convs that kernels B and C take."""
+    from bcp_tpu_torch.models.layers import Conv3x3x3
+    from bcp_tpu_torch.ops.conv3d import kernel_takes
+    return [m for m in model.modules() if isinstance(m, Conv3x3x3)
+            and kernel_takes(m.in_channels, m.out_channels)]
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase_zoo_train(torch, smi: str):
+    """(b) Each 3-D zoo net's bf16 train-mode forward and backward at full
+    width: finite outputs and gradients; B, B-as-dx and C launched exactly
+    once per kernel-taking conv (counts set to 0 before, read after);
+    ms of a forward and backward (median of 3 after the counted one) and
+    peak GiB. Returns ({path: launches}, {(B, X, Y, Z, ci, co): {net:
+    convs at that shape}})."""
+    counters = kernel_counters()
+    launches, shapes = {}, {}
+    for net_type, kw, extent, batch in ZOO_3D:
+        torch.cuda.empty_cache()
+        model = zoo_model(torch, net_type, kw, dtype=torch.bfloat16)
+        convs = kernel_convs(model)
+
+        def record(mod, inputs):
+            x = inputs[0]
+            key = (x.shape[0], *x.shape[2:], mod.in_channels,
+                   mod.out_channels)
+            per = shapes.setdefault(key, {})
+            per[net_type] = per.get(net_type, 0) + 1
+
+        hooks = [m.register_forward_pre_hook(record) for m in convs]
+        x = torch.randn((batch, 1, *extent), device=DEVICE)
+
+        def step():
+            outs = _outputs(model(x))
+            loss = sum(o.float().square().mean() for o in outs)
+            loss.backward()
+            return outs
+
+        torch.cuda.synchronize()
+        read_launches(counters, reset=True)
+        outs = step()
+        torch.cuda.synchronize()
+        got = read_launches(counters)
+        for h in hooks:
+            h.remove()
+        n = len(convs)
+        want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": 0,
+                "conv3x3x3_same": n, "conv3x3x3_dx": n, "conv3x3x3_dw": n,
+                "conv3x3x3_dxdw": 0}
+        if got != want:
+            fail(f"zoo {net_type} train step launches {got}, expected "
+                 f"{want}")
+        bad = [o.shape for o in outs if not torch.isfinite(o).all()] + [
+            name for name, p in model.named_parameters()
+            if p.grad is None or not torch.isfinite(p.grad).all()]
+        if bad:
+            fail(f"zoo {net_type}: non-finite outputs or gradients {bad[:4]}")
+        launches[f"zoo_train_{net_type}"] = got
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            model.zero_grad(set_to_none=True)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        result = {"card": smi, "batch": batch, "extent": list(extent),
+                  "outputs": [list(o.shape) for o in outs],
+                  "kernel_convs": n, "launches": got,
+                  "fwd_bwd_ms": float(np.median(times)),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"zoo bf16 train step {net_type}: " + json.dumps(result),
+              flush=True)
+        del model, outs, x
+    return launches, shapes
+
+
+def phase_zoo_kernels(torch, rates, shapes):
+    """(a) B forward, B-as-dx and C at every (B, X, Y, Z, ci, co) the zoo's
+    kernel-taking convs launched in (b), bf16, against their plain
+    versions within phase 2's limits (1e-2 max|plain| for B and dx, 1e-3
+    for dW) and the same bits on a second run; each with the variant its
+    picker gives and its CUDA-event time (median of 5) beside
+    ``F.conv3d`` / ``conv3d_input`` / ``conv3d_weight`` and its bound.
+    Returns {kernel name: the sums over UNet3D's batch-2 pass and UNETR's
+    batch-1 pass, with the per-shape rows}."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv3d_input, conv3d_weight
+    from bcp_tpu_torch.ops.conv3d import (conv_variant, conv3x3x3_dw,
+                                          conv3x3x3_dw_reference,
+                                          conv3x3x3_dx, conv3x3x3_same,
+                                          conv3x3x3_same_reference,
+                                          dw_variant, flip_transpose)
+    bf16_peak, _, hbm = rates
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    per = {"conv3x3x3_same": [], "conv3x3x3_dx": [], "conv3x3x3_dw": []}
+    errs = {k: 0.0 for k in per}
+
+    def check(what, k, k2, p, rel):
+        torch.cuda.synchronize()
+        if not torch.equal(k, k2):
+            fail(f"zoo {what}: two runs differ")
+        err = float((k.float() - p.float()).abs().max().item())
+        if err > rel * float(p.float().abs().max().item()):
+            fail(f"zoo {what}: max err {err}")
+        return err
+
+    for key in sorted(shapes):
+        B, X, Y, Z, ci, co = key
+        torch.cuda.empty_cache()
+        x = torch.randn((B, ci, X, Y, Z), generator=gen, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        dy = torch.randn((B, co, X, Y, Z), generator=gen, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        w = (torch.randn((co, ci, 3, 3, 3), generator=gen, device=DEVICE)
+             / (27 * ci) ** 0.5).to(torch.bfloat16)
+        label = f"{B}x{ci}->{co}@{X}x{Y}x{Z}"
+        row = {"shape": label, "convs": shapes[key],
+               "conv_variant": conv_variant(B, X, Y, Z, ci, co,
+                                            sms)._asdict(),
+               "dx_variant": conv_variant(B, X, Y, Z, co, ci,
+                                          sms)._asdict(),
+               "dw_variant": str(tuple(dw_variant(B, X, Y, Z, ci, co,
+                                                  sms)))}
+        e = {"conv3x3x3_same": check(
+                f"B {label}", conv3x3x3_same(x, w), conv3x3x3_same(x, w),
+                conv3x3x3_same_reference(x, w), 1e-2),
+             "conv3x3x3_dx": check(
+                 f"B-as-dx {label}", conv3x3x3_dx(dy, w),
+                 conv3x3x3_dx(dy, w),
+                 conv3x3x3_same_reference(dy, flip_transpose(w)), 1e-2),
+             "conv3x3x3_dw": check(
+                 f"C {label}", conv3x3x3_dw(x, dy), conv3x3x3_dw(x, dy),
+                 conv3x3x3_dw_reference(x, dy), 1e-3)}
+        M = B * X * Y * Z
+        flop = 2 * M * 27 * ci * co
+        for kind, nbytes, fn, lib in (
+                ("conv3x3x3_same", 2 * M * (ci + co) + 2 * 27 * ci * co,
+                 lambda: conv3x3x3_same(x, w),
+                 lambda: F.conv3d(x, w, padding=1)),
+                ("conv3x3x3_dx", 2 * M * (ci + co) + 2 * 27 * ci * co,
+                 lambda: conv3x3x3_dx(dy, w),
+                 lambda: conv3d_input(x.shape, w, dy, padding=1)),
+                ("conv3x3x3_dw", 2 * M * (ci + co) + 4 * 27 * ci * co,
+                 lambda: conv3x3x3_dw(x, dy),
+                 lambda: conv3d_weight(x, w.shape, dy, padding=1))):
+            errs[kind] = max(errs[kind], e[kind])
+            t = {"shape": label, "convs": shapes[key],
+                 "ms": cuda_ms(torch, fn, 5),
+                 "library_ms": cuda_ms(torch, lib, 5),
+                 "bound_ms": max(flop / bf16_peak, nbytes / hbm) * 1e3,
+                 "bound_by": ("operations" if flop / bf16_peak
+                              >= nbytes / hbm else "bytes"),
+                 "max_abs_err": e[kind]}
+            per[kind].append(t)
+            row[kind] = {k: t[k] for k in ("ms", "library_ms", "bound_ms",
+                                           "max_abs_err")}
+        print(f"zoo kernels {label}: " + json.dumps(
+            {k: v for k, v in row.items() if k != "shape"}), flush=True)
+        del x, dy, w
+    out = {}
+    for kind, ts in per.items():
+        entry = {"max_abs_err": errs[kind], "shapes": ts}
+        for net, batch in (("unet_3D", ZOO_BATCH), ("unetr", 1)):
+            tot = {k: sum(t[k] * t["convs"].get(net, 0) for t in ts)
+                   for k in ("ms", "library_ms", "bound_ms")}
+            entry[f"{net}_batch{batch}_pass"] = tot
+            print(f"zoo {kind} over a {net} batch-{batch} pass: "
+                  f"{tot['ms']:.4f} ms (library {tot['library_ms']:.4f}, "
+                  f"bound {tot['bound_ms']:.4f})", flush=True)
+        out[kind] = entry
+    return out
+
+
+def _probs(torch, out, net_type):
+    """The first output as class probabilities (the evaluator's view): the
+    trilinear net's maps are softmaxed already."""
+    first = _outputs(out)[0].float()
+    return first if net_type == "unet_3D_trilinear" else \
+        torch.softmax(first, dim=1)
+
+
+def phase_zoo_f32(torch):
+    """(b, c) The f32 eval forwards on the card against the CPU at full
+    width, BN statistics calibrated: the 3-D nets at ZOO_SMALL (UNETR built
+    for it), class probabilities to atol 1e-3 and every output to 1e-3 of
+    its largest; the 2-D nets at ZOO_SLICE, batch 4, the same, then their
+    contrastive heads on 8 rows and net_D (b_size 4) on Sep_UNet_2d's
+    (4, 256, 3, 3) feature."""
+    import copy
+    report = {}
+
+    def hold(name, got, want, probs=None):
+        errs = []
+        for g, w in zip(_outputs(got), _outputs(want)):
+            g, w = g.float().cpu(), w.float()
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                fail(f"zoo f32 {name}: output {tuple(g.shape)} vs "
+                     f"{tuple(w.shape)} or not finite")
+            errs.append(float((g - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30))
+        perr = None
+        if probs is not None:
+            perr = float((probs[0].cpu() - probs[1]).abs().max())
+        report[name] = {"max_rel_err": max(errs), "max_abs_prob_err": perr}
+        if max(errs) > 1e-3 or (perr is not None and perr > 1e-3):
+            fail(f"zoo f32 {name} card vs cpu: {report[name]}")
+
+    rng = np.random.default_rng(SEED + 17)
+    for net_type, kw, _, _ in ZOO_3D:
+        kw = {"img_shape": ZOO_SMALL} if "unetr" in net_type else {}
+        x = torch.from_numpy(rng.normal(size=(1, 1, *ZOO_SMALL)).astype(
+            np.float32))
+        cpu = zoo_model(torch, net_type, kw, "test", device="cpu", calib=x)
+        card = copy.deepcopy(cpu).to(DEVICE)
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to(DEVICE))
+        hold(net_type, got, want, (_probs(torch, got, net_type),
+                                   _probs(torch, want, net_type)))
+        del cpu, card
+    x = torch.from_numpy(rng.normal(size=(4, 1, *ZOO_SLICE)).astype(
+        np.float32))
+    rows = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
+    for net_type in ZOO_2D:
+        cpu = zoo_model(torch, net_type, {}, "test", device="cpu", calib=x)
+        card = copy.deepcopy(cpu).to(DEVICE)
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to(DEVICE))
+            logits = (_outputs(got)[-1 if net_type == "sep_unet_2d" else 0],
+                      _outputs(want)[-1 if net_type == "sep_unet_2d" else 0])
+            hold(net_type, got, want, tuple(torch.softmax(t.float(), 1)
+                                            for t in logits))
+            if hasattr(cpu, "init_heads"):
+                flat = (lambda t: (t[0], t[1], *t[2], *t[3]))
+                hold(f"{net_type} heads",
+                     flat(card.init_heads(rows.to(DEVICE))),
+                     flat(cpu.init_heads(rows)))
+            if net_type == "sep_unet_2d":
+                feature = want[0]
+                d_cpu = zoo_model(torch, "net_D", {"b_size": 4}, "test",
+                                  device="cpu")
+                d_card = copy.deepcopy(d_cpu).to(DEVICE)
+                hold("net_D", d_card(feature.to(DEVICE)), d_cpu(feature))
+        del cpu, card
+    print("zoo f32 eval forwards card vs cpu: " + json.dumps(report),
+          flush=True)
+    return report
+
+
+def phase_zoo_test_la(torch, workdir: str, smi: str):
+    """(d) ``cli.test_la --model unet_3D``'s core on one synthetic LA_VOLUME
+    volume at the CLI's defaults (stride 18/4, eval batch 8, bf16, NMS)
+    from the port's own checkpoint at the snapshot naming: kernel A's fused
+    entry once a chunk (34) and B once a chunk per kernel-taking conv, no
+    other launch; four finite metrics; s/volume. Then the evaluator's f32
+    score map on the card against the CPU on ZOO_EVAL_VOLUME with
+    ZOO_EVAL_PATCH windows, to atol 1e-3 (phase 3's limit)."""
+    import copy
+    from bcp_tpu_torch.cli import test_la
+    from bcp_tpu_torch.config import la_config
+    from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.data.synthetic import la_cases
+    from bcp_tpu_torch.eval.sliding_window import (SlidingWindowEvaluator,
+                                                   window_starts)
+    from bcp_tpu_torch.train.checkpoints import best_model_path, snapshot_dir
+    root = os.path.join(workdir, "zoo_test_la")
+    cfg = la_config(labelnum=4).replace(snapshot_root=root)
+    path = best_model_path(snapshot_dir(cfg, "self_train"), "unet_3D")
+    os.makedirs(os.path.dirname(path))
+    calib = torch.from_numpy(np.random.default_rng(SEED + 18).normal(
+        size=(1, 1, *PATCH)).astype(np.float32)).to(DEVICE)
+    model = zoo_model(torch, "unet_3D", {}, "test", device=DEVICE)
+    calibrate_bn(torch, model, calib)
+    torch.save(model.state_dict(), path)
+    n_convs = len(kernel_convs(model))
+    cases = la_cases(1, LA_VOLUME, seed=SEED + 19)
+    args = test_la.build_parser().parse_args(
+        ["--model", "unet_3D", "--snapshot_root", root, "--root_path", root,
+         "--stride_xy", "18", "--stride_z", "4", "--eval_batch",
+         str(EVAL_BATCH), "--nms", "1", "--device", DEVICE])
+    chunks = -(-len(window_starts(LA_VOLUME, PATCH, 18, 4)) // EVAL_BATCH)
+    counters = kernel_counters()
+    read_launches(counters, reset=True)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        avg = test_la.test_calculate_metric(args, dataset=VolumeList(cases))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    print(out.getvalue(), end="")
+    want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": chunks,
+            "conv3x3x3_same": chunks * n_convs, "conv3x3x3_dx": 0,
+            "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0}
+    if launches != want or not np.isfinite(avg).all() or len(avg) != 4:
+        fail(f"test_la --model unet_3D: launches {launches} (expected "
+             f"{want}), metrics {avg}")
+    # steady s/volume on the same evaluator path
+    _, evaluator = test_la.build_evaluator(args)
+    evaluator.infer(cases[0][0], return_score=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.infer(cases[0][0], return_score=False)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    # the f32 score map, card against CPU, on a reduced volume
+    image, _ = la_cases(1, ZOO_EVAL_VOLUME, seed=SEED + 20)[0]
+    f32 = zoo_model(torch, "unet_3D", {}, "test", device="cpu",
+                    calib=calib.cpu())
+    scores = {}
+    for dev, net in ((DEVICE, copy.deepcopy(f32).to(DEVICE)), ("cpu", f32)):
+        ev = SlidingWindowEvaluator(net, ZOO_EVAL_PATCH, 2, 16, 16, batch=2,
+                                    device=dev)
+        scores[dev] = ev.infer(image)[1]
+    err = float(np.abs(scores[DEVICE] - scores["cpu"]).max())
+    if not np.isfinite(scores[DEVICE]).all() or err > 1e-3:
+        fail(f"zoo f32 score map card vs cpu: max |diff| {err}")
+    result = {"card": smi, "volume": list(LA_VOLUME), "chunks": chunks,
+              "kernel_convs": n_convs, "launches": launches,
+              "cli_s_per_volume": wall, "steady_s_per_volume": steady,
+              "average_metric": [float(v) for v in avg],
+              "f32_score_max_abs_diff_card_vs_cpu": err,
+              "f32_check_volume": list(ZOO_EVAL_VOLUME)}
+    print("zoo test_la --model unet_3D: " + json.dumps(result), flush=True)
+    return launches
+
+
+def phase_zoo_tools(torch, workdir: str):
+    """(e) ``cli.export_torch`` of a port LA checkpoint with a template made
+    of the port's own ``state_dict()`` plus dead-head keys: the export
+    loads strictly into a module that carries those keys, with the
+    checkpoint's weights. Then ``cli.kde_demo`` on synthetic ACDC slices
+    (labelnum 1) with ``--max_pics 1`` writes its PNG (the first class of
+    2, 0, 1, 3 with two correct pixels a half, the random net's)."""
+    from torch import nn
+    from bcp_tpu_torch.cli import export_torch, kde_demo
+    from bcp_tpu_torch.config import acdc_config, la_config
+    from bcp_tpu_torch.data.datasets import SliceList
+    from bcp_tpu_torch.data.synthetic import acdc_cases
+    from bcp_tpu_torch.models import VNet3D
+    from bcp_tpu_torch.train.checkpoints import best_model_path, snapshot_dir
+    root = os.path.join(workdir, "zoo_tools")
+
+    class WithHeads(VNet3D):
+        """The reference V-Net's state_dict layout: the port's, plus the
+        dead contrastive heads."""
+
+        def __init__(self):
+            super().__init__(n_classes=2)
+            self.projection_head = nn.Sequential(nn.Linear(16, 8),
+                                                 nn.BatchNorm1d(8))
+            self.prediction_head = nn.Sequential(nn.Linear(8, 8))
+
+    cfg = la_config(labelnum=4).replace(snapshot_root=root)
+    ckpt = best_model_path(snapshot_dir(cfg, "self_train"), "VNet")
+    os.makedirs(os.path.dirname(ckpt))
+    weights = zoo_model(torch, "VNet", {}, "test", device="cpu").state_dict()
+    torch.save(weights, ckpt)
+    template = os.path.join(root, "fresh.pth")
+    torch.save(WithHeads().state_dict(), template)
+    out = os.path.join(root, "VNet_ref.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_torch.main(["--variant", "la", "--labelnum", "4",
+                           "--snapshot_root", root, "--template", template,
+                           "--out", out])
+    ref = WithHeads()
+    ref.load_state_dict(torch.load(out, weights_only=True), strict=True)
+    loaded = ref.state_dict()
+    if any(not torch.equal(loaded[k], v) for k, v in weights.items()):
+        fail("export_torch: the strict load lost checkpoint weights")
+
+    acfg = acdc_config(labelnum=1).replace(snapshot_root=root)
+    best = best_model_path(snapshot_dir(acfg, "self_train"), "unet")
+    os.makedirs(os.path.dirname(best))
+    torch.save(seeded_unet(torch, acfg, "cpu", SEED + 22,
+                           (4, 1, *ACDC_SLICE)).state_dict(), best)
+    slices, _ = acdc_cases(ACDC_TRAIN_SLICES, ACDC_TRAIN_SHAPES,
+                           seed=SEED + 23)
+    written, cls, t0 = None, None, time.perf_counter()
+    for cls in (2, 0, 1, 3):
+        args = kde_demo.build_parser().parse_args(
+            ["--labelnum", "1", "--snapshot_root", root, "--max_pics", "1",
+             "--specific_class", str(cls), "--out_dir", root, "--device",
+             DEVICE])
+        with contextlib.redirect_stdout(io.StringIO()):
+            written = kde_demo.run(args, dataset=SliceList(slices))[0]
+        if written is not None:
+            break
+    if written is None or not os.path.getsize(written):
+        fail("kde_demo wrote no plot for any class")
+    result = {"export_tensors": len(loaded), "strict_load": True,
+              "kde_png": os.path.relpath(written, root), "kde_class": cls,
+              "kde_bytes": os.path.getsize(written),
+              "kde_s": time.perf_counter() - t0}
+    print("zoo tools: " + json.dumps(result), flush=True)
+
+
+def phase_zoo(torch, rates, workdir: str, smi: str):
+    """Phase 16, the model zoo at full width: (b) then (a), (b)'s f32
+    part and (c), (d), (e). Returns ({path: launches}, {kernel name: (a)'s
+    sums})."""
+    launches, shapes = phase_zoo_train(torch, smi)
+    sums = phase_zoo_kernels(torch, rates, shapes)
+    torch.cuda.empty_cache()
+    phase_zoo_f32(torch)
+    launches["zoo_test_la_unet_3D"] = phase_zoo_test_la(torch, workdir, smi)
+    phase_zoo_tools(torch, workdir)
+    torch.cuda.empty_cache()
+    return launches, sums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4181,10 +4680,13 @@ def main() -> int:
                              "_work")
     os.makedirs(work_root, exist_ok=True)
     only = {"data_parallel_cards": phase_data_parallel_cards,
-            "spatial_cards": phase_spatial_cards}
+            "spatial_cards": phase_spatial_cards,
+            "zoo": lambda torch, workdir, smi: phase_zoo(torch, rates,
+                                                         workdir, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in only:
-        # phase 14 (c) or 15 (c) alone, for a machine with several cards
+        # phase 14 (c) or 15 (c) alone, for a machine with several cards;
+        # phase 16 alone on one
         with tempfile.TemporaryDirectory(dir=work_root) as workdir:
             if not only[sys.argv[2]](torch, workdir, smi):
                 fail(f"--only {sys.argv[2]} needs two visible cards")
@@ -4195,7 +4697,8 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
-             f"--only data_parallel_cards or --only spatial_cards")
+             f"--only data_parallel_cards, --only spatial_cards or --only "
+             f"zoo")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
@@ -4240,10 +4743,16 @@ def main() -> int:
         launches.update(phase_spatial_shared_card(torch, smi))
         phase_spatial_cards(torch, os.path.join(workdir, "spatial_cards"),
                             smi)
+        zoo_launches, zoo = phase_zoo(torch, rates,
+                                      os.path.join(workdir, "zoo"), smi)
+        launches.update(zoo_launches)
     for e in entries:
         if e["name"] in pancreas:
             # B's, B-as-dx's and C's device times at the 96^3 stage shapes
             e["pancreas"] = pancreas[e["name"]]
+        if e["name"] in zoo:
+            # B's, B-as-dx's and C's times at the zoo's shapes (phase 16)
+            e["zoo"] = zoo[e["name"]]
         if e["name"] == "softmax_scatter_add_windows":
             # device ms a launch inside the evaluator (phase 4's trace)
             e["main_path_device_ms"] = a_ms

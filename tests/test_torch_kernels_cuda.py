@@ -100,6 +100,43 @@ def test_conv_kernel_same_bits_twice(cuda_device, shape, dtype):
     assert torch.equal(dx, by_forward)
 
 
+#: (B, X, Y, Z, Ci, Co) of the model zoo's widest convs: UNet3D's bottom
+#: level at the LA patch (7x7x5) at 1024 -> 1024 and 512 -> 1024, and its
+#: dec_conv_blk4 (and UNETR's dec9_conv0) at 1024 -> 512 (14x14x10)
+ZOO_SHAPES = [(2, 7, 7, 5, 1024, 1024), (2, 7, 7, 5, 512, 1024),
+              (2, 14, 14, 10, 1024, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ZOO_SHAPES)
+def test_kernels_at_the_zoos_widths(cuda_device, shape, dtype):
+    """B forward, B-as-dx and C at up to 1024 channels, within phase 2's
+    limits (f32 forward and dx to rtol = atol = 1e-4, bf16 to 1e-2
+    max|plain|, dW to 1e-3 max|plain|), the same bits on a second run."""
+    x, w = (t.to(cuda_device, dtype) for t in _conv_case(*shape, seed=9))
+    dy, _ = _conv_case(*shape[:4], shape[5], shape[5], seed=10)
+    dy = dy.to(cuda_device, dtype)
+
+    def hold(got, again, want, rel):
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        if rel is None:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= rel * want.float().abs().max().item()
+
+    rel = None if dtype == torch.float32 else 1e-2
+    hold(conv3x3x3_same(x, w), conv3x3x3_same(x, w),
+         conv3x3x3_same_reference(x, w), rel)
+    hold(conv3x3x3_dx(dy, w), conv3x3x3_dx(dy, w),
+         conv3x3x3_same_reference(dy, flip_transpose(w)), rel)
+    xc, dyc = (t.contiguous(memory_format=torch.channels_last_3d)
+               for t in (x, dy))
+    hold(conv3x3x3_dw(xc, dyc), conv3x3x3_dw(xc, dyc),
+         conv3x3x3_dw_reference(xc, dyc), 1e-3)
+
+
 def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
     x, w = (t.to(cuda_device) for t in _conv_case(1, 4, 4, 4, 8, 16, 0))
     with pytest.raises(ValueError, match="does not take"):
