@@ -35,6 +35,7 @@ from scipy import ndimage
 
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.eval import metrics as M
+from bcp_tpu_torch.models.layers import logits_of
 from bcp_tpu_torch.parallel import mesh
 
 
@@ -80,7 +81,7 @@ class Slice2DEvaluator:
         zoomed volume on the device for the next call with that token."""
         x_dev = self._prepare(np.asarray(image), cache_token)
         out = self.model(x_dev)     # a tuple's first element, as in 3-D
-        logits = out[0] if isinstance(out, tuple) else out
+        logits = logits_of(out)
         label = torch.argmax(torch.softmax(logits, dim=1), dim=1).to(
             torch.uint8)
         if mesh.world_size() > 1:

@@ -41,6 +41,7 @@ import torch
 
 from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.eval import metrics as M
+from bcp_tpu_torch.models.layers import logits_of
 from bcp_tpu_torch.ops.scatter import softmax_scatter_add_windows
 from bcp_tpu_torch.parallel import mesh
 
@@ -97,7 +98,7 @@ class SlidingWindowEvaluator:
         # element of a tuple, the logits of (logits, feature) nets and the
         # tanh head of the dual-task (tanh, seg) nets; a bare tensor as is
         out = self.model(patches)
-        logits = out[0] if isinstance(out, tuple) else out
+        logits = logits_of(out)
         # (B, C, px, py, pz) -> (B, px, py, pz, C), the score map's layout
         # (a view when the net ran channels_last_3d, as it does on the card)
         logits = logits.float().permute(0, 2, 3, 4, 1).contiguous()

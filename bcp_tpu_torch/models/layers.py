@@ -523,23 +523,35 @@ class SpaceLevels:
         return mesh.shard_space(y, 2) if self.sliced(level) else y
 
 
+def logits_of(out):
+    """A net's logits: the first element of a tuple (the (logits, feature)
+    nets, and the dual-task nets' tanh head), else the bare tensor
+    (``_logits``, `steps.py:43-45`; the JAX evaluators' rule too)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _modules(model: nn.Module, kind) -> list:
     return [m for m in model.modules() if isinstance(m, kind)]
 
 
 @contextlib.contextmanager
-def bn_groups(model: nn.Module, groups: int) -> Iterator[None]:
-    """Run ``model``'s BatchNorms with ``groups`` sub-batches
-    (``VNet3D.bn_groups``, `vnet3d.py:170-172`; the self-train step's
-    concat forwards use 2); its dropouts draw for the same layout."""
-    bns = _modules(model, TorchBatchNorm) + _modules(model, Dropout)
-    old = [m.groups for m in bns]
-    for m in bns:
-        m.groups = groups
+def bn_groups(model: nn.Module, groups: int,
+              norm_groups: Optional[int] = None) -> Iterator[None]:
+    """Run ``model`` on ``groups`` concatenated sub-batches: its BatchNorms
+    normalise ``norm_groups`` (default ``groups``) groups of the batch, each
+    by its own statistics (``VNet3D.bn_groups``, `vnet3d.py:170-172`), and
+    its dropouts draw for the layout of ``groups`` sub-batches (which rows
+    of a world's global draw a rank keeps, :func:`draw_uniform`)."""
+    mods = [(m, norm_groups or groups)
+            for m in _modules(model, TorchBatchNorm)]
+    mods += [(m, groups) for m in _modules(model, Dropout)]
+    old = [m.groups for m, _ in mods]
+    for m, g in mods:
+        m.groups = g
     try:
         yield
     finally:
-        for m, g in zip(bns, old):
+        for (m, _), g in zip(mods, old):
             m.groups = g
 
 

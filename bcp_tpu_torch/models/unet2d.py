@@ -133,6 +133,13 @@ class UNet2D(nn.Module):
     encoder's last feature to the outputs (``Sep_UNet_2d``'s forward pools
     it, `unet2d.py:76,104`)."""
 
+    #: the JAX net has a ``bn_groups`` field: the self-train step's concat
+    #: forwards normalise each sub-batch by its own statistics
+    #: (``train.steps.concat_groups``)
+    grouped = True
+    #: runs on x slabs under a space split (:class:`SpaceLevels`)
+    slabs = True
+
     def __init__(self, n_channels: int = 1, n_classes: int = 4,
                  feature_chns: Sequence[int] = (16, 32, 64, 128, 256),
                  dropout: Sequence[float] = (0.05, 0.1, 0.2, 0.3, 0.5),

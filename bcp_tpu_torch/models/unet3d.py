@@ -27,7 +27,10 @@ transposed convs, the 1^3 adapters and heads are cuDNN's.
 
 Tensors are logical NCDHW and run channels_last_3d on the card. The
 BatchNorms are :class:`~bcp_tpu_torch.models.layers.TorchBatchNorm`, so
-``bn_groups`` and ``frozen_running_stats`` apply as in the V-Net.
+``bn_groups`` and ``frozen_running_stats`` apply as in the V-Net; the
+JAX net has no ``bn_groups`` field, so the self-train step's concat
+forwards normalise the whole concat batch as one (the class sets no
+``grouped``, ``train.steps.concat_groups``).
 """
 
 from __future__ import annotations

@@ -231,6 +231,13 @@ class VNet3D(nn.Module):
     kernel where it is eligible; the forward is the same. ``remat``
     rematerialises every block (module docstring)."""
 
+    #: the JAX net has a ``bn_groups`` field: the self-train step's concat
+    #: forwards normalise each sub-batch by its own statistics
+    #: (``train.steps.concat_groups``)
+    grouped = True
+    #: runs on x slabs under a space split (:class:`SpaceLevels`)
+    slabs = True
+
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,
                  has_dropout: bool = False, fused_bwd: bool = False,
@@ -267,6 +274,8 @@ class VNetPancreas(nn.Module):
     :class:`VNet3D`'s: (logits promoted to at least f32, x8_up). Instance
     norm is per sample, so a concatenated batch gives exactly its parts'
     forwards and the BatchNorm group context has nothing to set."""
+
+    grouped = slabs = True      # as :class:`VNet3D`'s
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,
@@ -316,6 +325,8 @@ class GitVNet(nn.Module):
     (``block_one.conv.0.weight`` ... ``block_eight_up.conv.0.bias``,
     ``out_conv.weight``), the JAX converter's non-nested mapping
     (`torch_ckpt.py:150-153`). ``forward`` is :class:`VNet3D`'s."""
+
+    grouped = slabs = True      # as :class:`VNet3D`'s
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,

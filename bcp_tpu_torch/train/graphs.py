@@ -259,7 +259,7 @@ class GraphStep:
         dev = self.mask.device
         if self.stage == "self":
             # the teacher's forward draws first, as in ``selftrain_step``;
-            # both self-train forwards run two BatchNorm groups
+            # both self-train forwards draw for two sub-batches
             draw_keep_masks(self.state.teacher,
                             [k.shape for k in self.keep_t], gen, dev,
                             out=self.keep_t, groups=2)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from bcp_tpu_torch.config import Config
+from bcp_tpu_torch.models.layers import logits_of
 from bcp_tpu_torch.ops.masks import mix
 from bcp_tpu_torch.train.state import TrainState
 from bcp_tpu_torch.train.steps import mixed_inputs
@@ -48,7 +49,7 @@ def eval_logits(model: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
     statistics, no dropout); the model goes back to train mode."""
     model.eval()
     try:
-        return model(x)[0]
+        return logits_of(model(x))
     finally:
         model.train()
 

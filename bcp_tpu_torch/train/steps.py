@@ -17,18 +17,26 @@ picks the pipeline's losses, mix order and pseudo-label rule;
 statistics too.
 
 ``cfg.fuse_subbatches`` is honoured by one route: each network runs
-once a step on the two sub-batches concatenated, its BatchNorms in two
-groups (`steps.py:71-81`). The reference's other route (``False``: two
-forwards a network, one a sub-batch, the student's running statistics
-threaded from the first into the second, `steps.py:267-289,298-311`)
-computes the same function: grouped BN normalises each sub-batch by its
-own statistics and folds the groups' running-stat updates in order,
-counting one ``num_batches_tracked`` a group, as two forwards do; a model
-without BatchNorm (pancreas' instance-norm V-Net) has nothing to thread.
+once a step on the two sub-batches concatenated (`steps.py:267-303`),
+its BatchNorms in :func:`concat_groups` groups. The JAX package's
+``_grouped`` (`steps.py:71-80`) gives the concat forward two groups only
+for a net with a ``bn_groups`` field (the V-Nets and the 2-D U-Net, whose
+port classes set ``grouped``); a zoo net normalises the concat batch as
+one. The reference's other route (``False``: two forwards a network, one
+a sub-batch, the student's running statistics threaded from the first
+into the second, `steps.py:267-289,298-311`) computes what two groups
+compute, for any net: grouped BN normalises each sub-batch by its own
+statistics and folds the groups' running-stat updates in order, counting
+one ``num_batches_tracked`` a group, as two forwards do; a model without
+BatchNorm (pancreas' instance-norm V-Net) has nothing to thread.
 ``tests/test_torch_steps.py`` holds the two routes together in f64 to
 1e-10, and the port's step against the JAX package's two-forward step.
 Only the order of the dropout draws differs, and the port's draws come
 from torch generators, never the JAX package's keys.
+
+The losses take a net's logits by the JAX package's rule
+(``layers.logits_of``, `steps.py:43-45`): the first element of a tuple
+(a dual-task net's tanh head among them), else the bare tensor.
 
 In a world of several ranks (``parallel.mesh``) each rank runs the step
 on its rows of the global batch: the BatchNorm statistics (the teacher's
@@ -59,7 +67,7 @@ import torch
 
 from bcp_tpu_torch.config import Config
 from bcp_tpu_torch.models.layers import (bn_groups, dropout_draws,
-                                         frozen_running_stats)
+                                         frozen_running_stats, logits_of)
 from bcp_tpu_torch.ops import cc, losses
 from bcp_tpu_torch.ops.ema import ema_update
 from bcp_tpu_torch.ops.masks import mix
@@ -75,6 +83,17 @@ def _draws(model, dropout):
     return dropout_draws(model, keep=dropout)
 
 
+def concat_groups(model, cfg: Config) -> int:
+    """The BatchNorm groups of a self-train concat forward of two
+    sub-batches: two for a net whose JAX counterpart has a ``bn_groups``
+    field (``grouped``: the V-Nets and the 2-D U-Net; `_grouped`,
+    `steps.py:71-80`) or with ``fuse_subbatches`` off (the JAX package's
+    two forwards), else one. The dropouts draw for two sub-batches
+    either way (``layers.bn_groups``)."""
+    return 2 if getattr(model, "grouped", False) \
+        or not cfg.fuse_subbatches else 1
+
+
 def _check(cfg: Config) -> None:
     if cfg.variant not in ("la", "acdc", "pancreas"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
@@ -88,6 +107,12 @@ def _update(state: TrainState, loss: torch.Tensor, cfg: Config,
         group["lr"] = lr_at(cfg, stage, state.step)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    for p in state.model.parameters():
+        if p.grad is None:
+            # a parameter the loss does not reach (a dual-task net's second
+            # head, the contrastive heads): optax decays it and traces its
+            # momentum from a zero gradient, where torch would skip it
+            p.grad = torch.zeros_like(p)
     # in a world of several ranks every rank's loss is the global loss and
     # its gradient this rank's share: the sum is the global gradient
     mesh.all_reduce_grads(state.model.parameters())
@@ -109,7 +134,7 @@ def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
     mask = mesh.shard_space(mask, 0)
     img = mix(batch["img_a"], batch["img_b"], mask)
     with _draws(model, dropout):
-        logits = model(img)[0]
+        logits = logits_of(model(img))
     lab_a, lab_b = batch["lab_a"].long(), batch["lab_b"].long()
     if cfg.variant == "acdc":
         # `steps.py:178-188`: both weights 1.0
@@ -141,17 +166,18 @@ def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
 def teacher_masks(state: TrainState, batch: Dict[str, torch.Tensor],
                   cfg: Config, dropout=None) -> torch.Tensor:
     """The teacher's masks of concat(uimg_a, uimg_b) before the NMS: one
-    forward in train mode with live dropout and 2-group BatchNorm whose
-    running-stat updates are discarded (`steps.py:63-68,298-303`), then
-    the mask of ``cfg.pseudo_label`` (`steps.py:101-106`): class 1's
-    probability thresholded at 0.5 (``"binary"``, LA, pancreas) or the
-    argmax (``"argmax"``, ACDC); int32."""
+    forward in train mode with live dropout and :func:`concat_groups`
+    BatchNorm groups, whose running-stat updates are discarded
+    (`steps.py:63-68,298-303`), then the mask of ``cfg.pseudo_label``
+    (`steps.py:101-106`): class 1's probability thresholded at 0.5
+    (``"binary"``, LA, pancreas) or the argmax (``"argmax"``, ACDC);
+    int32."""
     _check(cfg)
     teacher = state.teacher
     x = torch.cat([batch["uimg_a"], batch["uimg_b"]])
-    with bn_groups(teacher, 2), frozen_running_stats(teacher), \
-            _draws(teacher, dropout):
-        logits = teacher(x)[0]
+    with bn_groups(teacher, 2, concat_groups(teacher, cfg)), \
+            frozen_running_stats(teacher), _draws(teacher, dropout):
+        logits = logits_of(teacher(x))
     if cfg.pseudo_label == "argmax":
         return cc.get_multiclass_mask(logits, cfg.num_classes)
     return cc.get_cut_mask(logits)
@@ -204,7 +230,7 @@ def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
                      dropout=None) -> Dict[str, torch.Tensor]:
     """The student's update on the pseudo-labels ``plab`` (concat of the
     two unlabelled sub-batches'): the bidirectional mix
-    (:func:`mixed_inputs`), one concat forward with 2-group BatchNorm, the
+    (:func:`mixed_inputs`), one concat forward (:func:`concat_groups`), the
     two mix losses (`steps.py:233-253`), backward, the optimizer step,
     then the EMA of the teacher from the new student
     (`steps.py:323-334`)."""
@@ -217,8 +243,9 @@ def selftrain_update(state: TrainState, batch: Dict[str, torch.Tensor],
     lab_a, lab_b = batch["lab_a"].long(), batch["lab_b"].long()
     in1, in2 = mixed_inputs(cfg.variant, batch, mask)
     n = in1.shape[0]
-    with bn_groups(model, 2), _draws(model, dropout):
-        logits = model(torch.cat([in1, in2]))[0]
+    with bn_groups(model, 2, concat_groups(model, cfg)), \
+            _draws(model, dropout):
+        logits = logits_of(model(torch.cat([in1, in2])))
     lmask = mask[None].expand(lab_a.shape)
     if cfg.variant == "acdc":
         unl_d, unl_c = losses.mix_loss_slice(

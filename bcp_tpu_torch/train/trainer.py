@@ -170,6 +170,47 @@ def copy_paste_box(cfg: Config, rng: np.random.Generator) -> List[Box]:
              cuboid_sizes(patch, cfg.mask_ratio))]
 
 
+#: the net types the JAX package's train steps cannot run, and why: its
+#: jitted step fails on them (a shape error) where the port refuses them
+#: before the first forward (:func:`check_trainable`)
+UNTRAINABLE = {
+    "unet_3D_trilinear": "its output maps are twice its input in y and z "
+                         "(the reference's deep-supervision resize), so "
+                         "they match no label of the patch",
+    "sep_unet_2d": "its first output is the pooled bottleneck feature, not "
+                   "per-pixel logits",
+    "net_D": "it is the discriminator of Sep_UNet_2d's features, not a "
+             "segmentation net",
+}
+
+
+def check_trainable(cfg: Config, model=None) -> None:
+    """Refuse a net the BCP steps cannot train: a key of
+    :data:`UNTRAINABLE`; with ``model`` (the config's net, built) also
+    UNETR at a patch other than the window its position embeddings fix
+    (the trainer passes no ``img_shape``, so the factory's 128^3), and a
+    space split of a net that does not run on x slabs (the zoo has no
+    ``SpaceLevels``; the JAX package's GSPMD splits any net)."""
+    net = cfg.net_type
+    if net in UNTRAINABLE:
+        raise ValueError(f"net_type {net!r} cannot be trained by the BCP "
+                         f"steps: {UNTRAINABLE[net]}")
+    if model is None:
+        return
+    window = getattr(model, "img_shape", None)
+    if window is not None and tuple(window) != tuple(cfg.patch_size):
+        raise ValueError(
+            f"net_type {net!r} is built for the window {tuple(window)}, "
+            f"its position embeddings fix the extent, but the patch is "
+            f"{tuple(cfg.patch_size)}")
+    if max(int(cfg.sp_devices), 1) > 1 and not getattr(model, "slabs",
+                                                        False):
+        raise ValueError(
+            f"sp_devices={cfg.sp_devices}: net_type {net!r} has no spatial "
+            f"split in the port (the V-Nets and the 2-D U-Net have one); "
+            f"use --num_devices alone")
+
+
 def copy_paste_mask(cfg: Config, rng: np.random.Generator, device=None):
     """The iteration's copy-paste mask: 0 in the boxes of
     :func:`copy_paste_box`, 1 elsewhere (``ops.masks.boxes_mask``)."""
@@ -201,10 +242,14 @@ class BCPTrainer:
                  log_images: bool = False):
         if cfg.variant not in ("la", "acdc", "pancreas"):
             raise ValueError(f"unknown variant {cfg.variant!r}")
+        check_trainable(cfg)
         if cfg.remat and cfg.net_type not in VNETS:
             # `trainer.py:177-182`
             raise ValueError(f"remat targets the V-Net pipelines; net_type="
                              f"{cfg.net_type!r} has no remat support")
+        self.device = resolve_device(device)
+        self.eval_model = build_model(cfg, "test", self.device)
+        check_trainable(cfg, self.eval_model)
         self.world = mesh.world_size()
         if cfg.num_devices not in (-1, 0, self.world):
             raise ValueError(
@@ -226,7 +271,6 @@ class BCPTrainer:
         self.data_scale = self.world // sp
         self.cfg = cfg
         self.log_images = log_images
-        self.device = resolve_device(device)
         self.pre_dir = snapshot_dir(cfg, "pre_train")
         self.self_dir = snapshot_dir(cfg, "self_train")
         self.train_dataset = train_dataset
@@ -236,7 +280,6 @@ class BCPTrainer:
         self.on_metrics = on_metrics
         #: stage -> its CUDA graph captures and replays (K > 1 on the card)
         self.graph_counts: Dict[str, Dict[str, int]] = {}
-        self.eval_model = build_model(cfg, "test", self.device)
         if cfg.dims == 3:
             self.evaluator = SlidingWindowEvaluator(
                 self.eval_model, cfg.patch_size, cfg.num_classes,

@@ -182,6 +182,26 @@ described by their functions.)
     module with the reference's dead heads and ``cli.kde_demo`` writing
     its PNG. ``python3 chip_smoke.py --only zoo`` runs phase 16 alone.
 
+17. Zoo nets through the train CLIs and the full-schedule script
+    (``phase_zoo_training``): (a) one pre-train and one self-train update
+    in f32 on the card against the CPU under phase 3's rule, ``unet_3D``
+    at feature channels 16-64 on 32^3 (B and C launched, counted) and
+    ``unet_2d_bcp`` at full width on 128x128 slices (no kernel); (b)
+    ``cli.train_la --model unet_3D`` at full width (feature channels
+    64-1024, 112x112x80, batch 8, bf16) at K = 1 and K = 4 on phase 12's
+    data and windows: every launch of A-D checked exactly against the
+    net's 17 kernel convs (a pre-train step B, B-as-dx and C once each, a
+    self-train step B twice, a validation chunk A's fused entry once and B
+    once a conv, D never), ms a step, idle share, peak GiB, finite losses,
+    the device time of the traced self-train steps by kernel family; (c)
+    ``--model git_VNet`` at K = 1, its launches; (d) ``cli.train_acdc
+    --model unet_2d_bcp`` at full width at K = 1 and K = 4, no launch of
+    A-D; (e) ``scripts/run_full_torch.py`` once a variant at a cut of its
+    schedule (``RUN_FULL_CUTS``) at the JAX scripts' split sizes: exit 0,
+    a parsed ``stage ... done:`` line a stage, the card's name in its
+    JSON, the launches of its path. ``python3 chip_smoke.py --only
+    zoo_train`` runs phase 17 alone.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -945,31 +965,13 @@ def phase_train_step(torch):
         plab = own if plab is None else plab.to(dev)
         m_self = selftrain_update(st, batch, plab, mask, cfg,
                                   dropout=k["student"])
-        delta = {}
-        for tag, mod in (("pre", pre.model), ("self", st.model),
-                         ("teacher", st.teacher)):
-            for n, v in mod.state_dict().items():
-                if not n.endswith("num_batches_tracked"):
-                    delta[f"{tag}.{n}"] = v.cpu().double() - start[n].double()
-        for tag, s in (("pre", pre), ("self", st)):
-            for n, p in s.model.named_parameters():
-                delta[f"{tag}.momentum.{n}"] = s.optimizer.state[p][
-                    "momentum_buffer"].cpu().double()
-        losses = {f"pre.{n}": float(v) for n, v in m_pre.items()}
-        losses.update({f"self.{n}": float(v) for n, v in m_self.items()})
-        return delta, losses, own.cpu()
+        return (*step_deltas(pre, st, start, m_pre, m_self), own.cpu())
 
     t0 = time.perf_counter()
     want, want_loss, plab = run("cpu")
     t_cpu = time.perf_counter() - t0
 
-    def group(n):   # (module, running statistics?)
-        head, last = n.rsplit(".", 1)
-        return head, last.startswith("running")
-    scale = {}
-    for n, d in want.items():
-        g = group(n)
-        scale[g] = max(scale.get(g, 0.0), d.abs().max().item())
+    scale = module_scales(want)
     ulp = float(np.finfo(np.float32).eps)
     from bcp_tpu_torch.ops.conv3d import conv3x3x3_dxdw
     results = {}
@@ -985,12 +987,48 @@ def phase_train_step(torch):
             fail(f"f32 train step fused_bwd={fused}: {d_launches} launches "
                  f"of the fused backward kernel")
         results[fused] = _compare_step(
-            torch, want, want_loss, got, got_loss, start, scale, ulp, group,
+            torch, want, want_loss, got, got_loss, start, scale, ulp,
+            module_group,
             {"fused_bwd": fused, "fused_kernel_launches": d_launches,
              "pseudo_label_flips": int((card_plab != plab).sum().item()),
              "pseudo_label_voxels": int(plab.sum().item()),
              "cpu_s": t_cpu, "card_s": t_card})
     return results
+
+
+def step_deltas(pre, st, start, m_pre, m_self):
+    """A pre-train state ``pre`` and a self-train state ``st`` stepped once
+    from the state_dict ``start``, as :func:`_compare_step` takes them:
+    ({tag.name: update} of every student and teacher tensor, f64 on the
+    host, and the SGD momentum buffers; {stage.name: loss})."""
+    delta = {}
+    for tag, mod in (("pre", pre.model), ("self", st.model),
+                     ("teacher", st.teacher)):
+        for n, v in mod.state_dict().items():
+            if not n.endswith("num_batches_tracked"):
+                delta[f"{tag}.{n}"] = v.cpu().double() - start[n].double()
+    for tag, s in (("pre", pre), ("self", st)):
+        for n, p in s.model.named_parameters():
+            delta[f"{tag}.momentum.{n}"] = s.optimizer.state[p][
+                "momentum_buffer"].cpu().double()
+    losses = {f"pre.{n}": float(v) for n, v in m_pre.items()}
+    losses.update({f"self.{n}": float(v) for n, v in m_self.items()})
+    return delta, losses
+
+
+def module_group(n: str):
+    """(module, running statistics?) of an update's name."""
+    head, last = n.rsplit(".", 1)
+    return head, last.startswith("running")
+
+
+def module_scales(want):
+    """The largest |update| of each :func:`module_group` of ``want``."""
+    scale = {}
+    for n, d in want.items():
+        g = module_group(n)
+        scale[g] = max(scale.get(g, 0.0), d.abs().max().item())
+    return scale
 
 
 def _compare_step(torch, want, want_loss, got, got_loss, start, scale, ulp,
@@ -1650,31 +1688,13 @@ def phase_acdc_step(torch):
         plab = own if plab is None else plab.to(dev)
         m_self = selftrain_update(st, batch, plab, mask, cfg,
                                   dropout=k["student"])
-        delta = {}
-        for tag, mod in (("pre", pre.model), ("self", st.model),
-                         ("teacher", st.teacher)):
-            for n, v in mod.state_dict().items():
-                if not n.endswith("num_batches_tracked"):
-                    delta[f"{tag}.{n}"] = v.cpu().double() - start[n].double()
-        for tag, s in (("pre", pre), ("self", st)):
-            for n, p in s.model.named_parameters():
-                delta[f"{tag}.momentum.{n}"] = s.optimizer.state[p][
-                    "momentum_buffer"].cpu().double()
-        losses = {f"pre.{n}": float(v) for n, v in m_pre.items()}
-        losses.update({f"self.{n}": float(v) for n, v in m_self.items()})
-        return delta, losses, own.cpu()
+        return (*step_deltas(pre, st, start, m_pre, m_self), own.cpu())
 
     t0 = time.perf_counter()
     want, want_loss, plab = run("cpu")
     t_cpu = time.perf_counter() - t0
 
-    def group(n):   # (module, running statistics?)
-        head, last = n.rsplit(".", 1)
-        return head, last.startswith("running")
-    scale = {}
-    for n, d in want.items():
-        g = group(n)
-        scale[g] = max(scale.get(g, 0.0), d.abs().max().item())
+    scale = module_scales(want)
     t0 = time.perf_counter()
     got, got_loss, card_plab = run(DEVICE, plab)
     torch.cuda.synchronize()
@@ -1687,7 +1707,7 @@ def phase_acdc_step(torch):
              "(the EMA of the whole state)")
     result = _compare_step(
         torch, want, want_loss, got, got_loss, start, scale,
-        float(np.finfo(np.float32).eps), group,
+        float(np.finfo(np.float32).eps), module_group,
         {"variant": "acdc", "slice": list(ACDC_STEP_SLICE),
          "teacher_bn_statistics": len(teacher_stats),
          "pseudo_label_flips": int((card_plab != plab).sum().item()),
@@ -2517,10 +2537,11 @@ def dispatch_data(variant: str):
 
 
 def dispatch_cli(variant: str, root: str, K: int,
-                 iters: int = DISPATCH_ITERS):
+                 iters: int = DISPATCH_ITERS, flags=()):
     """(CLI module, parsed flags, config overrides) of a dispatch run: the
     CLI's defaults, ``iters`` iterations a stage with a validation at the
-    last, ``--steps_per_dispatch K``."""
+    last, ``--steps_per_dispatch K``, and ``flags`` (``--model``)."""
+    extra = list(flags)
     n = str(iters)
     if variant == "la":
         from bcp_tpu_torch.cli import train_la as cli
@@ -2538,7 +2559,7 @@ def dispatch_cli(variant: str, root: str, K: int,
         flags = pancreas_flags(root)
         over = {"pre_iterations": iters, "self_iterations": iters}
     args = cli.build_parser().parse_args(
-        flags + ["--steps_per_dispatch", str(K)])
+        flags + extra + ["--steps_per_dispatch", str(K)])
     return cli, args, dict(over, eval_every=iters)
 
 
@@ -2683,16 +2704,17 @@ def _lockstep_ratio(start, got, want, exact: bool, ulp: float):
 
 def dispatch_run(torch, variant: str, K: int, root: str, data, tag: str,
                  iters: int = DISPATCH_ITERS, log_images: bool = False,
-                 **extra):
+                 flags=(), **extra):
     """One run of the variant's train CLI core at the CLI's defaults with
-    ``--steps_per_dispatch K``, ``iters`` iterations a stage and a
-    validation at the last, timed by :class:`DispatchClock`, its losses
-    recorded by the trainer's ``on_metrics`` hook, its launch counts set to
-    0 just before the stages and read just after. ``extra`` overrides the
-    config (``fuse_subbatches``, ``mask_kind``, ``eval_every``);
-    ``log_images`` turns the trainer's image snapshots on."""
+    ``--steps_per_dispatch K`` and ``flags``, ``iters`` iterations a stage
+    and a validation at the last, timed by :class:`DispatchClock`, its
+    losses recorded by the trainer's ``on_metrics`` hook, its launch counts
+    set to 0 just before the stages and read just after. ``extra``
+    overrides the config (``fuse_subbatches``, ``mask_kind``,
+    ``eval_every``); ``log_images`` turns the trainer's image snapshots
+    on."""
     from bcp_tpu_torch.cli.train_la import run_stages
-    cli, args, over = dispatch_cli(variant, root, K, iters)
+    cli, args, over = dispatch_cli(variant, root, K, iters, flags)
     over.update(extra)
     counters = kernel_counters()
     losses = {}
@@ -3584,17 +3606,11 @@ def phase_data_parallel_cards(torch, workdir: str, smi: str):
         plab)
     t_two = time.perf_counter() - t0
 
-    def group(name):
-        head, last = name.rsplit(".", 1)
-        return head, last.startswith("running")
-    scale = {}
-    for name, d in want.items():
-        g = group(name)
-        scale[g] = max(scale.get(g, 0.0), d.abs().max().item())
+    scale = module_scales(want)
     step = _compare_step(
         torch, {k: v.double() for k, v in want.items()}, want_loss,
         {k: v.double() for k, v in got.items()}, got_loss, start, scale,
-        float(np.finfo(np.float32).eps), group,
+        float(np.finfo(np.float32).eps), module_group,
         {"ranks": W, "rows_a_rank": 8, "cards": n, "card": smi,
          "pseudo_label_flips": int((got_plab != plab).sum()),
          "one_process_s": t_one, "two_ranks_s": t_two},
@@ -3986,17 +4002,11 @@ def _hold_sp(torch, variant, want, got, start, extra, label):
             extra["pseudo_label_flips"] > FLIP_SHARE * plab.size:
         fail(f"{label}: the pseudo-labels differ: {extra}")
     if variant == "la":
-        def group(name):
-            head, last = name.rsplit(".", 1)
-            return head, last.startswith("running")
-        scale = {}
-        for name, d in wd.items():
-            scale[group(name)] = max(scale.get(group(name), 0.0),
-                                     d.abs().max().item())
+        scale = module_scales(wd)
         return _compare_step(
             torch, {k: v.double() for k, v in wd.items()}, wl,
             {k: v.double() for k, v in gd.items()}, gl, start, scale,
-            float(np.finfo(np.float32).eps), group, extra, patch=PATCH,
+            float(np.finfo(np.float32).eps), module_group, extra, patch=PATCH,
             label=label)
 
     def cancelling(n):      # a conv bias in front of an instance norm
@@ -4652,6 +4662,323 @@ def phase_zoo(torch, rates, workdir: str, smi: str):
     return launches, sums
 
 
+# ---------------------------------------------------------------------------
+# phase 17: zoo nets through the train CLIs, and the full-schedule script
+
+#: the f32 step check's UNet3D widths: every 3^3 conv past the first has
+#: Ci and Co multiples of 16, so it takes B forward and as dx, and C
+ZOO_STEP_FEAT = (16, 32, 32, 64, 64)
+#: git_VNet's iterations a stage (K = 1, no timing window)
+GIT_VNET_ITERS = 8
+#: ``scripts/run_full_torch.py``'s cuts a variant: (pre, self, k), the
+#: stages in iterations (pancreas: epochs of 30 and 25 iterations)
+RUN_FULL_CUTS = {"la": (20, 20, 10), "acdc": (20, 20, 10),
+                 "pancreas": (1, 1, 5)}
+
+
+def keep_masks(torch, model, shape, rng):
+    """The dropouts' keep masks of one train-mode forward of ``model`` on
+    an input of ``shape``, drawn from ``rng`` (numpy) at each dropout's
+    rate, as CPU bool tensors in ``dropout_draws``'s order (the shapes
+    come from a forward of a copy, so the model's statistics stay)."""
+    import copy
+    from bcp_tpu_torch.models.layers import Dropout, record_dropout_shapes
+    probe = copy.deepcopy(model).cpu()
+    drops = [m for m in probe.modules() if isinstance(m, Dropout)]
+    with record_dropout_shapes(probe) as shapes, torch.no_grad():
+        probe(torch.zeros(shape))
+    return [torch.from_numpy(rng.random(tuple(sh)) >= m.p)
+            for m, sh in zip(drops, shapes)]
+
+
+def phase_zoo_step(torch):
+    """(a) One pre-train and one self-train update in f32 on the card
+    against the CPU, held to phase 3's rule (``_compare_step``: every
+    student and teacher update and momentum buffer within STEP_REL of its
+    module's largest): ``unet_3D`` at ZOO_STEP_FEAT on a STEP_PATCH patch
+    (17 convs take B and C; their launches on the card are counted:
+    B 3 x 17, B-as-dx and C 2 x 17) and ``unet_2d_bcp`` at full width on
+    ACDC_STEP_SLICE slices (no kernel), batch 8 (2 + 2 labelled, 2 + 2
+    unlabelled), from the same seeded weights, batch, mask and keep masks;
+    the self-train update on the CPU's pseudo-labels on both sides.
+    Returns {path: launches}."""
+    import copy
+    from bcp_tpu_torch.config import acdc_config, la_config
+    from bcp_tpu_torch.data.synthetic import acdc_cases, la_cases
+    from bcp_tpu_torch.ops.masks import cuboid_mask, cuboid_starts
+    from bcp_tpu_torch.train.state import TrainState, build_optimizer
+    from bcp_tpu_torch.train.steps import (pretrain_step, pseudo_labels,
+                                           selftrain_update)
+    counters = kernel_counters()
+    out = {}
+    for net, kw in (("unet_3D", {"feat_channels": ZOO_STEP_FEAT}),
+                    ("unet_2d_bcp", {})):
+        if net == "unet_3D":
+            patch = STEP_PATCH
+            cfg = la_config(patch_size=patch, compute_dtype="float32",
+                            net_type=net)
+            cases = la_cases(8, patch, seed=SEED + 24)
+        else:
+            patch = ACDC_STEP_SLICE
+            cfg = acdc_config(patch_size=patch, batch_size=8, labeled_bs=4,
+                              compute_dtype="float32", net_type=net)
+            cases, _ = acdc_cases(8, (patch,), seed=SEED + 24)
+        img = np.stack([c[0] for c in cases])[:, None]
+        lab = np.stack([c[1] for c in cases])
+        host = {"img_a": img[0:2], "img_b": img[2:4], "uimg_a": img[4:6],
+                "uimg_b": img[6:8], "lab_a": lab[0:2], "lab_b": lab[2:4]}
+        rng = np.random.default_rng(SEED + 25)
+        starts = cuboid_starts(rng, patch)
+        base = zoo_model(torch, net, kw, device="cpu", calib=torch.from_numpy(
+            img[:4]))
+        start = base.state_dict()
+        n_convs = len(kernel_convs(base))
+        keeps = {"pre": keep_masks(torch, base, (2, 1, *patch), rng),
+                 "teacher": keep_masks(torch, base, (4, 1, *patch), rng),
+                 "student": keep_masks(torch, base, (4, 1, *patch), rng)}
+
+        def run(dev, plab=None):
+            def state():
+                m = copy.deepcopy(base).to(dev)
+                t = copy.deepcopy(m)
+                for p in t.parameters():
+                    p.requires_grad_(False)
+                return TrainState(m, t, build_optimizer(cfg, m.parameters()))
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            mask = cuboid_mask(patch, starts, device=dev)
+            k = {n: [a.to(dev) for a in v] for n, v in keeps.items()}
+            pre = state()
+            m_pre = pretrain_step(pre, batch, mask, cfg, dropout=k["pre"])
+            st = state()
+            own = pseudo_labels(st, batch, cfg, dropout=k["teacher"])
+            plab = own if plab is None else plab.to(dev)
+            m_self = selftrain_update(st, batch, plab, mask, cfg,
+                                      dropout=k["student"])
+            return (*step_deltas(pre, st, start, m_pre, m_self),
+                    own.cpu())
+
+        t0 = time.perf_counter()
+        want, want_loss, plab = run("cpu")
+        t_cpu = time.perf_counter() - t0
+
+        scale = module_scales(want)
+        torch.cuda.synchronize()
+        read_launches(counters, reset=True)
+        t0 = time.perf_counter()
+        got, got_loss, card_plab = run(DEVICE, plab)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launches = read_launches(counters)
+        want_launches = {"scatter_add_windows": 0,
+                         "softmax_scatter_add_windows": 0,
+                         "conv3x3x3_same": 3 * n_convs,
+                         "conv3x3x3_dx": 2 * n_convs,
+                         "conv3x3x3_dw": 2 * n_convs, "conv3x3x3_dxdw": 0}
+        if launches != want_launches:
+            fail(f"zoo f32 step {net}: launches {launches}, expected "
+                 f"{want_launches}")
+        _compare_step(
+            torch, want, want_loss, got, got_loss, start, scale,
+            float(np.finfo(np.float32).eps), module_group,
+            {"net_type": net, "kw": {k: list(v) for k, v in kw.items()},
+             "kernel_convs": n_convs, "launches": launches,
+             "pseudo_label_flips": int((card_plab != plab).sum().item()),
+             "pseudo_label_voxels": int(plab.numel()),
+             "cpu_s": t_cpu, "card_s": t_card}, patch=patch,
+            label=f"zoo f32 train step card vs cpu ({net})")
+        out[f"zoo_step_{net}"] = launches
+    return out
+
+
+def device_kernel_split(trace_path: str, steps: int):
+    """Device ms a step of a traced window of ``steps`` steps, by kernel
+    family: the port's kernels B (forward and dx) and C, cuDNN's convs
+    (the transposed convs and the 1^3 convs), the BatchNorm and
+    elementwise passes, reductions, copies; and the top kernels by
+    name."""
+    families = (("B (conv3x3x3_bf16_kernel)", ("conv3x3x3_bf16",)),
+                ("C (dw kernels)", ("dw_bf16", "dw_reduce")),
+                ("B/C weight packing and split reduce", ("pack_weights",
+                                                         "reduce_splits")),
+                ("cuDNN convolutions", ("xmma", "cudnn", "implicit_conv",
+                                        "sm90_", "cutlass", "conv")),
+                ("reductions (BN statistics, losses)", ("reduce",)),
+                ("elementwise (BN apply, ReLU, casts, optimizer)",
+                 ("elementwise", "foreach", "CatArray", "where")),
+                ("pooling", ("pool",)),
+                ("copies and memsets", ("Memcpy", "Memset", "copy")))
+    spans = trace_spans(trace_path)
+    if not spans:
+        return None
+    by_name = kernels_by_name(spans)
+    split = {}
+    for name, (ms, _) in by_name.items():
+        fam = next((f for f, keys in families
+                    if any(k.lower() in name.lower() for k in keys)),
+                   "other")
+        split[fam] = split.get(fam, 0.0) + ms / steps
+    summary = device_summary(trace_path, top=20)
+    return {"busy_ms_per_step": summary["busy_ms"] / steps,
+            "idle_share": summary["idle_share"],
+            "by_family_ms_per_step": dict(sorted(split.items(),
+                                                 key=lambda kv: -kv[1])),
+            "top_per_step": [{"name": t["name"], "ms": t["ms"] / steps,
+                              "calls": t["calls"] / steps}
+                             for t in summary["top"]]}
+
+
+def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
+                K: int, data, iters: int = DISPATCH_ITERS):
+    """``cli.train_{la,acdc} --model net --steps_per_dispatch K``'s core at
+    the CLI's defaults (full width), ``iters`` iterations a stage with a
+    validation at the last, through ``dispatch_run``; every kernel launch
+    of the run checked exactly: per pre-train step B, B-as-dx and C once a
+    kernel-taking conv, per self-train step B twice; per validation chunk
+    A's fused entry once and B once a conv; D never. Returns (the run, its
+    launches, its line)."""
+    from bcp_tpu_torch.eval.sliding_window import window_starts
+    root = os.path.join(workdir, f"{variant}_{net}_k{K}")
+    run = dispatch_run(torch, variant, K, root, data, f"{net}_k{K}", iters,
+                       flags=("--model", net))
+    trainer, cfg = run["trainer"], run["cfg"]
+    if cfg.net_type != net:
+        fail(f"--model {net} reached the config as {cfg.net_type}")
+    n = len(kernel_convs(trainer.eval_model))
+    v = trainer.validations
+    chunks = 0
+    if variant == "la":
+        chunks = -(-len(window_starts(data[1][0][0].shape, cfg.patch_size,
+                                      cfg.stride_xy, cfg.stride_z))
+                   // cfg.eval_batch)
+    want = {"scatter_add_windows": 0,
+            "softmax_scatter_add_windows": v * chunks,
+            "conv3x3x3_same": n * (3 * iters + v * chunks),
+            "conv3x3x3_dx": 2 * n * iters, "conv3x3x3_dw": 2 * n * iters,
+            "conv3x3x3_dxdw": 0}
+    if run["launches"] != want:
+        fail(f"train_{variant} --model {net} K={K}: launches "
+             f"{run['launches']}, expected {want} ({n} kernel convs, {v} "
+             f"validations of {chunks} chunks)")
+    line = {"card": smi, "net_type": net, "K": K, "iterations": iters,
+            "kernel_convs": n, "validations": v, "chunks": chunks,
+            "launches": run["launches"],
+            "graph_counts": trainer.graph_counts, "cli_s": run["wall"],
+            "best_dice": {s: d for s, (d, _) in run["stages"].items()}}
+    clock = run["clock"]
+    if clock.marks:
+        for stage in ("pre", "self"):
+            steady = clock.steady(stage)
+            per = {"conv3x3x3_same": n * (2 if stage == "self" else 1),
+                   "conv3x3x3_dx": n, "conv3x3x3_dw": n}
+            per = {k: float(c) for k, c in per.items() if c}
+            if steady["kernel_launches_per_step"] != per:
+                fail(f"train_{variant} --model {net} K={K} {stage}-train "
+                     f"steady launches {steady['kernel_launches_per_step']}"
+                     f", expected {per} a step")
+            line[f"steady_{stage}"] = steady
+    return run, run["launches"], line
+
+
+def phase_zoo_cli(torch, workdir: str, smi: str):
+    """(b) ``train_la --model unet_3D`` at full width (feature channels
+    64-1024, 112x112x80, batch 8, bf16) at K = 1 and K = 4, phase 12's
+    data and timing windows: exact launches, ms a step, idle share, peak
+    GiB, finite losses, and the device time of the K = 1 run's traced
+    self-train steps by kernel family; (c) ``train_la --model git_VNet``
+    at K = 1 for GIT_VNET_ITERS iterations a stage, exact launches; (d)
+    ``train_acdc --model unet_2d_bcp`` at full width (256x256, batch 24)
+    at K = 1 and K = 4, no launch of A-D. Returns {path: launches}."""
+    launches = {}
+    la = dispatch_data("la")
+    acdc = dispatch_data("acdc")
+    for variant, net, K, data, iters in (
+            ("la", "unet_3D", 1, la, DISPATCH_ITERS),
+            ("la", "unet_3D", DISPATCH_K, la, DISPATCH_ITERS),
+            ("la", "git_VNet", 1, la, GIT_VNET_ITERS),
+            ("acdc", "unet_2d_bcp", 1, acdc, DISPATCH_ITERS),
+            ("acdc", "unet_2d_bcp", DISPATCH_K, acdc, DISPATCH_ITERS)):
+        torch.cuda.empty_cache()
+        run, counts, line = zoo_cli_run(torch, workdir, smi, variant, net,
+                                        K, data, iters)
+        if net == "unet_3D" and K == 1:
+            line["self_step_device_time"] = device_kernel_split(
+                run["clock"].traces[("self", "device")], DISPATCH_K)
+        print(f"zoo train_{variant} --model {net} K={K}: "
+              + json.dumps(line), flush=True)
+        launches[f"zoo_train_{variant}_{net}_k{K}"] = counts
+        del run
+    return launches
+
+
+def phase_run_full(torch, workdir: str, smi: str):
+    """(e) ``scripts/run_full_torch.py`` at RUN_FULL_CUTS, one run a
+    variant at the JAX scripts' split sizes and shapes: it returns, its
+    JSON holds a parsed ``stage ... done:`` line for each stage with the
+    stage's iterations, and the card's name. Launch counts set to 0 before
+    each run and read after (LA and pancreas validate through A and B and
+    train through B and C; ACDC launches none). Returns {path:
+    launches}."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "run_full_torch.py")
+    spec = importlib.util.spec_from_file_location("run_full_torch", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    counters = kernel_counters()
+    launches = {}
+    for variant, (pre, self_, k) in RUN_FULL_CUTS.items():
+        torch.cuda.empty_cache()
+        out = os.path.join(workdir, f"run_full_{variant}.json")
+        read_launches(counters, reset=True)
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = script.main(["--variant", variant, "--pre", str(pre),
+                              "--self", str(self_), "--k", str(k), "--out",
+                              out, "--snap", os.path.join(workdir, variant)])
+        torch.cuda.synchronize()
+        counts = read_launches(counters)
+        rec = json.load(open(out))
+        iters = rec["schedule"]["iterations"]
+        parsed = [rec["stages"][s].get("steps") for s in ("pre_train",
+                                                          "self_train")]
+        kernels_on = counts["conv3x3x3_same"] > 0 and counts[
+            "conv3x3x3_dw"] > 0 and counts["softmax_scatter_add_windows"] > 0
+        if rc != 0 or parsed != iters or rec["device"].get("kind") != \
+                torch.cuda.get_device_name(0) or counts["conv3x3x3_dxdw"] \
+                or kernels_on != (variant != "acdc") or (
+                    variant == "acdc" and any(counts.values())):
+            fail(f"run_full_torch --variant {variant}: rc {rc}, parsed "
+                 f"steps {parsed} of {iters}, launches {counts}, device "
+                 f"{rec['device']}")
+        line = {"card": smi, "cut": [pre, self_, k], "iterations": iters,
+                "total_wall_s": rec["total_wall_s"],
+                "data_setup_s": rec["data_setup_s"],
+                "stages": {s: {k2: v for k2, v in st.items()
+                               if k2 != "block_time_distribution"}
+                           for s, st in rec["stages"].items()},
+                "validations": rec["validations"],
+                "graph_counts": rec["graph_counts"],
+                "peak_mem_gib": rec["peak_mem_gib"], "launches": counts}
+        if variant == "pancreas":
+            line["instance_norm_biases"] = rec["instance_norm_biases"]
+        print(f"run_full_torch {variant} at a cut: " + json.dumps(line),
+              flush=True)
+        launches[f"run_full_{variant}"] = counts
+    return launches
+
+
+def phase_zoo_training(torch, workdir: str, smi: str):
+    """Phase 17, zoo nets through the train CLIs and the full-schedule
+    script: (a), (b)-(d), (e). Returns {path: launches}."""
+    launches = phase_zoo_step(torch)
+    torch.cuda.empty_cache()
+    launches.update(phase_zoo_cli(torch, os.path.join(workdir, "cli"), smi))
+    torch.cuda.empty_cache()
+    launches.update(phase_run_full(torch, os.path.join(workdir, "run_full"),
+                                   smi))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4682,11 +5009,12 @@ def main() -> int:
     only = {"data_parallel_cards": phase_data_parallel_cards,
             "spatial_cards": phase_spatial_cards,
             "zoo": lambda torch, workdir, smi: phase_zoo(torch, rates,
-                                                         workdir, smi)}
+                                                         workdir, smi),
+            "zoo_train": phase_zoo_training}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in only:
         # phase 14 (c) or 15 (c) alone, for a machine with several cards;
-        # phase 16 alone on one
+        # phase 16 or 17 alone on one
         with tempfile.TemporaryDirectory(dir=work_root) as workdir:
             if not only[sys.argv[2]](torch, workdir, smi):
                 fail(f"--only {sys.argv[2]} needs two visible cards")
@@ -4697,8 +5025,8 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
-             f"--only data_parallel_cards, --only spatial_cards or --only "
-             f"zoo")
+             f"--only data_parallel_cards, --only spatial_cards, --only "
+             f"zoo or --only zoo_train")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
@@ -4746,6 +5074,8 @@ def main() -> int:
         zoo_launches, zoo = phase_zoo(torch, rates,
                                       os.path.join(workdir, "zoo"), smi)
         launches.update(zoo_launches)
+        launches.update(phase_zoo_training(
+            torch, os.path.join(workdir, "zoo_train"), smi))
     for e in entries:
         if e["name"] in pancreas:
             # B's, B-as-dx's and C's device times at the 96^3 stage shapes

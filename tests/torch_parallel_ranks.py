@@ -15,7 +15,7 @@ import torch.distributed as dist
 from bcp_tpu_torch.config import acdc_config, la_config, pancreas_config
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
-from bcp_tpu_torch.models import UNet2D, VNet3D, VNetPancreas
+from bcp_tpu_torch.models import UNet2D, VNet3D, VNetPancreas, create_model
 from bcp_tpu_torch.models.layers import TorchBatchNorm
 from bcp_tpu_torch.ops import losses
 from bcp_tpu_torch.parallel import mesh
@@ -145,6 +145,33 @@ def step(variant, stage, start, batch, mask, cfg_kw):
         metrics = pretrain_step(state, local, mask, cfg)
     else:
         metrics = selftrain_step(state, local, mask, cfg)
+    return ({k: v.item() for k, v in metrics.items()}, *_state_out(state))
+
+
+def zoo_step(net_type, kw, stage, start, batch, mask, cfg_kw, seed):
+    """One f64 LA update of the zoo net ``net_type`` (factory kwargs
+    ``kw``) from the state_dict ``start`` on this rank's rows of the global
+    ``batch``, dropout on: every forward draws from one generator seeded
+    ``seed``, over the global batch (this rank keeps its rows). (metrics,
+    student, teacher, optimizer state)."""
+    cfg = la_config(**cfg_kw).replace(net_type=net_type)
+    model = create_model(net_type, 2, mode="train", device="cpu",
+                         **kw).double()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in start.items()},
+                          strict=True)
+    teacher = copy.deepcopy(model)
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    state = TrainState(model, teacher, build_optimizer(cfg,
+                                                       model.parameters()))
+    local = {k: mesh.shard_rows(torch.from_numpy(v))
+             for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(seed)
+    mask = torch.from_numpy(mask)
+    if stage == "pre":
+        metrics = pretrain_step(state, local, mask, cfg, gen)
+    else:
+        metrics = selftrain_step(state, local, mask, cfg, gen, gen)
     return ({k: v.item() for k, v in metrics.items()}, *_state_out(state))
 
 
