@@ -14,8 +14,10 @@ any rank.
 
 Under a space split (``parallel.mesh``) a tensor is an x slab (dim 2) of
 the whole volume: the 3^3 and 3x3 convs read their neighbours' planes
-(``mesh.halo``) and are VALID in x, the norms take the whole volume's
-statistics, the dropouts keep their slab of the whole volume's draw, and
+(``mesh.halo``) and are VALID in x, the zoo's SAME 3^3 stride-2
+transposed conv reads its left neighbour's plane, the norms take the
+whole volume's statistics, the dropouts keep their slab of the whole
+volume's draw, and
 :class:`SpaceLevels` says which levels of a U-shaped net are slabs and
 which run replicated.
 """
@@ -131,7 +133,16 @@ class ConvTransposeSame3d(ConvTranspose3d):
     with the un-flipped kernel; with the weight ``convert`` un-flips, that
     is torch's transposed conv without padding (2n + 1 planes) cropped to
     its first 2n. torch's ``padding=1, output_padding=1`` would keep planes
-    1..2n instead, one plane off (``tests/test_torch_zoo_layers.py``)."""
+    1..2n instead, one plane off (``tests/test_torch_zoo_layers.py``).
+
+    Output plane 2j reads input planes j and j - 1, so under a space split
+    the op is not slab-local: the slab of X planes takes its neighbours'
+    planes (``mesh.halo``, X + 2), the unpadded transposed conv gives
+    2X + 5 planes, and this slab's 2X are planes [2, 2X + 2) of them. Rank
+    0's zero left plane gives plane 0 as SAME does; the right neighbour's
+    plane only reaches planes past 2X + 1, which the whole volume's crop
+    drops on the last rank. The halo's backward sends the left plane's
+    gradient back to its owner."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None):
@@ -139,8 +150,16 @@ class ConvTransposeSame3d(ConvTranspose3d):
                          dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if mesh.space_split():
+            return self.on_padded_slab(mesh.halo(x))
         X, Y, Z = x.shape[2:]
         return super().forward(x)[:, :, :2 * X, :2 * Y, :2 * Z]
+
+    def on_padded_slab(self, x: torch.Tensor) -> torch.Tensor:
+        """This slab's 2X planes of the whole volume's output from its
+        halo-padded slab ``x`` of X + 2 planes."""
+        X, Y, Z = x.shape[2] - 2, *x.shape[3:]
+        return super().forward(x)[:, :, 2:2 * X + 2, :2 * Y, :2 * Z]
 
 
 class Linear(nn.Linear):
@@ -507,8 +526,9 @@ class SpaceLevels:
         return self.run(level + 1, fn, x)
 
     def up(self, level: int, fn, x: torch.Tensor) -> torch.Tensor:
-        """The slab-local up step ``fn`` (a stride-2 deconv) from the level
-        below to ``level``."""
+        """The up step ``fn`` (a stride-2 deconv: slab-local, or taking its
+        own halo, :class:`ConvTransposeSame3d`) from the level below to
+        ``level``."""
         y = self.run(level + 1, fn, x)
         return (mesh.shard_space(y, 2) if self.on and level == self.first
                 else y)

@@ -137,8 +137,6 @@ class UNet2D(nn.Module):
     #: forwards normalise each sub-batch by its own statistics
     #: (``train.steps.concat_groups``)
     grouped = True
-    #: runs on x slabs under a space split (:class:`SpaceLevels`)
-    slabs = True
 
     def __init__(self, n_channels: int = 1, n_classes: int = 4,
                  feature_chns: Sequence[int] = (16, 32, 64, 128, 256),

@@ -31,6 +31,15 @@ BatchNorms are :class:`~bcp_tpu_torch.models.layers.TorchBatchNorm`, so
 JAX net has no ``bn_groups`` field, so the self-train step's concat
 forwards normalise the whole concat batch as one (the class sets no
 ``grouped``, ``train.steps.concat_groups``).
+
+Under a space split (``parallel.mesh``) the five levels run on x slabs or
+replicated as :class:`~bcp_tpu_torch.models.layers.SpaceLevels` decides:
+the 2^3 max pool is slab-local where the slab is even, and the down step
+at the first odd slab gathers (LA's 112 planes: level 3 at S = 2, level 2
+at S = 4); the 3^3 convs take the halo, the 1^3 adapters and heads are
+local, the concat skips line up with the slabs, and the transposed convs
+take their neighbour's plane (``layers.ConvTransposeSame3d``). The channel
+dropout's (N, C) mask is the same on every slab.
 """
 
 from __future__ import annotations
@@ -42,7 +51,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from bcp_tpu_torch.models.layers import (ChannelDropout, Conv3d, Conv3x3x3,
-                                         ConvTransposeSame3d, TorchBatchNorm)
+                                         ConvTransposeSame3d, SpaceLevels,
+                                         TorchBatchNorm)
+
+#: the max-pool down steps
+DOWNS = 4
 
 
 class Conv3DBlock(nn.Module):
@@ -76,6 +89,10 @@ class Deconv3DBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.deconv(x))
+
+
+def _pool(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool3d(x, 2, 2)
 
 
 class UNet3D(nn.Module):
@@ -112,15 +129,16 @@ class UNet3D(nn.Module):
             x = x.to(self.compute_dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last_3d)
-        feats = [self.conv_blk1(x)]
-        for i in range(2, 6):
-            feats.append(getattr(self, f"conv_blk{i}")(
-                F.max_pool3d(feats[-1], 2, 2)))
+        lv = SpaceLevels(x.shape[2], DOWNS)
+        feats = [lv.run(0, self.conv_blk1, x)]
+        for i in range(1, 5):
+            feats.append(lv.run(i, getattr(self, f"conv_blk{i + 1}"),
+                                lv.down(i - 1, _pool, feats[-1])))
         d = feats[4]
         for i in (4, 3, 2, 1):
-            up = getattr(self, f"deconv_blk{i}")(d)
-            d = getattr(self, f"dec_conv_blk{i}")(
-                torch.cat([up, feats[i - 1].to(up.dtype)], dim=1))
+            up = lv.up(i - 1, getattr(self, f"deconv_blk{i}"), d)
+            d = lv.run(i - 1, getattr(self, f"dec_conv_blk{i}"),
+                       torch.cat([up, feats[i - 1].to(up.dtype)], dim=1))
             if i in (3, 2):
                 d = getattr(self, f"drop{i}")(d)
         heads = [getattr(self, f"one_conv_{h}")(d).float()

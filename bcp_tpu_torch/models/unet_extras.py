@@ -136,7 +136,8 @@ class UNet2DBCP(nn.Module):
 
 class UNetTsne(_HeadsMixin, nn.Module):
     """`UNet_tsne` (`unet_extras.py:164-190`): the 2-D U-Net's
-    ``(logits, x_last)`` plus the contrastive heads."""
+    ``(logits, x_last)`` plus the contrastive heads (not on the forward's
+    path)."""
 
     def __init__(self, n_channels: int = 1, n_classes: int = 4,
                  feature_chns: Sequence[int] = (16, 32, 64, 128, 256),

@@ -25,6 +25,20 @@ LA's 112x112x80 patch). The module names are the flax paths
 (``layer3.attn.query``, ``decoder9.conv``, ``dec9_conv0.bn``), for
 ``convert.state_dict_from_flax``. ``d_ff``, ``width_scale`` and
 ``ext_layers`` are the JAX package's knobs for small fixtures.
+
+Under a space split (``parallel.mesh``) the input is an x slab. The patch
+embedding runs on it where the token grid's planes divide by S (at 128^3,
+P = 16 and S <= 8 the slab is a whole number of patches), else on the
+gathered input; the token planes are gathered over the space group before
+the position embeddings, and the transformer runs replicated on the S
+ranks of a sample, its dropouts drawing the whole draw on each. The four
+extracted grids go back to x slabs at the first decoder level whose
+planes divide by S (:class:`TokenLevels`: the token grid itself at 128^3,
+the level above a 1-plane grid), and the levels from there on run on
+slabs: the 2^3 transposed convs are slab-local, the 3^3 convs take the
+halo, ``decoder0_*`` runs on the input slab and the head's concat lines
+up with it. A level below runs replicated and its up step takes the slab
+back, as ``layers.SpaceLevels`` does for the U-shaped nets.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from torch import nn
 from bcp_tpu_torch.models.layers import (Conv3d, Conv3x3x3, ConvTranspose3d,
                                          Dropout, LayerNorm, Linear,
                                          TorchBatchNorm)
+from bcp_tpu_torch.parallel import mesh
 
 
 class SelfAttention(nn.Module):
@@ -127,6 +142,45 @@ def _deconv2x(n_in: int, n_out: int, dtype) -> ConvTranspose3d:
     return ConvTranspose3d(n_in, n_out, 2, stride=2, dtype=dtype)
 
 
+class TokenLevels:
+    """Which of UNETR's decoder levels run on x slabs under a space split:
+    level 0 is the token grid (``planes`` in x), level L its 2^L-fold
+    upsample, level 4 the input's extent. Levels from the first whose
+    planes divide by S run on slabs, those below replicated; outside a
+    split every method is the plain call."""
+
+    def __init__(self, planes: int):
+        self.on = mesh.space_split()
+        S = mesh.space_size()
+        #: the first sliced level
+        self.first = next(L for L in range(5) if (planes << L) % S == 0) \
+            if self.on else 0
+
+    def sliced(self, level: int) -> bool:
+        return self.on and level >= self.first
+
+    def grid(self, z: torch.Tensor) -> torch.Tensor:
+        """An extracted grid (level 0, whole on every rank): this rank's
+        slab where the token level is sliced."""
+        return mesh.shard_space(z, 2) if self.sliced(0) else z
+
+    def run(self, level: int, fn, *args):
+        """``fn(*args)`` at ``level``: the split on there or off."""
+        if not self.on:
+            return fn(*args)
+        with mesh.split(self.sliced(level)):
+            return fn(*args)
+
+    def up(self, level: int, fn, x: torch.Tensor) -> torch.Tensor:
+        """The up step ``fn`` (a 2^3 transposed conv, alone or with its
+        3^3 conv) from ``level - 1`` to ``level``: on the slabs where the
+        level below is sliced, else replicated and then this rank's
+        slab where ``level`` is the first sliced one."""
+        y = self.run(level - 1, fn, x)
+        return mesh.shard_space(y, 2) if self.on and level == self.first \
+            and level > 0 else y
+
+
 class UNETR(nn.Module):
     """`UNETR` (`unetr.py:126-230`). ``forward(x)`` takes (B, n_channels,
     *img_shape)."""
@@ -192,10 +246,12 @@ class UNETR(nn.Module):
             self.out_conv2 = Conv3d(w(64), n_classes, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if tuple(x.shape[2:]) != self.img_shape:
+        extent = (x.shape[2] * mesh.space_size() if mesh.space_split()
+                  else x.shape[2], *x.shape[3:])
+        if extent != self.img_shape:
             raise ValueError(
                 f"UNETR built for img_shape {self.img_shape} got a "
-                f"{tuple(x.shape[2:])} input: its position embeddings fix "
+                f"{extent} input: its position embeddings fix "
                 f"the extent, so build it with img_shape equal to the "
                 f"window (a test CLI's patch_size)")
         if self.compute_dtype is not None:
@@ -203,32 +259,37 @@ class UNETR(nn.Module):
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last_3d)
         N, D = x.shape[0], self.embed_dim
-        tokens = self.patch_embeddings(x).flatten(2).transpose(1, 2)
-        tokens = self.embed_dropout(
-            tokens + self.position_embeddings.to(tokens.dtype))
-        extracted = []
-        h = tokens
-        for i in range(self.num_layers):
-            h = getattr(self, f"layer{i}")(h)
-            if i + 1 in self.ext_layers:
-                extracted.append(h)
+        lv = TokenLevels(self.patch_dim[0])
+        if lv.sliced(0):
+            # the slab is whole patches: embed it, then gather the tokens
+            grid = mesh.gather_space(self.patch_embeddings(x), 2)
+        else:
+            grid = self.patch_embeddings(mesh.gather_space(x, 2))
+        with mesh.split(False):
+            extracted = self._transformer(
+                grid.flatten(2).transpose(1, 2))
         # (N, T, D) -> (N, D, *patch_dim): a channels_last_3d view
-        z3, z6, z9, z12 = [z.transpose(1, 2).reshape(N, D, *self.patch_dim)
-                           for z in extracted]
+        z3, z6, z9, z12 = [lv.grid(z.transpose(1, 2).reshape(
+            N, D, *self.patch_dim)) for z in extracted]
 
-        z12 = self.decoder12_upsampler(z12)
-        y = torch.cat([self.decoder9(z9), z12], dim=1)
-        y = self.dec9_conv2(self.dec9_conv1(self.dec9_conv0(y)))
-        z9 = self.decoder9_upsampler(y)
+        z12 = lv.up(1, self.decoder12_upsampler, z12)
+        y = torch.cat([lv.up(1, self.decoder9, z9), z12], dim=1)
+        y = lv.run(1, lambda t: self.dec9_conv2(self.dec9_conv1(
+            self.dec9_conv0(t))), y)
+        z9 = lv.up(2, self.decoder9_upsampler, y)
 
-        z6 = self.decoder6_b(self.decoder6_a(z6))
-        y = self.dec6_conv1(self.dec6_conv0(torch.cat([z6, z9], dim=1)))
-        z6 = self.decoder6_upsampler(y)
+        z6 = lv.up(2, self.decoder6_b, lv.up(1, self.decoder6_a, z6))
+        y = lv.run(2, lambda t: self.dec6_conv1(self.dec6_conv0(t)),
+                   torch.cat([z6, z9], dim=1))
+        z6 = lv.up(3, self.decoder6_upsampler, y)
 
-        z3 = self.decoder3_c(self.decoder3_b(self.decoder3_a(z3)))
-        y = self.dec3_conv1(self.dec3_conv0(torch.cat([z3, z6], dim=1)))
-        z3 = self.decoder3_upsampler(y)
+        z3 = lv.up(3, self.decoder3_c, lv.up(2, self.decoder3_b, lv.up(
+            1, self.decoder3_a, z3)))
+        y = lv.run(3, lambda t: self.dec3_conv1(self.dec3_conv0(t)),
+                   torch.cat([z3, z6], dim=1))
+        z3 = lv.up(4, self.decoder3_upsampler, y)
 
+        # level 4, the input's extent, is always sliced under a split
         z0 = self.decoder0_b(self.decoder0_a(x))
         cat = torch.cat([z0, z3], dim=1)
         logits = self.out_conv(self.head_b(self.head_a(cat)))
@@ -236,3 +297,15 @@ class UNETR(nn.Module):
             seg2 = self.out_conv2(self.head2_b(self.head2_a(cat)))
             return torch.tanh(logits).float(), seg2.float()
         return logits.float(), z0
+
+    def _transformer(self, tokens: torch.Tensor):
+        """The embedded tokens (N, T, D) through the position embeddings
+        and the blocks: the hidden states after ``ext_layers``."""
+        h = self.embed_dropout(
+            tokens + self.position_embeddings.to(tokens.dtype))
+        extracted = []
+        for i in range(self.num_layers):
+            h = getattr(self, f"layer{i}")(h)
+            if i + 1 in self.ext_layers:
+                extracted.append(h)
+        return extracted

@@ -235,8 +235,6 @@ class VNet3D(nn.Module):
     #: forwards normalise each sub-batch by its own statistics
     #: (``train.steps.concat_groups``)
     grouped = True
-    #: runs on x slabs under a space split (:class:`SpaceLevels`)
-    slabs = True
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,
@@ -275,7 +273,7 @@ class VNetPancreas(nn.Module):
     norm is per sample, so a concatenated batch gives exactly its parts'
     forwards and the BatchNorm group context has nothing to set."""
 
-    grouped = slabs = True      # as :class:`VNet3D`'s
+    grouped = True      # as :class:`VNet3D`'s
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,
@@ -326,7 +324,7 @@ class GitVNet(nn.Module):
     ``out_conv.weight``), the JAX converter's non-nested mapping
     (`torch_ckpt.py:150-153`). ``forward`` is :class:`VNet3D`'s."""
 
-    grouped = slabs = True      # as :class:`VNet3D`'s
+    grouped = True      # as :class:`VNet3D`'s
 
     def __init__(self, n_channels: int = 1, n_classes: int = 2,
                  n_filters: int = 16, dtype: Optional[torch.dtype] = None,

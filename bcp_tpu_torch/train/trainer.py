@@ -188,9 +188,8 @@ def check_trainable(cfg: Config, model=None) -> None:
     """Refuse a net the BCP steps cannot train: a key of
     :data:`UNTRAINABLE`; with ``model`` (the config's net, built) also
     UNETR at a patch other than the window its position embeddings fix
-    (the trainer passes no ``img_shape``, so the factory's 128^3), and a
-    space split of a net that does not run on x slabs (the zoo has no
-    ``SpaceLevels``; the JAX package's GSPMD splits any net)."""
+    (the trainer passes no ``img_shape``, so the factory's 128^3). Every
+    net it takes also runs under a space split."""
     net = cfg.net_type
     if net in UNTRAINABLE:
         raise ValueError(f"net_type {net!r} cannot be trained by the BCP "
@@ -203,12 +202,6 @@ def check_trainable(cfg: Config, model=None) -> None:
             f"net_type {net!r} is built for the window {tuple(window)}, "
             f"its position embeddings fix the extent, but the patch is "
             f"{tuple(cfg.patch_size)}")
-    if max(int(cfg.sp_devices), 1) > 1 and not getattr(model, "slabs",
-                                                        False):
-        raise ValueError(
-            f"sp_devices={cfg.sp_devices}: net_type {net!r} has no spatial "
-            f"split in the port (the V-Nets and the 2-D U-Net have one); "
-            f"use --num_devices alone")
 
 
 def copy_paste_mask(cfg: Config, rng: np.random.Generator, device=None):

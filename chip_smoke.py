@@ -202,6 +202,20 @@ described by their functions.)
     JSON, the launches of its path. ``python3 chip_smoke.py --only
     zoo_train`` runs phase 17 alone.
 
+18. The zoo under a space split (``phase_zoo_spatial``): (a) every 3^3
+    conv and ``ConvTransposeSame3d`` of a full-width UNet3D (LA patch) and
+    UNETR (128^3) forward that runs on slabs at S = 2 and 4, slab by slab
+    in one process against the whole volume (B, B-as-dx, C within phase
+    2's limits; the transposed conv in f32 within 1e-4), with the CUDA-
+    event ms of the whole pass beside the slabs'; (b) ``unet_3D``'s f32
+    update at full width on two gloo ranks sharing this card at S = 2
+    against one process under phase 3's rule, each rank's peak GiB
+    beside the one process's; (c) on the same two ranks ``train_la
+    --model unet_3D`` at full width and ``--model unetr`` at 128^3 (its
+    validation at eval batch 4), K = 1: exact launches a steady step, ms,
+    busy, idle share, peak GiB a rank. ``python3 chip_smoke.py --only
+    zoo_spatial`` runs phase 18 alone.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -3863,10 +3877,13 @@ def phase_spatial_slabs(torch, smi: str):
 
 
 def _sp_config(variant: str):
+    """Phase 15's f32 configs, and phase 18's ``unet_3D`` through the LA
+    steps."""
     from bcp_tpu_torch.config import la_config, pancreas_config
-    if variant == "la":
+    if variant in ("la", "unet_3D"):
         return la_config(labelnum=4, patch_size=PATCH,
-                         compute_dtype="float32")
+                         compute_dtype="float32",
+                         net_type="VNet" if variant == "la" else variant)
     return pancreas_config(compute_dtype="float32")
 
 
@@ -3888,7 +3905,16 @@ def sp_inputs(torch, variant: str):
             "uimg_b": img[6:8], "lab_a": lab[0:2], "lab_b": lab[2:4]}
     rng = np.random.default_rng(SEED + 42)
     start = build_model(cfg, "train", "cpu", seed=SEED).state_dict()
-    if variant == "la":
+    if variant == "unet_3D":
+        mask = cuboid_mask(patch, cuboid_starts(rng, patch))
+        widths = [start[f"dec_conv_blk{i}.bn2.weight"].numel()
+                  for i in (3, 2)]
+
+        def keep(rows):   # UNet3D's two channel dropouts, drop3 and drop2
+            return [rng.random((rows, c)) < 0.5 for c in widths]
+        keeps = {"pre": (1, keep(2)), "teacher": (2, keep(4)),
+                 "student": (2, keep(4))}
+    elif variant == "la":
         mask = cuboid_mask(patch, cuboid_starts(rng, patch))
         nf = start["encoder.block_one.conv.0.weight"].shape[0]
 
@@ -3965,9 +3991,12 @@ def _sp_updates(torch, variant: str, inputs, plab, sp: int):
     calls = ({e.key: e.count for e in trace.key_averages()
               if e.key.startswith("c10d::")} if mesh.active() else {})
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # the gradients: pancreas' rule reads them, the SGD pipelines' the
+    # updates (:func:`_hold_sp`)
     grads = {f"{tag}.{n}": p.grad.cpu().double()
              for tag, s_ in (("pre", pre), ("self", st))
-             for n, p in s_.model.named_parameters()}
+             for n, p in s_.model.named_parameters()} \
+        if variant == "pancreas" else {}
     delta = {}
     for tag, mod in (("pre", pre.model), ("self", st.model),
                      ("teacher", st.teacher)):
@@ -4001,7 +4030,7 @@ def _hold_sp(torch, variant, want, got, start, extra, label):
     if gplab.shape != plab.shape or \
             extra["pseudo_label_flips"] > FLIP_SHARE * plab.size:
         fail(f"{label}: the pseudo-labels differ: {extra}")
-    if variant == "la":
+    if variant in ("la", "unet_3D"):
         scale = module_scales(wd)
         return _compare_step(
             torch, {k: v.double() for k, v in wd.items()}, wl,
@@ -4979,6 +5008,405 @@ def phase_zoo_training(torch, workdir: str, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the zoo under a space split
+
+#: (a): the batch of the slab checks, and the CUDA-event timings a side
+ZOO_SP_BATCH = 2
+ZOO_SP_TIMINGS = 3
+#: (c): iterations a stage of the CLI runs on two ranks sharing the card
+#: (a validation at the last): the host waits for the background jobs
+#: after the first, times the next ZOO_SP_TIMED and traces the last on
+#: the device; UNETR's training volumes hold its 128^3 window; the share
+#: of the card's memory each rank's allocator may hold (it frees its own
+#: cached blocks before it reaches it: the other rank cannot)
+ZOO_SP_TIMED = 3
+ZOO_SP_ITERS = ZOO_SP_TIMED + 3
+ZOO_SP_UNETR_VOLUME = (136, 136, 132)
+ZOO_SP_MEMORY_SHARE = 0.48
+#: the cut of UNETR's validation batch for two ranks on one card: a whole
+#: eval batch (the CLI default, 16 windows of 128^3) takes over 38 GiB a
+#: rank
+ZOO_SP_UNETR_EVAL_BATCH = 4
+
+
+def zoo_sp_shapes(torch, net: str):
+    """Every 3^3 conv and ``ConvTransposeSame3d`` of a full-width ``net``
+    forward (``unet_3D`` at the LA patch, ``unetr`` at its 128^3 window,
+    batch ZOO_SP_BATCH, bf16), from hooks on a whole-volume forward:
+    {(kind, ci, co, shape, level): calls}, kind "conv" or "transpose",
+    ``shape`` the input's whole (B, X, Y, Z), ``level`` its halvings of
+    the window's x extent."""
+    from bcp_tpu_torch.models.layers import Conv3x3x3, ConvTransposeSame3d
+    extent = PATCH if net == "unet_3D" else UNETR_WINDOW
+    kw = {} if net == "unet_3D" else {"img_shape": UNETR_WINDOW}
+    model = zoo_model(torch, net, kw, mode="test", dtype=torch.bfloat16)
+    found = {}
+
+    def hook(kind):
+        def record(mod, args):
+            x = args[0]
+            key = (kind, mod.in_channels, mod.out_channels,
+                   (x.shape[0], *x.shape[2:]),
+                   (extent[0] // x.shape[2]).bit_length() - 1)
+            found[key] = found.get(key, 0) + 1
+        return record
+    hooks = [m.register_forward_pre_hook(hook(
+        "transpose" if isinstance(m, ConvTransposeSame3d) else "conv"))
+        for m in model.modules()
+        if isinstance(m, (Conv3x3x3, ConvTransposeSame3d))]
+    x = torch.randn(ZOO_SP_BATCH, 1, *extent, device=DEVICE)
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return found
+
+
+def zoo_sp_sliced(net: str, level: int, S: int) -> bool:
+    """Whether ``net``'s ``level`` runs on slabs at S: UNet3D's by
+    ``layers.gathered_level`` (LA's 112 planes: levels 0-3 at S = 2, 0-2
+    at S = 4), every level of UNETR's decoder above its 8-plane token grid
+    at S <= 8 (``unetr.TokenLevels``). A transposed conv runs on slabs
+    where its input level does."""
+    from bcp_tpu_torch.models.layers import gathered_level
+    if net != "unet_3D":
+        return True
+    first = gathered_level(PATCH[0] // S, 4)
+    return first is None or level <= first
+
+
+def phase_zoo_slabs(torch, smi: str):
+    """Phase 18 (a): every 3^3 conv and ``ConvTransposeSame3d`` of a
+    full-width UNet3D (LA patch) and UNETR (128^3) forward that runs on
+    slabs at S = 2 and 4, slab by slab in one process against the whole
+    volume, bf16, batch ZOO_SP_BATCH, as phase 15 (a): B on the halo-padded
+    slabs (``mesh.halo_slabs``, the exchange's own pad) through
+    ``Conv3x3x3Function``'s halo forward, B-as-dx on each slab's
+    zero-padded dy folded back (``mesh.fold_slabs``), C's dW summed over
+    the slabs; a Ci = 1 conv through ``F.conv3d`` VALID in x; the
+    transposed conv (cuDNN, f32) through ``on_padded_slab`` forward and
+    backward. Limits are phase 2's: bf16 forward and dx max|slabs - whole|
+    <= 1e-2 max|whole|, dW 1e-3; f32 1e-4. Prints the launches on the
+    slabs and the CUDA-event ms of the whole volume's forward, dx and dW
+    beside the slabs' (pads and folds included), summed over the pass.
+    Returns the launches made on the slabs (once a shape)."""
+    from bcp_tpu_torch.models.layers import ConvTransposeSame3d
+    from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
+                                          conv3x3x3_dx, conv3x3x3_same,
+                                          kernel_takes)
+    from bcp_tpu_torch.parallel import mesh
+    import torch.nn.functional as F
+    counters = kernel_counters()
+    launches = {}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    cl = torch.channels_last_3d
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=DEVICE).to(
+            dtype).contiguous(memory_format=cl)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item() / max(
+            b.float().abs().max().item(), 1e-30)
+
+    for net in ("unet_3D", "unetr"):
+        shapes = zoo_sp_shapes(torch, net)
+        for S in SP_SPLITS:
+            rows, whole_ms, slabs_ms = [], 0.0, 0.0
+            for (kind, ci, co, shape, level), calls in sorted(
+                    shapes.items()):
+                if not zoo_sp_sliced(net, level, S):
+                    continue
+                B, X, Y, Z = shape
+                row = {"kind": kind, "ci": ci, "co": co, "shape": list(shape),
+                       "level": level, "slab": X // S, "calls": calls}
+                rows.append(row)
+                if kind == "transpose":
+                    x = rnd(B, ci, X, Y, Z, dtype=torch.float32)
+                    dy = rnd(B, co, 2 * X, 2 * Y, 2 * Z, dtype=torch.float32)
+                    conv = ConvTransposeSame3d(ci, co).to(DEVICE)
+                    xw = x.clone().requires_grad_()
+                    conv(xw).backward(dy)
+                    want = {"forward": conv(x).detach(), "dx": xw.grad,
+                            "dw": conv.weight.grad.clone()}
+                    conv.zero_grad()
+                    xs = x.clone().requires_grad_()
+                    ys = torch.cat([conv.on_padded_slab(p) for p in
+                                    mesh.halo_slabs(xs, S)], 2)
+                    ys.backward(dy)
+                    got = {"forward": ys.detach(), "dx": xs.grad,
+                           "dw": conv.weight.grad}
+                    limits = {"forward": 1e-4, "dx": 1e-4, "dw": 1e-4}
+                    del conv, xw, xs, ys
+                elif not kernel_takes(ci, co):    # the Ci = 1 first conv
+                    x, w = rnd(B, ci, X, Y, Z), rnd(co, ci, 3, 3, 3)
+                    with torch.no_grad():
+                        want = {"forward": F.conv3d(x, w, padding=1)}
+                        got = {"forward": torch.cat([
+                            F.conv3d(p, w, padding=(0, 1, 1))
+                            for p in mesh.halo_slabs(x, S)], 2)}
+                    limits = {"forward": 1e-2}
+                else:
+                    x, dy = rnd(B, ci, X, Y, Z), rnd(B, co, X, Y, Z)
+                    w = rnd(co, ci, 3, 3, 3).contiguous()
+
+                    def whole():
+                        return {"forward": conv3x3x3_same(x, w),
+                                "dx": conv3x3x3_dx(dy, w),
+                                "dw": conv3x3x3_dw(x, dy)}
+
+                    def slabs():
+                        pads = mesh.halo_slabs(x, S)
+                        dys = [F.pad(d, (0, 0, 0, 0, 1, 1)).contiguous(
+                            memory_format=cl) for d in dy.chunk(S, 2)]
+                        return {"forward": torch.cat([
+                                    Conv3x3x3Function.apply(p, w, False,
+                                                            True)
+                                    for p in pads], 2),
+                                "dx": mesh.fold_slabs([conv3x3x3_dx(d, w)
+                                                       for d in dys]),
+                                "dw": sum(conv3x3x3_dw(p, d)
+                                          for p, d in zip(pads, dys))}
+                    with torch.no_grad():
+                        want = whole()
+                        read_launches(counters, reset=True)
+                        got = slabs()
+                        counts = read_launches(counters)
+                        row["whole_ms"] = cuda_ms(torch, whole,
+                                                  ZOO_SP_TIMINGS)
+                        row["slabs_ms"] = cuda_ms(torch, slabs,
+                                                  ZOO_SP_TIMINGS)
+                        read_launches(counters, reset=True)
+                    whole_ms += calls * row["whole_ms"]
+                    slabs_ms += calls * row["slabs_ms"]
+                    launches = {k: launches.get(k, 0) + v
+                                for k, v in counts.items()}
+                    limits = {"forward": 1e-2, "dx": 1e-2, "dw": 1e-3}
+                for k, limit in limits.items():
+                    row[k] = err(got[k], want[k])
+                    if not row[k] <= limit:
+                        fail(f"phase 18 (a) {net} S={S}: {kind} {ci}->{co} "
+                             f"at {shape}: {k} of the slabs differs from "
+                             f"the whole volume's: {row}")
+                del x, want, got
+            line = {"card": smi, "batch": ZOO_SP_BATCH,
+                    "whole_pass_ms": whole_ms, "slabs_pass_ms": slabs_ms,
+                    "shapes": rows}
+            print(f"zoo slabs {net} S={S}: " + json.dumps(line), flush=True)
+    print("zoo slabs launches (B, B-as-dx, C on the slabs, once a shape): "
+          + json.dumps(launches), flush=True)
+    return launches
+
+
+class SplitClock(DispatchClock):
+    """:class:`DispatchClock` for phase 18 (c)'s short stages: it waits
+    for the background jobs after iteration 1, times iterations 2 to
+    2 + ZOO_SP_TIMED (launches and peak memory over them) and traces the
+    next on the device."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        w = ZOO_SP_TIMED
+        self.marks = {1: "drain", 2: "window", 2 + w: "device",
+                      3 + w: "end"}
+
+    def steady(self, stage: str):
+        w = ZOO_SP_TIMED
+        t = self.times[stage]
+        dev = device_summary(self.traces[(stage, "device")])
+        return {"ms_per_step": (t[2 + w] - t[2]) / w * 1e3,
+                "kernel_launches_per_step": {
+                    k: v / w for k, v in self.launches[stage].items() if v},
+                "peak_mem_gib": self.peak_gib[stage],
+                "reserved_gib": self.reserved_gib[stage],
+                "busy_ms_per_step": dev["busy_ms"] if dev else None,
+                "idle_share": dev["idle_share"] if dev else None}
+
+
+def _zoo_cli_run(torch, tmp: str, net: str, rank: int):
+    """Phase 18 (c) on one of the two gloo ranks of :func:`_zoo_split_rank`:
+    the ``train_la --model net`` core (``build_trainer``, ``run_stages``)
+    at the CLI's defaults (bf16, batch 8, K = 1; UNETR's validation at
+    eval batch ZOO_SP_UNETR_EVAL_BATCH), num_devices 2 and sp_devices 2
+    set in the config as the CLI's ``--num_devices 2 --sp_devices 2`` sets
+    them (which spawns one NCCL rank a card, two cards), the host feed,
+    ZOO_SP_ITERS iterations a stage with a validation at the last, timed
+    by :class:`SplitClock`: its launches, steady figures, wall and best
+    Dice."""
+    from bcp_tpu_torch.cli import train_la
+    from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.data.synthetic import la_cases
+    from bcp_tpu_torch.parallel import mesh
+    root = os.path.join(tmp, f"run_{net}")
+    window = PATCH if net == "unet_3D" else UNETR_WINDOW
+    volume = TRAIN_VOLUME if net == "unet_3D" else ZOO_SP_UNETR_VOLUME
+    over = {} if net == "unet_3D" else {"eval_batch":
+                                         ZOO_SP_UNETR_EVAL_BATCH}
+    n = str(ZOO_SP_ITERS)
+    args = train_la.build_parser().parse_args(
+        ["--labelnum", "4", "--root_path", root, "--snapshot_root", root,
+         "--device", str(mesh._WORLD.device), "--model", net,
+         "--pre_max_iteration", n, "--self_max_iteration", n])
+    counters = kernel_counters()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = train_la.build_trainer(
+            args, train_dataset=VolumeList(la_cases(
+                TRAIN_VOLUMES, volume, seed=SEED + 3)),
+            val_cases=la_cases(1, tuple(max(a, b) for a, b in zip(
+                DISPATCH_LA_VAL, volume)), seed=SEED + 4),
+            patch_size=window, eval_every=ZOO_SP_ITERS, num_devices=2,
+            sp_devices=2, device_data_cache=False, **over)
+        clock = SplitClock(torch, counters, tmp, trainer,
+                           f"{net}_sp2_rank{rank}")
+        trainer.on_step = clock
+        read_launches(counters, reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stages = train_la.run_stages(trainer, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(counters)
+    cfg = trainer.cfg
+    return {"cfg": {"net_type": cfg.net_type, "sp_devices": cfg.sp_devices,
+                    "space_size": mesh.space_size(),
+                    "batch_size": cfg.batch_size,
+                    "eval_batch": cfg.eval_batch,
+                    "compute_dtype": cfg.compute_dtype,
+                    "patch_size": list(cfg.patch_size)},
+            "launches": launches, "cli_s": wall,
+            "kernel_convs": len(kernel_convs(trainer.eval_model)),
+            "validations": trainer.validations,
+            "best_dice": {s: d for s, (d, _) in stages.items()},
+            "steady": {st: clock.steady(st) for st in ("pre", "self")}}
+
+
+def _zoo_split_rank(rank: int, tmp: str, inputs, plab):
+    """One of two gloo ranks sharing ``cuda:0`` for phase 18 (b) and (c),
+    its allocator held to ZOO_SP_MEMORY_SHARE of the card: (b)
+    :func:`_sp_updates` of ``unet_3D`` at S = 2 on the one process's
+    pseudo-labels ``plab`` (rank 0 writes its result, rank 1 its peak GiB
+    and launches: the CLI tests hold the ranks' updates bit for bit), then
+    (c) :func:`_zoo_cli_run` of ``unet_3D`` and ``unetr``, each rank
+    writing its own."""
+    import pickle
+    import torch
+    from bcp_tpu_torch import kernels
+    from bcp_tpu_torch.parallel import mesh
+    dev = "cuda:0" if DEVICE == "cuda" else DEVICE
+
+    def write(name, obj):
+        with open(os.path.join(tmp, f"{name}{rank}.pkl"), "wb") as f:
+            pickle.dump(obj, f)
+    with mesh.process_group(rank, 2, dev, "file://" + os.path.join(
+            tmp, "store"), backend="gloo"):
+        if DEVICE == "cuda":
+            torch.cuda.set_per_process_memory_fraction(ZOO_SP_MEMORY_SHARE)
+            kernels.build_for_world()
+        t0 = time.perf_counter()
+        out = _sp_updates(torch, "unet_3D", inputs, plab, 2)
+        write("update", out if rank == 0 else (None,) * 4 + tuple(out[4:6])
+              + (None, time.perf_counter() - t0))
+        del out
+        for net in ("unet_3D", "unetr"):
+            torch.cuda.empty_cache()
+            write(f"cli_{net}_", _zoo_cli_run(torch, tmp, net, rank))
+
+
+def phase_zoo_split_ranks(torch, smi: str):
+    """Phase 18 (b) and (c). (b): ``unet_3D``'s f32 update at full width
+    (:func:`_sp_updates`) in one process, then on two gloo ranks sharing
+    this card at S = 2, held under phase 3's rule (:func:`_hold_sp`), each
+    rank's peak GiB beside the one process's. (c), on the same two ranks
+    (:func:`_zoo_split_rank`): ``train_la --model unet_3D`` at full width
+    (112x112x80, batch 8, bf16) and ``--model unetr`` at its 128^3 window,
+    K = 1 (gloo captures no graph): both stages run, the losses finite (a
+    best Dice in [0, 1]), per rank a steady step's launches exactly B once
+    (pre) or twice (self), B-as-dx and C once a kernel-taking conv, its
+    ms, busy ms and idle share (rank 0's trace: the card also runs the
+    other rank's kernels) and peak GiB. Returns {path: rank 0's
+    launches}."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    inputs = sp_inputs(torch, "unet_3D")
+    one = _sp_updates(torch, "unet_3D", inputs, None, 1)
+    torch.cuda.empty_cache()
+    parent_gib = torch.cuda.memory_reserved() / 2**30
+    tmp = tempfile.mkdtemp(prefix="bcp_sp_zoo_")
+    nets = ("unet_3D", "unetr")
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(_zoo_split_rank, args=(tmp, inputs, one[3]),
+                           nprocs=2, join=True, start_method="spawn")
+        t_two = time.perf_counter() - t0
+        res = {}
+        for name in ("update",) + tuple(f"cli_{n}_" for n in nets):
+            res[name] = []
+            for r in range(2):
+                with open(os.path.join(tmp, f"{name}{r}.pkl"), "rb") as f:
+                    res[name].append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = res["update"][0]
+    _hold_sp(torch, "unet_3D", one, got, inputs[3],
+             {"card": smi, "S": 2, "ranks_on_one_card": 2,
+              "peak_gib_one_process": one[4],
+              "peak_gib_ranks": [o[4] for o in res["update"]],
+              "self_step_collectives_rank0": got[6],
+              "ranks_world_s": t_two,
+              "memory_share_a_rank": ZOO_SP_MEMORY_SHARE,
+              "parent_reserved_gib": parent_gib},
+             "zoo spatial S=2 two gloo ranks on one card vs one process "
+             "(unet_3D)")
+    launches = {"train_la_unet_3D_f32_sp2_shared_card": got[5]}
+    for net in nets:
+        outs = res[f"cli_{net}_"]
+        n = outs[0]["kernel_convs"]
+        for r, o in enumerate(outs):
+            for stage in ("pre", "self"):
+                per = {"conv3x3x3_same": float(n * (2 if stage == "self"
+                                                    else 1)),
+                       "conv3x3x3_dx": float(n), "conv3x3x3_dw": float(n)}
+                got = o["steady"][stage]["kernel_launches_per_step"]
+                if got != per:
+                    fail(f"train_la --model {net} --sp_devices 2 rank {r} "
+                         f"{stage}-train steady launches {got}, expected "
+                         f"{per} a step")
+            if o["cfg"]["space_size"] != 2 or not all(
+                    0.0 <= d <= 1.0 for d in o["best_dice"].values()):
+                fail(f"train_la --model {net} --sp_devices 2 rank {r}: "
+                     f"{o['cfg']}, best Dice {o['best_dice']}")
+        line = {"card": smi, "ranks_on_one_card": 2, "K": 1,
+                "iterations": ZOO_SP_ITERS,
+                "memory_share_a_rank": ZOO_SP_MEMORY_SHARE,
+                "config": outs[0]["cfg"], "kernel_convs": n,
+                "validations": outs[0]["validations"],
+                "launches_rank0": outs[0]["launches"],
+                "best_dice": outs[0]["best_dice"],
+                "cli_s": [o["cli_s"] for o in outs],
+                "steady": {st: [o["steady"][st] for o in outs]
+                           for st in ("pre", "self")}}
+        print(f"zoo train_la --model {net} --sp_devices 2 shared card: "
+              + json.dumps(line), flush=True)
+        launches[f"train_la_{net}_sp2_shared_card"] = outs[0]["launches"]
+    return launches
+
+
+def phase_zoo_spatial(torch, workdir: str, smi: str):
+    """Phase 18, the zoo under a space split: (a), (b), (c). Returns
+    {path: launches}."""
+    walls = [time.perf_counter()]
+    launches = {"zoo_spatial_slabs": phase_zoo_slabs(torch, smi)}
+    torch.cuda.empty_cache()
+    walls.append(time.perf_counter())
+    launches.update(phase_zoo_split_ranks(torch, smi))
+    walls.append(time.perf_counter())
+    print("zoo spatial wall s ((a), (b) and (c)): " + json.dumps(
+        [b - a for a, b in zip(walls, walls[1:])]), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5010,11 +5438,12 @@ def main() -> int:
             "spatial_cards": phase_spatial_cards,
             "zoo": lambda torch, workdir, smi: phase_zoo(torch, rates,
                                                          workdir, smi),
-            "zoo_train": phase_zoo_training}
+            "zoo_train": phase_zoo_training,
+            "zoo_spatial": phase_zoo_spatial}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in only:
         # phase 14 (c) or 15 (c) alone, for a machine with several cards;
-        # phase 16 or 17 alone on one
+        # phase 16, 17 or 18 alone on one
         with tempfile.TemporaryDirectory(dir=work_root) as workdir:
             if not only[sys.argv[2]](torch, workdir, smi):
                 fail(f"--only {sys.argv[2]} needs two visible cards")
@@ -5026,7 +5455,7 @@ def main() -> int:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
              f"--only data_parallel_cards, --only spatial_cards, --only "
-             f"zoo or --only zoo_train")
+             f"zoo, --only zoo_train or --only zoo_spatial")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
@@ -5076,6 +5505,8 @@ def main() -> int:
         launches.update(zoo_launches)
         launches.update(phase_zoo_training(
             torch, os.path.join(workdir, "zoo_train"), smi))
+        launches.update(phase_zoo_spatial(
+            torch, os.path.join(workdir, "zoo_spatial"), smi))
     for e in entries:
         if e["name"] in pancreas:
             # B's, B-as-dx's and C's device times at the 96^3 stage shapes

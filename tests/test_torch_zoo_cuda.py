@@ -4,8 +4,10 @@ launches B, B-as-dx and C once a kernel-taking conv in a pre-train step
 and B twice in a self-train step, and its self-train step run as a CUDA
 graph replay inside a K = 4 dispatch group ends in the state of four eager
 steps with the same draws, bit for bit (cuDNN held to its deterministic
-algorithms). Every test needs a CUDA device and skips without one; the
-file imports neither jax nor the JAX package:
+algorithms); and one of a full-width UNet3D's shapes on halo'd slabs
+(``--sp_devices``) against the whole volume. Every test needs a CUDA
+device and skips without one; the file imports neither jax nor the JAX
+package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_zoo_cuda.py
@@ -133,3 +135,62 @@ def test_zoo_k4_graph_self_step_equals_k1(cuda_device):
                                    _tensors(want_state))
     assert got == want
     assert _same(_tensors(state), _tensors(want_state))
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_zoo_halo_slabs_on_the_card(cuda_device, S):
+    """One of a full-width UNet3D's halo'd shapes (level 1 of the LA
+    patch: 256 -> 256 channels, 56 x 56 x 40, batch 2, bf16), slab by slab
+    against the whole volume, as ``chip_smoke.py`` phase 18 (a) checks
+    every shape: B's forward through ``Conv3x3x3Function``'s halo crop and
+    B-as-dx folded back within 1e-2 of the whole's largest, C's dW summed
+    over the slabs within 1e-3; and ``ConvTransposeSame3d`` (f32, cuDNN
+    without TF32) on the padded slabs within 1e-4, forward and
+    gradients."""
+    import torch.nn.functional as F
+    from bcp_tpu_torch.models.layers import ConvTransposeSame3d
+    from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function, conv3x3x3_dw,
+                                          conv3x3x3_dx, conv3x3x3_same)
+    from bcp_tpu_torch.parallel import mesh
+    kernels.build_all()
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    cl = torch.channels_last_3d
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(
+            dtype).contiguous(memory_format=cl)
+
+    def err(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    x, dy, w = rnd(2, 256, 56, 56, 40), rnd(2, 256, 56, 56, 40), \
+        rnd(256, 256, 3, 3, 3).contiguous()
+    with torch.no_grad():
+        pads = mesh.halo_slabs(x, S)
+        dys = [F.pad(d, (0, 0, 0, 0, 1, 1)).contiguous(memory_format=cl)
+               for d in dy.chunk(S, 2)]
+        fwd = torch.cat([Conv3x3x3Function.apply(p, w, False, True)
+                         for p in pads], 2)
+        assert err(fwd, conv3x3x3_same(x, w)) <= 1e-2
+        dx = mesh.fold_slabs([conv3x3x3_dx(d, w) for d in dys])
+        assert err(dx, conv3x3x3_dx(dy, w)) <= 1e-2
+        dw = sum(conv3x3x3_dw(p, d) for p, d in zip(pads, dys))
+        assert err(dw, conv3x3x3_dw(x, dy)) <= 1e-3
+
+    conv = ConvTransposeSame3d(256, 64).to(cuda_device)
+    xt = rnd(2, 256, 56, 56, 40, dtype=torch.float32)
+    dyt = rnd(2, 64, 112, 112, 80, dtype=torch.float32)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        whole = xt.clone().requires_grad_()
+        y = conv(whole)
+        y.backward(dyt)
+        dw_whole = conv.weight.grad.clone()
+        conv.zero_grad()
+        part = xt.clone().requires_grad_()
+        ys = torch.cat([conv.on_padded_slab(p)
+                        for p in mesh.halo_slabs(part, S)], 2)
+        ys.backward(dyt)
+    assert err(ys, y) <= 1e-4
+    assert err(part.grad, whole.grad) <= 1e-4
+    assert err(conv.weight.grad, dw_whole) <= 1e-4

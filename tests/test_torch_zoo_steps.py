@@ -348,23 +348,3 @@ def test_port_trainer_refuses_by_name(name, monkeypatch, tmp_path):
         BCPTrainer(cfg, device="cpu")
     if name.startswith("unetr"):
         BCPTrainer(cfg.replace(patch_size=kw["img_shape"]), device="cpu")
-
-
-@pytest.mark.parametrize("name", ["unet_3D", "unet_2d_bcp"])
-def test_port_trainer_refuses_a_space_split_of_a_zoo_net(name, monkeypatch,
-                                                         tmp_path):
-    """``--sp_devices`` splits the V-Nets' and U-Net's levels into slabs; a
-    zoo net has none, and is refused before any world is asked for."""
-    kw = ZOO[name][0]
-    make = port_state.create_model
-    monkeypatch.setattr(port_state, "create_model", lambda t, *a, **k: make(
-        t, *a, **({**kw, **k} if t == name else k)))
-    base = la_config(patch_size=(16, 16, 16)) if name == "unet_3D" else \
-        acdc_config(patch_size=(32, 32))
-    cfg = base.replace(net_type=name, sp_devices=2,
-                       snapshot_root=str(tmp_path), compute_dtype="float32")
-    with pytest.raises(ValueError, match=f"sp_devices=2: net_type "
-                                         f"'{name}' has no spatial split"):
-        BCPTrainer(cfg, device="cpu")
-    with pytest.raises(ValueError, match="needs a mesh"):
-        BCPTrainer(cfg.replace(net_type=base.net_type), device="cpu")

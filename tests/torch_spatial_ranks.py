@@ -15,8 +15,9 @@ import torch
 import torch.distributed as dist
 
 from bcp_tpu_torch.config import la_config
-from bcp_tpu_torch.models import UNet2D, VNet3D, VNetPancreas
-from bcp_tpu_torch.models.layers import InstanceNorm, SpaceLevels
+from bcp_tpu_torch.models import UNet2D, VNet3D, VNetPancreas, create_model
+from bcp_tpu_torch.models.layers import (ConvTransposeSame3d, Dropout,
+                                         InstanceNorm, SpaceLevels)
 from bcp_tpu_torch.models.vnet3d import DOWNS
 from bcp_tpu_torch.ops import losses
 from bcp_tpu_torch.parallel import mesh
@@ -375,24 +376,174 @@ def trainer_checks():
     return scale, None
 
 
-def snapshot_panels(root, train, val, sp):
-    """The image panels of a tiny LA trainer with ``log_images`` (no
-    pre-train iteration, two self-train ones, f32; self-train iteration
-    1's panels are due) in this world at ``sp_devices`` = sp, or in one
-    process: [(stage, iteration, {panel: array})], rank 0's (None on the
-    others)."""
+def snapshot_panels(root, train, val, sp, net="VNet", kw=None):
+    """The image panels of a tiny LA trainer of ``net`` (a zoo net's
+    factory kwargs ``kw``) with ``log_images`` (no pre-train iteration,
+    two self-train ones, f32; self-train iteration 1's panels are due) in
+    this world at ``sp_devices`` = sp, or in one process: [(stage,
+    iteration, {panel: array})], rank 0's (None on the others)."""
     from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.train import state as port_state
     from bcp_tpu_torch.train.trainer import BCPTrainer
-    cfg = la_config(labelnum=4, patch_size=P3, n_filters=4, eval_every=2,
-                    eval_batch=2, compute_dtype="float32",
-                    snapshot_root=root, pre_iterations=0,
-                    self_iterations=2, device_data_cache=False,
-                    num_devices=mesh.world_size(), sp_devices=sp)
-    panels = []
-    trainer = BCPTrainer(cfg, device="cpu", train_dataset=VolumeList(train),
-                         val_cases=val, log_images=True)
-    trainer._emit_snapshot = lambda writer, stage, feeder, it, p: \
-        panels.append((stage, it, {k: _np(v) for k, v in p.items()}))
-    trainer.pretrain()
-    trainer.selftrain()
+    make = _zoo_widths(kw) if kw is not None else port_state.create_model
+    try:
+        cfg = la_config(labelnum=4, patch_size=P3, n_filters=4,
+                        eval_every=2, eval_batch=2, compute_dtype="float32",
+                        snapshot_root=root, pre_iterations=0,
+                        self_iterations=2, device_data_cache=False,
+                        num_devices=mesh.world_size(), sp_devices=sp,
+                        net_type=net)
+        panels = []
+        trainer = BCPTrainer(cfg, device="cpu",
+                             train_dataset=VolumeList(train),
+                             val_cases=val, log_images=True)
+        trainer._emit_snapshot = lambda writer, stage, feeder, it, p: \
+            panels.append((stage, it, {k: _np(v) for k, v in p.items()}))
+        trainer.pretrain()
+        trainer.selftrain()
+    finally:
+        port_state.create_model = make
     return panels if mesh.is_main() else None
+
+
+# ---------------- the model zoo under a split ----------------
+def zoo_net(name, kw, classes, start):
+    """Zoo net ``name`` (factory kwargs ``kw``) in train mode, f64, from
+    the state_dict ``start`` (numpy)."""
+    model = create_model(name, classes, mode="train", device="cpu",
+                         **kw).double()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in start.items()},
+                          strict=True)
+    return model
+
+
+def local_keeps(model, keeps, shape):
+    """The whole keep masks ``keeps`` (one a dropout, module order) as
+    ``model``'s dropouts take them in a forward of this rank's input of
+    ``shape``: the slab of those that run on slabs. A forward of a copy
+    on zeros says which do."""
+    if keeps is None:
+        return None
+    probe = copy.deepcopy(model)
+    with torch.no_grad():
+        probe(torch.zeros(shape, dtype=torch.float64))
+    axes = [m.slab_axis() for m in probe.modules() if isinstance(m, Dropout)]
+    return [torch.from_numpy(k) if a is None
+            else mesh.shard_space(torch.from_numpy(k), a)
+            for k, a in zip(keeps, axes)]
+
+
+def zoo_update(name, kw, variant, stage, start, batch, mask, keeps,
+               cfg_kw):
+    """One f64 update of zoo net ``name`` (factory kwargs ``kw``) through
+    the ``variant`` steps from ``start`` on this rank's part of the global
+    ``batch`` (port layout) with the whole ``mask``; every dropout takes
+    the whole keep masks of ``keeps`` ({"pre": [...]} or {"teacher": ...,
+    "student": ...}, :func:`local_keeps`). (metrics, student, teacher,
+    optimizer state, the whole pseudo-labels of the self-train step)."""
+    cfg = CONFIGS[variant](**cfg_kw).replace(net_type=name)
+    model = zoo_net(name, kw, cfg.num_classes, start)
+    teacher = copy.deepcopy(model)
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    state = TrainState(model, teacher, build_optimizer(cfg,
+                                                       model.parameters()))
+    b = local_batch(batch)
+    mask = torch.from_numpy(mask)
+    rows = tuple(b["img_a"].shape)
+    plab = []
+    if stage == "pre":
+        metrics = pretrain_step(state, b, mask, cfg, dropout=local_keeps(
+            model, keeps["pre"], rows))
+    else:
+        cat = (2 * rows[0],) + rows[1:]
+        metrics = selftrain_step(
+            state, b, mask, cfg, local_keeps(model, keeps["teacher"], cat),
+            local_keeps(model, keeps["student"], cat),
+            lambda p: plab.append(_np(mesh.gather_space(p, 1))))
+    return ({k: v.item() for k, v in metrics.items()}, *_state_out(state),
+            plab[0] if plab else None)
+
+
+def transpose_slabs(sd, x, w):
+    """``ConvTransposeSame3d`` (f64, the state_dict ``sd``) on this rank's
+    x slab of ``x``, L the world sum of <w, y> and its backward: (this
+    rank's y, its dL/dx, the summed weight and bias gradients)."""
+    conv = ConvTransposeSame3d(x.shape[1], w.shape[1]).double()
+    conv.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    xt = torch.from_numpy(x).requires_grad_()
+    y = conv(local(xt, 2))
+    mesh.sum_ranks((y * local(w, 2)).sum()).backward()
+    mesh.all_reduce_grads(conv.parameters())
+    return (_np(y), _np(local(xt.grad, 2)),
+            {k: _np(p.grad) for k, p in conv.named_parameters()})
+
+
+def zoo_dispatch(name, kw, cfg_kw, batches, K):
+    """Four LA self-train iterations of zoo net ``name`` (factory kwargs
+    ``kw``) from its seeded f64 state, dropout on (the trainer's
+    per-iteration draws), on this rank's part of each global batch: K = 1
+    eager steps or groups of K on static buffers (:func:`dispatch`)."""
+    from bcp_tpu_torch.train import state as port_state
+    make = _zoo_widths(kw)
+    try:
+        return dispatch(dict(cfg_kw, net_type=name), batches, K)
+    finally:
+        port_state.create_model = make
+
+
+def _zoo_widths(kw):
+    """Wrap the trainer's ``create_model`` to the factory kwargs ``kw``
+    (the config's ``n_filters`` dropped); returns the unwrapped one."""
+    from bcp_tpu_torch.train import state as port_state
+    make = port_state.create_model
+    port_state.create_model = lambda t, *a, **k: make(t, *a, **{
+        **kw, **{n: v for n, v in k.items() if n != "n_filters"}})
+    return make
+
+
+def zoo_trainer_checks(root, nets):
+    """In this world at ``sp_devices`` 2, for each zoo net of ``nets``
+    ({net type: (factory kwargs, patch)}): (the trainer's data_scale,
+    the space ranks it set)."""
+    from bcp_tpu_torch.config import acdc_config
+    from bcp_tpu_torch.train import state as port_state
+    from bcp_tpu_torch.train.trainer import BCPTrainer
+    out = {}
+    for name, (kw, patch) in nets.items():
+        make = _zoo_widths(kw)
+        try:
+            base = la_config(labelnum=4) if len(patch) == 3 else \
+                acdc_config(labelnum=1)
+            cfg = base.replace(patch_size=patch, net_type=name,
+                               num_devices=mesh.world_size(), sp_devices=2,
+                               compute_dtype="float32", snapshot_root=root)
+            out[name] = (BCPTrainer(cfg, device="cpu", val_cases=[])
+                         .data_scale, mesh.space_size())
+        finally:
+            port_state.create_model = make
+    return out
+
+
+def zoo_cli(root, name, kw, train, val):
+    """``train_la --model name --num_devices 2 --sp_devices 2 --device
+    cpu``'s core in this world of two ranks (two iterations a stage,
+    factory kwargs ``kw``): rank 0's {stage: (best dice, best .pth)}."""
+    from bcp_tpu_torch.cli import train_la
+    from bcp_tpu_torch.data.datasets import VolumeList
+    from bcp_tpu_torch.train import state as port_state
+    make = _zoo_widths(kw)
+    try:
+        args = train_la.build_parser().parse_args(
+            ["--labelnum", "4", "--pre_max_iteration", "2",
+             "--self_max_iteration", "2", "--snapshot_root", root,
+             "--model", name, "--device", "cpu", "--num_devices", "2",
+             "--sp_devices", "2"])
+        trainer, out = train_la.train(
+            args, train_dataset=VolumeList(train), val_cases=val,
+            patch_size=P3, eval_every=2, eval_batch=2,
+            compute_dtype="float32")
+    finally:
+        port_state.create_model = make
+    return (trainer.data_scale, out) if mesh.is_main() else None
+
