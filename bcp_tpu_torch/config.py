@@ -128,10 +128,15 @@ class Config:
     log_every: int = 1
 
     # ---- debugging / observability (SURVEY.md §5: the reference has no
-    # tracing or sanitizers; these are the TPU-native equivalents)
-    debug_nans: bool = False            # jax debug_nans in the train step
-    profile_dir: Optional[str] = None   # jax.profiler trace output dir
-    profile_steps: Tuple[int, int] = (10, 20)  # [start, end) steps to trace
+    # tracing or sanitizers)
+    # check each step's losses when they are read back (a group late at
+    # K > 1) and raise FloatingPointError naming the first non-finite step
+    debug_nans: bool = False
+    # write a torch.profiler trace (CPU and, on the card, CUDA activity,
+    # with the port's spans, utils.spans) of the steps profile_steps, counted
+    # from the stage's first, to <profile_dir>/<stage>_steps_<a>_<b>.json
+    profile_dir: Optional[str] = None
+    profile_steps: Tuple[int, int] = (10, 20)
 
     # ---- BCP algorithm
     # 'ratio' = single cuboid/rect of int(dim*ratio) per dim (context_mask

@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -66,6 +65,7 @@ import torch
 from bcp_tpu_torch.config import Config
 from bcp_tpu_torch.data.sampler import two_stream_batches
 from bcp_tpu_torch.device import resolve_device
+from bcp_tpu_torch.utils.spans import span
 
 ACDC_PATIENTS_TO_SLICES = {
     # `patients_to_slices` (`feed.py:27-36`, `ACDC_BCP_train.py:181-191`)
@@ -169,11 +169,11 @@ class BCPBatchFeeder:
                 seed=cfg.seed)
         self._store = None
         self._unlab_store = None
-        self.store_init_s = 0.0
         self._thread = None
         if cfg.device_data_cache:
-            self._init_device_store(
-                store_cache if store_cache is not None else {})
+            with span("feed.store_upload"):
+                self._init_device_store(
+                    store_cache if store_cache is not None else {})
             return
         self._queue: queue.Queue = queue.Queue(maxsize=2)
         self._stop = threading.Event()
@@ -208,7 +208,6 @@ class BCPBatchFeeder:
     def _init_device_store(self, cache: dict) -> None:
         from bcp_tpu_torch.data.device_store import (DeviceSliceStore,
                                                      DeviceVolumeStore)
-        t0 = time.time()
         if self.cfg.variant == "pancreas":
             # the raw volumes of each list; the pre stage does not build
             # the unlabelled store (`feed.py:193-205`)
@@ -222,7 +221,6 @@ class BCPBatchFeeder:
             self._store = volumes("lab", self.lab_a.variant())
             if self.stage == "self":
                 self._unlab_store = volumes("unlab", self.unlab_a.variant())
-            self.store_init_s = time.time() - t0
             return
         store = cache.get("store")
         if store is None:
@@ -237,7 +235,6 @@ class BCPBatchFeeder:
                     img_dtype=self.img_dtype, device=self.device)
             cache["store"] = store
         self._store = store
-        self.store_init_s = time.time() - t0
 
     def _sample_device(self, indices):
         """(images, labels) of ``indices`` from the store, consuming the
@@ -437,14 +434,15 @@ class BCPBatchFeeder:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        if self._store is not None:
-            return (self.build_device() if self.stack == 1
-                    else self.build_device_stacked())
-        item = self._queue.get()
-        if isinstance(item, Exception):
-            raise item
-        return {k: v.to(self.device, non_blocking=True)
-                for k, v in item.items()}
+        with span("feed.batch"):
+            if self._store is not None:
+                return (self.build_device() if self.stack == 1
+                        else self.build_device_stacked())
+            item = self._queue.get()
+            if isinstance(item, Exception):
+                raise item
+            return {k: v.to(self.device, non_blocking=True)
+                    for k, v in item.items()}
 
     def close(self) -> None:
         if self._thread is None:

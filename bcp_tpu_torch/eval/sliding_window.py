@@ -16,6 +16,12 @@ Counterpart of ``bcp_tpu/eval/sliding_window.py``:
   on the host and kept on the device;
 - then ``score / cnt`` and the reference's decision rule.
 
+A volume's stages are spans (``utils.spans``): ``eval.prepare`` (twice:
+the pad and window grid before the upload, the count map and score
+allocation after it), ``eval.upload``, one ``eval.chunk`` a chunk,
+``eval.finish`` and, in :meth:`SlidingWindowEvaluator.infer_fetch`,
+``eval.fetch``.
+
 In a world of several ranks (``parallel.mesh``) a chunk holds ``batch``
 windows per rank, as the JAX evaluator's sharded chunks do
 (`sliding_window.py:77-99,179-212`): rank r forwards windows ``[r*batch,
@@ -44,6 +50,7 @@ from bcp_tpu_torch.eval import metrics as M
 from bcp_tpu_torch.models.layers import logits_of
 from bcp_tpu_torch.ops.scatter import softmax_scatter_add_windows
 from bcp_tpu_torch.parallel import mesh
+from bcp_tpu_torch.utils.spans import span
 
 
 def window_starts(vol_shape: Sequence[int], patch: Sequence[int],
@@ -128,40 +135,48 @@ class SlidingWindowEvaluator:
         waiting for it: the label (and score) copies to the host are
         enqueued behind the compute and an event marks their end. Pass the
         handle to :meth:`infer_fetch`."""
-        orig_shape = image.shape
-        image, off = pad_to_patch(np.asarray(image, np.float32), self.patch)
-        shape = image.shape
-        starts = window_starts(shape, self.patch, self.stride_xy,
-                               self.stride_z)
-        volume = torch.from_numpy(image).to(self.device)
-        cnt = self._count_map(starts, shape)
-        score = torch.zeros((*shape, self.num_classes), dtype=torch.float32,
-                            device=self.device)
-        B = self.batch
-        n = starts.shape[0]
-        chunk = B * mesh.world_size()       # the windows of all ranks
-        n_chunks = math.ceil(n / chunk)
-        pad_n = n_chunks * chunk - n
-        all_starts = np.concatenate([starts, np.zeros((pad_n, 3), np.int32)])
+        with span("eval.prepare"):
+            orig_shape = image.shape
+            image, off = pad_to_patch(np.asarray(image, np.float32),
+                                      self.patch)
+            shape = image.shape
+            starts = window_starts(shape, self.patch, self.stride_xy,
+                                   self.stride_z)
+        with span("eval.upload"):
+            volume = torch.from_numpy(image).to(self.device)
+        with span("eval.prepare"):
+            cnt = self._count_map(starts, shape)
+            score = torch.zeros((*shape, self.num_classes),
+                                dtype=torch.float32, device=self.device)
+            B = self.batch
+            n = starts.shape[0]
+            chunk = B * mesh.world_size()       # the windows of all ranks
+            n_chunks = math.ceil(n / chunk)
+            pad_n = n_chunks * chunk - n
+            all_starts = np.concatenate([starts,
+                                         np.zeros((pad_n, 3), np.int32)])
         for c in range(n_chunks):
             lo = c * chunk + mesh.rank() * B
             if lo < n:
-                self._process_chunk(volume, all_starts[lo:lo + B],
-                                    min(B, n - lo), score)
-        mesh.all_reduce_(score)
-        score /= cnt[..., None]
-        if rule == "argmax":
-            label = torch.argmax(score, dim=-1).to(torch.uint8)
-        elif rule == "threshold":   # class-1 prob > 0.5 (`test_3d_patch.py:137`)
-            label = (score[..., 1] > 0.5).to(torch.uint8)
-        else:
-            raise ValueError(f"unknown rule {rule!r}")
-        label = self._to_host(label)
-        score = self._to_host(score) if return_score else None
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+                with span("eval.chunk"):
+                    self._process_chunk(volume, all_starts[lo:lo + B],
+                                        min(B, n - lo), score)
+        with span("eval.finish"):
+            mesh.all_reduce_(score)
+            score /= cnt[..., None]
+            if rule == "argmax":
+                label = torch.argmax(score, dim=-1).to(torch.uint8)
+            elif rule == "threshold":
+                # class-1 prob > 0.5 (`test_3d_patch.py:137`)
+                label = (score[..., 1] > 0.5).to(torch.uint8)
+            else:
+                raise ValueError(f"unknown rule {rule!r}")
+            label = self._to_host(label)
+            score = self._to_host(score) if return_score else None
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
         return label, score, event, orig_shape, off
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
@@ -174,13 +189,15 @@ class SlidingWindowEvaluator:
         """Wait for a handle from :meth:`infer_async`; returns (label_map,
         score_map[C-first] or None) cropped to the original volume."""
         label, score, event, orig_shape, off = handle
-        if event is not None:
-            event.synchronize()
-        sl = tuple(slice(o, o + s) for o, s in zip(off, orig_shape))
-        label = label.numpy().astype(np.int32)[sl]
-        if score is None:
-            return label, None
-        return label, np.moveaxis(score.numpy(), -1, 0)[(slice(None),) + sl]
+        with span("eval.fetch"):
+            if event is not None:
+                event.synchronize()
+            sl = tuple(slice(o, o + s) for o, s in zip(off, orig_shape))
+            label = label.numpy().astype(np.int32)[sl]
+            if score is None:
+                return label, None
+            return label, np.moveaxis(score.numpy(),
+                                      -1, 0)[(slice(None),) + sl]
 
     def infer(self, image: np.ndarray, rule: str = "threshold",
               return_score: bool = True

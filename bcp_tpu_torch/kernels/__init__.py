@@ -141,7 +141,9 @@ def library(name: str) -> ctypes.CDLL:
     with _BUILD_LOCK:
         st = _start_build(name)
         if st is not None:
-            _finish_build(name, st)
+            from bcp_tpu_torch.utils.spans import span
+            with span("kernels.build"):
+                _finish_build(name, st)
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)

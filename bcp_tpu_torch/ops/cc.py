@@ -15,7 +15,9 @@ most frequent positive label, size ties going to the lowest label
 package's ``_mode_by_sort`` picks (`cc.py:173-190`); empty masks pass
 through unchanged. Labels are held in f32, exact below 2^24 pixels per
 sample. The fixpoint test reads one flag back to the host every round, so
-the per-class NMS of ACDC runs every class of every sample as one batch.
+the per-class NMS of ACDC runs every class of every sample as one batch;
+each round is an ``nms.round`` span (``utils.spans``), so their count is
+the rounds run.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from bcp_tpu_torch.utils.spans import span
 
 #: neighbour-max sweeps and pointer jumps per round between fixpoint tests
 SWEEPS = 8
@@ -67,17 +71,18 @@ def connected_components(masks: torch.Tensor,
     offsets = (torch.arange(masks.shape[0], device=masks.device) * n).view(
         -1, 1)
     while True:
-        prev = lab
-        for _ in range(SWEEPS):
-            lab = torch.where(fg, _neighbor_max(lab, connectivity), zero)
-        flat = lab.reshape(masks.shape[0], -1)
-        for _ in range(JUMPS):
-            parent = (flat.long() - 1).clamp(min=0) + offsets
-            flat = torch.where(fg.reshape(flat.shape),
-                               flat.reshape(-1)[parent], zero)
-        lab = flat.view(lab.shape)
-        if not bool((lab != prev).any()):
-            return lab
+        with span("nms.round"):
+            prev = lab
+            for _ in range(SWEEPS):
+                lab = torch.where(fg, _neighbor_max(lab, connectivity), zero)
+            flat = lab.reshape(masks.shape[0], -1)
+            for _ in range(JUMPS):
+                parent = (flat.long() - 1).clamp(min=0) + offsets
+                flat = torch.where(fg.reshape(flat.shape),
+                                   flat.reshape(-1)[parent], zero)
+            lab = flat.view(lab.shape)
+            if not bool((lab != prev).any()):
+                return lab
 
 
 def largest_cc_batch(masks: torch.Tensor,

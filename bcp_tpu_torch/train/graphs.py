@@ -60,6 +60,12 @@ the recorded forward's dropouts were.
 The kernel wrappers count their launches (``kernels.count_launch``), and a
 replay bypasses them: each capture's counts are taken back and added again
 at each replay, so the counts stay kernel executions.
+
+A sub-step's stages are spans (``utils.spans``): ``step.draws`` around the
+writes into the static buffers, ``step.teacher`` and ``step.update``
+around the replays (or, on the CPU, the bodies), ``step.nms`` in
+``steps.clean_masks``, and ``graph.capture`` around a capture. The bodies
+a graph captures open none: a replay runs no Python.
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ from bcp_tpu_torch.train.state import TrainState, lr_at
 from bcp_tpu_torch.train.steps import (clean_masks, pretrain_step,
                                        selftrain_step, selftrain_update,
                                        teacher_masks)
+from bcp_tpu_torch.utils.spans import span
 
 #: a sub-step's draws: (the copy-paste mask's boxes, each (starts, sizes),
 #: the generator its dropouts draw from, seeded for the iteration, or None)
@@ -209,8 +216,10 @@ class GraphStep:
 
     def _run(self, name: str) -> torch.Tensor:
         body = self._update if name == "update" else self._teacher
+        label = "step.update" if name == "update" else "step.teacher"
         if not self.cuda:
-            return body()
+            with span(label):
+                return body()
         lr = (lr_at(self.cfg, self.stage, self.state.step)
               if name == "update" else None)
         if name in self.graphs and self.graphs[name][3] != lr:
@@ -220,7 +229,8 @@ class GraphStep:
         if name not in self.graphs:
             self._capture(name, body, lr)
         graph, out, launches, _ = self.graphs[name]
-        graph.replay()
+        with span(label):
+            graph.replay()
         kernels.add_launches(launches)
         self.replays += 1
         if name == "update":
@@ -233,8 +243,8 @@ class GraphStep:
         step = self.state.step
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
+        with span("graph.capture"), torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode="thread_local"):
             out = body()
         # the capture ran the body's Python once: its step count goes back,
         # and its counted launches are the graph's, made at each replay
@@ -255,19 +265,21 @@ class GraphStep:
         order), a graph's static output on the card: copy it before the
         next step."""
         boxes, gen = draws
-        write_box(self.mask, boxes, self.pinned)
-        dev = self.mask.device
-        if self.stage == "self":
-            # the teacher's forward draws first, as in ``selftrain_step``;
-            # both self-train forwards draw for two sub-batches
-            draw_keep_masks(self.state.teacher,
-                            [k.shape for k in self.keep_t], gen, dev,
-                            out=self.keep_t, groups=2)
-        draw_keep_masks(self.state.model, [k.shape for k in self.keep_s],
-                        gen, dev, out=self.keep_s,
-                        groups=2 if self.stage == "self" else 1)
-        for k, v in self.batch.items():
-            v.copy_(sub[k])
+        with span("step.draws"):
+            write_box(self.mask, boxes, self.pinned)
+            dev = self.mask.device
+            if self.stage == "self":
+                # the teacher's forward draws first, as in
+                # ``selftrain_step``; both self-train forwards draw for two
+                # sub-batches
+                draw_keep_masks(self.state.teacher,
+                                [k.shape for k in self.keep_t], gen, dev,
+                                out=self.keep_t, groups=2)
+            draw_keep_masks(self.state.model, [k.shape for k in self.keep_s],
+                            gen, dev, out=self.keep_s,
+                            groups=2 if self.stage == "self" else 1)
+            for k, v in self.batch.items():
+                v.copy_(sub[k])
         if self.stage == "self":
             self.plab.copy_(clean_masks(self._run("teacher"), self.cfg))
         if before_update is not None:
@@ -306,7 +318,8 @@ class DispatchGroups:
                before_update: Optional[BeforeUpdate]):
         boxes, gen = draws
         state, cfg = self.state, self.cfg
-        mask = boxes_mask(cfg.patch_size, boxes, self.device)
+        with span("step.draws"):
+            mask = boxes_mask(cfg.patch_size, boxes, self.device)
         with contextlib.ExitStack() as rec:
             if record:
                 self._shapes = (
@@ -315,7 +328,8 @@ class DispatchGroups:
             if self.stage == "pre":
                 if before_update is not None:
                     before_update(it, sub, mask, None)
-                return pretrain_step(state, sub, mask, cfg, gen)
+                with span("step.update"):
+                    return pretrain_step(state, sub, mask, cfg, gen)
             hook = (None if before_update is None else
                     lambda plab: before_update(it, sub, mask, plab))
             return selftrain_step(state, sub, mask, cfg, gen, gen, hook)

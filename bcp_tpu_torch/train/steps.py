@@ -73,6 +73,7 @@ from bcp_tpu_torch.ops.ema import ema_update
 from bcp_tpu_torch.ops.masks import mix
 from bcp_tpu_torch.parallel import mesh
 from bcp_tpu_torch.train.state import TrainState, lr_at
+from bcp_tpu_torch.utils.spans import span
 
 
 def _draws(model, dropout):
@@ -192,13 +193,14 @@ def clean_masks(masks: torch.Tensor, cfg: Config) -> torch.Tensor:
     group, cleaned whole on each of its ranks, and each keeps its slab."""
     if not cfg.nms:
         return masks
-    whole = mesh.gather_space(masks, 1)
-    if cfg.pseudo_label == "argmax":
-        whole = cc.largest_cc_per_class(whole, cfg.num_classes,
-                                        cfg.cc_connectivity)
-    else:
-        whole = cc.largest_cc_batch(whole, cfg.cc_connectivity)
-    return mesh.shard_space(whole, 1)
+    with span("step.nms"):
+        whole = mesh.gather_space(masks, 1)
+        if cfg.pseudo_label == "argmax":
+            whole = cc.largest_cc_per_class(whole, cfg.num_classes,
+                                            cfg.cc_connectivity)
+        else:
+            whole = cc.largest_cc_batch(whole, cfg.cc_connectivity)
+        return mesh.shard_space(whole, 1)
 
 
 def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -208,7 +210,9 @@ def pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
     largest-CC-cleaned class 1 (LA, pancreas) or the argmax cleaned class
     by class (ACDC)."""
     with torch.no_grad():
-        return clean_masks(teacher_masks(state, batch, cfg, dropout), cfg)
+        with span("step.teacher"):
+            masks = teacher_masks(state, batch, cfg, dropout)
+        return clean_masks(masks, cfg)
 
 
 def mixed_inputs(variant: str, batch: Dict[str, torch.Tensor],
@@ -288,4 +292,6 @@ def selftrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
     plab = pseudo_labels(state, batch, cfg, teacher_dropout)
     if before_update is not None:
         before_update(plab)
-    return selftrain_update(state, batch, plab, mask, cfg, student_dropout)
+    with span("step.update"):
+        return selftrain_update(state, batch, plab, mask, cfg,
+                                student_dropout)

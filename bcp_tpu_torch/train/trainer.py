@@ -49,7 +49,15 @@ iterations must be multiples of K; validation runs at a group's end.
 counted from the stage's first step, as `trainer.py:459-460,528-531`
 does: from before the group that holds step a to after the group that
 holds step b has been enqueued, with ``torch.profiler`` (CPU and, on the
-card, CUDA activity) into ``<profile_dir>/<stage>_steps_<a>_<b>.json``.
+card, CUDA activity) into ``<profile_dir>/<stage>_steps_<a>_<b>.json``;
+the trace holds the port's spans (``utils.spans``): ``feed.batch``, each
+sub-step's ``step.draws``, ``step.teacher``, ``step.nms`` (its
+``nms.round`` spans inside) and ``step.update``, the group's
+``train.readback``, ``graph.capture``, and on the workers ``val.eval``
+and ``val.checkpoint``. Each stage's end logs the spans ended in it, a
+count and seconds a name, in one ``spans:`` line; the validation line's
+``eval`` and ``ckpt`` seconds and the stage line's ``validation+ckpt
+pauses`` (the ``train.val_pause`` spans) read the same spans.
 ``cfg.debug_nans`` checks every step's losses when they are read back and
 raises ``FloatingPointError`` naming the first step whose losses are not
 finite. Unlike ``jax_debug_nans``, which re-runs the op that made a NaN,
@@ -129,9 +137,11 @@ from bcp_tpu_torch.train.snapshots import (la_snapshot_grid,
 from bcp_tpu_torch.train.state import (TrainState, build_model, init_state,
                                        load_weights_only, load_with_opt)
 from bcp_tpu_torch.train.steps import pretrain_step, selftrain_step
+from bcp_tpu_torch.utils import spans
 from bcp_tpu_torch.utils.logging import (MetricWriter, cut_pre_measures,
                                          cutmix_ft_measures, null_logger,
                                          setup_logging)
+from bcp_tpu_torch.utils.spans import span
 from bcp_tpu_torch.utils.worker import OrderedWorker
 
 
@@ -202,6 +212,25 @@ def check_trainable(cfg: Config, model=None) -> None:
             f"net_type {net!r} is built for the window {tuple(window)}, "
             f"its position embeddings fix the extent, but the patch is "
             f"{tuple(cfg.patch_size)}")
+
+
+def span_seconds(now: Dict[str, Tuple[int, float]],
+                 before: Dict[str, Tuple[int, float]], name: str) -> float:
+    """Seconds of the ``name`` spans ended between two
+    ``utils.spans.totals()`` tables."""
+    return now.get(name, (0, 0.0))[1] - before.get(name, (0, 0.0))[1]
+
+
+def span_table(now: Dict[str, Tuple[int, float]],
+               before: Dict[str, Tuple[int, float]]) -> str:
+    """The spans ended between two ``utils.spans.totals()`` tables, one
+    ``name count x seconds`` entry a name, for the end-of-stage log line."""
+    rows = []
+    for name, (n, sec) in sorted(now.items()):
+        n0, s0 = before.get(name, (0, 0.0))
+        if n > n0:
+            rows.append(f"{name} {n - n0} x {sec - s0:.3f}s")
+    return ", ".join(rows) or "none"
 
 
 def copy_paste_mask(cfg: Config, rng: np.random.Generator, device=None):
@@ -405,6 +434,7 @@ class BCPTrainer:
         elif dataset is None:
             dataset = (ACDCDataset if cfg.variant == "acdc" else
                        LAHeartDataset)(cfg.root_path, "train", cache=True)
+        spans_before = spans.totals()
         feeder = BCPBatchFeeder(cfg, stage, dataset, self.device,
                                 store_cache=self.feed_store_cache, stack=K,
                                 side_labels=self.log_images and (
@@ -415,7 +445,9 @@ class BCPTrainer:
                                 space=(mesh.space_index(),
                                        mesh.space_size()))
         logger.info("%d iterations per epoch (device-store init %.1fs)",
-                    feeder.steps_per_epoch, feeder.store_init_s)
+                    feeder.steps_per_epoch,
+                    span_seconds(spans.totals(), spans_before,
+                                 "feed.store_upload"))
         stage_seed = cfg.seed + (0 if stage == "pre" else 1)
         dropout_gen = torch.Generator(device=self.device)
         best = resumed_best     # written by validation jobs, in order
@@ -476,20 +508,25 @@ class BCPTrainer:
             validation worker. The best-Dice decision is made here, in
             validation order; with a checkpoint worker only the fetch and
             the disk writes are handed on, so validation v+1 overlaps the
-            writes of validation v."""
+            writes of validation v, and the validation's log line follows
+            its writes."""
             nonlocal best
-            tv = time.time()
-            dice, per_class = self._validate_weights(snap["model"], ready)
-            t_eval = time.time() - tv
-            tc = time.time()
+            with span("val.eval") as evaluated:
+                dice, per_class = self._validate_weights(snap["model"],
+                                                         ready)
+            paths = [last_path]
             if dice > best:
                 best = round(dice, 4)
                 tagged = os.path.join(out_dir, f"iter_{it}_dice_{best}.pth")
-                io_job = partial(save_many, [tagged, best_path, last_path],
-                                 snap, with_opt)
+                paths = [tagged, best_path, last_path]
                 logger.info("save best model to %s", tagged)
-            else:
-                io_job = partial(save_many, [last_path], snap, with_opt)
+
+            def io_job():
+                with span("val.checkpoint") as written:
+                    save_many(paths, snap, with_opt)
+                logger.info("validation@%d: dice %.4f (eval %.2fs, ckpt "
+                            "%.2fs)", it, dice, evaluated.seconds,
+                            written.seconds)
             if ckpt_worker is not None:
                 ckpt_worker.submit(io_job)
             else:
@@ -507,8 +544,6 @@ class BCPTrainer:
             else:
                 writer.scalar("4_Var_dice/Dice", dice, it)
                 writer.scalar("4_Var_dice/Best_dice", best, it)
-            logger.info("validation@%d: dice %.4f (eval %.2fs, ckpt %.2fs)",
-                        it, dice, t_eval, time.time() - tc)
 
         val_worker = ckpt_worker = warm_job = None
         # under a world the evaluators' collectives run inline, on this
@@ -584,8 +619,16 @@ class BCPTrainer:
         profile = None
         t0 = time.time()
         start = state.step
-        val_seconds = 0.0   # exposed validation + checkpoint pauses (wall)
         pending = None
+
+        def read_back() -> None:
+            """The losses of the step or group enqueued before the last."""
+            nonlocal pending
+            if pending is not None:
+                with span("train.readback"):
+                    pending()
+                pending = None
+
         try:
             for itk in range(start + 1, max_iterations + 1, K):
                 it = itk + K - 1      # the group's last iteration
@@ -601,14 +644,16 @@ class BCPTrainer:
                     done = partial(emit_group, itk,
                                    groups.run(batch, itk, hook))
                 else:
-                    mask = copy_paste_mask(
-                        cfg, iteration_draws(stage_seed, it, dropout_gen),
-                        self.device)
+                    with span("step.draws"):
+                        mask = copy_paste_mask(
+                            cfg, iteration_draws(stage_seed, it, dropout_gen),
+                            self.device)
                     if stage == "pre":
                         if hook is not None:
                             hook(it, batch, mask, None)
-                        metrics = pretrain_step(state, batch, mask, cfg,
-                                                dropout_gen)
+                        with span("step.update"):
+                            metrics = pretrain_step(state, batch, mask, cfg,
+                                                    dropout_gen)
                     else:
                         metrics = selftrain_step(
                             state, batch, mask, cfg, dropout_gen,
@@ -634,8 +679,7 @@ class BCPTrainer:
                 if warm_job is not None:
                     val_worker.submit(warm_job)
                     warm_job = None
-                if pending is not None:
-                    pending()
+                read_back()
                 pending = done
                 if self.on_step is not None:
                     for j in range(itk, it + 1):
@@ -645,24 +689,21 @@ class BCPTrainer:
                     self._stop_profile(profile, stage, logger)
                     profile = None
                 if it % cfg.eval_every == 0:
-                    pending()
-                    pending = None
-                    tv0 = time.time()
-                    job = partial(run_validation, it, *self._snapshot(state))
-                    if val_worker is not None:
-                        val_worker.submit(job)
-                    else:
-                        job()
+                    read_back()
                     # the exposed pause only: the copy and any wait for a
                     # slot (background), or the whole validation (inline)
-                    val_seconds += time.time() - tv0
-            if pending is not None:
-                pending()
+                    with span("train.val_pause"):
+                        job = partial(run_validation, it,
+                                      *self._snapshot(state))
+                        if val_worker is not None:
+                            val_worker.submit(job)
+                        else:
+                            job()
+            read_back()
             if val_worker is not None:
-                tv0 = time.time()
-                val_worker.drain()      # may still submit checkpoint jobs,
-                ckpt_worker.drain()     # so the I/O stage drains after it
-                val_seconds += time.time() - tv0
+                with span("train.val_pause"):
+                    val_worker.drain()   # may still submit checkpoint jobs,
+                    ckpt_worker.drain()  # so the I/O stage drains after it
             best_dice = best
             if not mesh.broadcast_object(os.path.exists(best_path)):
                 # a stage shorter than eval_every, or one whose validations
@@ -685,6 +726,10 @@ class BCPTrainer:
             writer.close()
         dt = time.time() - t0
         done = max_iterations - start
+        spans_now = spans.totals()
+        # the exposed validation + checkpoint pauses
+        val_seconds = span_seconds(spans_now, spans_before, "train.val_pause")
+        logger.info("spans: %s", span_table(spans_now, spans_before))
         logger.info("stage %s done: %d steps in %.1fs (%.3f s/step), "
                     "validation+ckpt pauses %.1fs (%.1f%%), best dice %.4f",
                     stage, done, dt, dt / max(done, 1), val_seconds,
