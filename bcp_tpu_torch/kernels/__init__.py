@@ -35,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: extern "C" launchers of each source: name -> argument types
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -58,6 +60,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "conv3x3x3_dxdw_bf16": (_P,) * 10,
         "conv3x3x3_dxdw_pack": (_P, _P, _I, _I, _P),
         "conv3x3x3_dxdw_f32": (_P,) * 7 + (_I,) * 10 + (_P,),
+    },
+    "batch_norm_relu": {
+        "batch_norm_relu_stats_bf16": (_P,) * 9 + (_L, _I, _I, _I, _I, _F,
+                                                   _F, _F, _F, _I, _P),
+        "batch_norm_relu_apply_bf16": (_P,) * 4 + (_L, _I, _I, _I, _I, _P),
+        "batch_norm_relu_backward_bf16": (_P,) * 11 + (_L, _I, _I, _I, _I,
+                                                       _P),
     },
 }
 

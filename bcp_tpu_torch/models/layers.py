@@ -3,7 +3,10 @@ JAX package's grouped BatchNorm, flax's own BatchNorm, the parameter-free
 instance norm, element-wise and channel dropout, the align-corners
 upsample, and what the model zoo adds: flax's SAME transposed conv, dense
 layers and LayerNorm with a compute dtype, the trilinear resize and the
-gradient reversal.
+gradient reversal. The 3-D nets' (3^3 conv, BatchNorm, ReLU) stages go
+through :func:`conv_bn_relu`, which in train mode on the card hands the
+conv's bias, the BatchNorm and the ReLU to one fused op
+(``ops/bn_relu.py``).
 
 Counterpart of ``bcp_tpu/models/layers.py``. Parameters stay f32 and keep
 ``nn.Conv2d`` / ``nn.Conv3d`` / ``nn.BatchNorm*d`` names and layouts, so a
@@ -31,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bcp_tpu_torch import kernels
+from bcp_tpu_torch.ops.bn_relu import BnReLUFunction, fused_route
 from bcp_tpu_torch.ops.conv3d import Conv3x3x3Function, kernel_takes
 from bcp_tpu_torch.parallel import mesh
 
@@ -49,8 +54,9 @@ class Conv3x3x3(nn.Conv3d):
     dx and dW come from kernel D instead. The rest
     (the V-Net's Ci = 1 first conv) use ``F.conv3d``, as the JAX package
     leaves those to XLA. The bias is added after the conv, in the compute
-    dtype (`layers.py:249`). Under a space split both routes take the
-    halo-padded slab and are VALID in x."""
+    dtype (`layers.py:249`); ``add_bias=False`` leaves it out
+    (:func:`conv_bn_relu` hands it to the fused op). Under a space split
+    both routes take the halo-padded slab and are VALID in x."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None,
@@ -60,7 +66,7 @@ class Conv3x3x3(nn.Conv3d):
         self.compute_dtype = dtype
         self.fused_bwd = fused_bwd
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add_bias: bool = True) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
         w = self.weight.to(x.dtype)
         split = mesh.space_split()
@@ -70,7 +76,11 @@ class Conv3x3x3(nn.Conv3d):
             y = Conv3x3x3Function.apply(x, w, self.fused_bwd, split)
         else:
             y = F.conv3d(x, w, None, padding=(0, 1, 1) if split else 1)
-        return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)
+        return self.add_bias(y) if add_bias else y
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` plus the bias, in y's (the compute) dtype."""
+        return y + self.bias.to(y.dtype).view(1, -1, 1, 1, 1)
 
 
 class Conv2d(nn.Conv2d):
@@ -303,6 +313,8 @@ class TorchBatchNorm(nn.Module):
         x = _cast(x, self.compute_dtype)
         dt = x.dtype
         shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training and x.is_cuda:
+            kernels.count_launch(plain_train_batch_norm)
         if not self.training:
             mean = self.running_mean.to(dt)
             var = self.running_var.to(dt)
@@ -353,6 +365,60 @@ class TorchBatchNorm(nn.Module):
                 self.running_var.copy_(var)
                 self.num_batches_tracked += G
         return y
+
+    def relu_of_biased(self, y: torch.Tensor,
+                       conv_bias: torch.Tensor) -> torch.Tensor:
+        """``relu(self(y + conv_bias))`` in train mode as the fused op
+        (``ops.bn_relu``), for a ``y`` that :func:`~bcp_tpu_torch.ops.
+        bn_relu.fused_route` takes: the statistics of this module's
+        ``groups`` and, with ``update_running``, the running averages'
+        update."""
+        running = ((self.running_mean, self.running_var,
+                    self.num_batches_tracked) if self.update_running
+                   else None)
+        return BnReLUFunction.apply(y, conv_bias, self.weight, self.bias,
+                                    running, self.groups, self.eps,
+                                    self.momentum)
+
+
+def plain_train_batch_norm() -> None:
+    """Holds the count (``.launches``, kept as the kernel wrappers keep
+    theirs) of train-mode :class:`TorchBatchNorm` calls on the card that
+    took the plain chain rather than the fused op (:func:`conv_bn_relu`)."""
+
+
+plain_train_batch_norm.launches = 0
+
+
+def conv_bn_relu(conv: Conv3x3x3, bn: TorchBatchNorm,
+                 x: torch.Tensor) -> torch.Tensor:
+    """``relu(bn(conv(x)))``, the conv, BatchNorm, ReLU of the 3-D nets'
+    blocks. In train mode, where :func:`~bcp_tpu_torch.ops.bn_relu.
+    fused_route` takes the conv's output (bf16 on the card, C % 8 == 0, no
+    world of several ranks), the conv's bias, the BatchNorm and the ReLU
+    are one op with its own backward
+    (:meth:`TorchBatchNorm.relu_of_biased`); elsewhere, and in eval mode,
+    the plain chain, whose train-mode calls on the card
+    :func:`plain_train_batch_norm` counts."""
+    if not bn.training:
+        return F.relu(bn(conv(x)))
+    y = conv(x, add_bias=False)
+    if fused_route(y, bn.compute_dtype, (bn.weight, bn.bias,
+                                         bn.running_mean, bn.running_var)):
+        return bn.relu_of_biased(y, conv.bias)
+    return F.relu(bn(conv.add_bias(y)))
+
+
+class ConvBNReLUStages(nn.Sequential):
+    """The V-Net ``ConvBlock``'s ``nn.Sequential`` of (:class:`Conv3x3x3`,
+    :class:`TorchBatchNorm`, ``nn.ReLU``) stages, each run by
+    :func:`conv_bn_relu`; names and indices are the plain Sequential's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stages = iter(self)
+        for conv, bn, _ in zip(stages, stages, stages):
+            x = conv_bn_relu(conv, bn, x)
+        return x
 
 
 class InstanceNorm(nn.Module):

@@ -52,7 +52,7 @@ from torch import nn
 
 from bcp_tpu_torch.models.layers import (ChannelDropout, Conv3d, Conv3x3x3,
                                          ConvTransposeSame3d, SpaceLevels,
-                                         TorchBatchNorm)
+                                         TorchBatchNorm, conv_bn_relu)
 
 #: the max-pool down steps
 DOWNS = 4
@@ -60,7 +60,8 @@ DOWNS = 4
 
 class Conv3DBlock(nn.Module):
     """`Conv3DBlock` (`unet3d.py:26-48`): 2 x (3^3 conv, BN, ReLU), plus
-    a bias-free 1^3 conv of the input with ``residual``."""
+    a bias-free 1^3 conv of the input with ``residual``; each (conv, BN,
+    ReLU) is ``layers.conv_bn_relu``."""
 
     def __init__(self, n_in: int, n_out: int, residual: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -73,8 +74,8 @@ class Conv3DBlock(nn.Module):
                          if residual else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = conv_bn_relu(self.conv1, self.bn1, x)
+        y = conv_bn_relu(self.conv2, self.bn2, y)
         return y + self.residual(x) if self.residual is not None else y
 
 

@@ -52,7 +52,7 @@ from torch import nn
 
 from bcp_tpu_torch.models.layers import (Conv3d, Conv3x3x3, ConvTranspose3d,
                                          Dropout, LayerNorm, Linear,
-                                         TorchBatchNorm)
+                                         TorchBatchNorm, conv_bn_relu)
 from bcp_tpu_torch.parallel import mesh
 
 
@@ -120,7 +120,7 @@ class ConvBNReLU(nn.Module):
         self.bn = TorchBatchNorm(n_out, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        return conv_bn_relu(self.conv, self.bn, x)
 
 
 class DeconvBlock(nn.Module):
@@ -135,7 +135,7 @@ class DeconvBlock(nn.Module):
         self.bn = TorchBatchNorm(n_out, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(self.deconv(x))))
+        return conv_bn_relu(self.conv, self.bn, self.deconv(x))
 
 
 def _deconv2x(n_in: int, n_out: int, dtype) -> ConvTranspose3d:

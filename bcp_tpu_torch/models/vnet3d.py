@@ -51,8 +51,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from bcp_tpu_torch.models.layers import (ChannelDropout, Conv3d, Conv3x3x3,
-                                         ConvTranspose3d, InstanceNorm,
-                                         SpaceLevels, TorchBatchNorm)
+                                         ConvBNReLUStages, ConvTranspose3d,
+                                         InstanceNorm, SpaceLevels,
+                                         TorchBatchNorm)
 from bcp_tpu_torch.parallel import mesh
 
 #: the V-Net's stride-2 down steps
@@ -113,7 +114,9 @@ def _norm(kind: str, n: int, dtype) -> list:
 
 
 class ConvBlock(_Remat):
-    """`ConvBlock` (`networks/VNet.py:6-32`): n x (3^3 conv, norm, relu)."""
+    """`ConvBlock` (`networks/VNet.py:6-32`): n x (3^3 conv, norm, relu),
+    with BatchNorm a :class:`~bcp_tpu_torch.models.layers.ConvBNReLUStages`
+    (each stage ``layers.conv_bn_relu``)."""
 
     def __init__(self, n_stages: int, n_in: int, n_out: int,
                  dtype: Optional[torch.dtype] = None,
@@ -124,7 +127,8 @@ class ConvBlock(_Remat):
             ops += [Conv3x3x3(n_in if i == 0 else n_out, n_out, dtype=dtype,
                               fused_bwd=fused_bwd),
                     *_norm(norm, n_out, dtype), nn.ReLU()]
-        self.conv = nn.Sequential(*ops)
+        self.conv = (ConvBNReLUStages if norm == "batchnorm"
+                     else nn.Sequential)(*ops)
 
 
 class DownBlock(_Remat):

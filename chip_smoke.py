@@ -40,7 +40,16 @@ Phases, each of which fails the run (non-zero exit, no final line):
    bit-identical over two runs, timed beside B-as-dx followed by C,
    beside its plain version and beside the two library calls
    ``conv3d_input`` + ``conv3d_weight`` together, and D and B-as-dx then C
-   on the device alone (CUDA graphs), with the variant D's wrapper picks;
+   on the device alone (CUDA graphs), with the variant D's wrapper picks.
+   Kernel E, the fused train-mode bias + BatchNorm + ReLU, at every
+   BatchNorm shape of a V-Net and a full-width UNet3D self-train step
+   against its plain version, timed beside the chain it replaced and
+   ``F.batch_norm`` + ``F.relu`` (``phase_bn_relu``; ``python3
+   chip_smoke.py --only bn_relu`` runs it alone). Every path below counts
+   E's launches with the rest: a bf16 train-mode forward on the card
+   launches its statistics and apply once a (conv, BatchNorm, ReLU)
+   stage, a backward its backward once (a world of one rank too); eval,
+   f32, instance norm and the worlds of several ranks launch none;
 3. the whole slice in f32 on the card against the same slice on the CPU:
    the full-width V-Net (n_filters 16, seeded weights, saved as a
    reference-layout .pth) through the evaluator on one 112x112x80 volume,
@@ -249,6 +258,21 @@ CONV_STAGES = [((32, 56, 56, 40), 4), ((64, 28, 28, 20), 6),
 # the self-train student's concat batch (two mixed sub-batches of 2), at
 # which the backward kernels run
 TRAIN_CONCAT = 4
+# the (3^3 conv, BatchNorm, ReLU) stages of one V-Net forward (the 20
+# above and block_one's) and of one full-width UNet3D forward at a
+# 112x112x80 patch: (channels, X, Y, Z) -> stages. In a bf16 train-mode
+# forward on the card each stage launches the fused bias + BatchNorm +
+# ReLU's statistics and apply once, and its backward once; the V-Net's
+# stride-2 blocks keep the plain BatchNorm
+VNET_BN_STAGES = [((16, 112, 112, 80), 2), ((32, 56, 56, 40), 4),
+                  ((64, 28, 28, 20), 6), ((128, 14, 14, 10), 6),
+                  ((256, 7, 7, 5), 3)]
+UNET3D_BN_STAGES = [((64, 112, 112, 80), 4), ((256, 56, 56, 40), 4),
+                    ((256, 28, 28, 20), 4), ((512, 14, 14, 10), 4),
+                    ((1024, 7, 7, 5), 2)]
+VNET_BNS = sum(n for _, n in VNET_BN_STAGES)
+# the self-train step's BatchNorm groups (two mixed sub-batches of 2)
+BN_GROUPS = 2
 # the f32 train step compared with the CPU, and its limit on each update
 # relative to the largest update in the tensor's module (see
 # phase_train_step: f32 noise reaches 5.5 %, a fault 100 %)
@@ -853,6 +877,188 @@ def phase_backward_kernels(torch, rates):
             dw, fused]
 
 
+def phase_bn_relu(torch, rates):
+    """Kernel E, the fused train-mode bias + BatchNorm + ReLU
+    (``ops/bn_relu.py``), against its plain version on the card at every
+    BatchNorm shape of a self-train step: the V-Net's (VNET_BN_STAGES)
+    and the full-width UNet3D's (UNET3D_BN_STAGES), batch TRAIN_CONCAT in
+    BN_GROUPS groups, bf16. Held to the limits of
+    ``tests/test_torch_bn_relu_cuda.py``: the apply bit for bit given the
+    plain version's statistics; mean, inv and d to 1e-4 of the channel's
+    scale, mul and add to one bf16 step, the running averages to 1e-4 and
+    num_batches_tracked exactly; given the kernels' statistics, dx within
+    one bf16 step plus 1e-3 of its largest, the BatchNorm weight's and
+    bias' gradients to 1e-3 of their largest, the conv bias' to 1e-3 of
+    sum |dx|; a second forward and backward bit for bit. Timed (CUDA
+    events, median of 10) forward (statistics, apply) and backward, beside
+    the plain version, the eager chain the op replaced (the conv's bias
+    add, ``TorchBatchNorm``, ``F.relu`` and autograd's backward) and, as
+    a yardstick, ``F.batch_norm`` + ``F.relu`` (one group), and the bound
+    of 16 bytes an element (forward 6, backward 10) at the HBM rate.
+    Returns the kernels-line entry, summed over a UNet3D pass."""
+    import torch.nn.functional as F
+    from bcp_tpu_torch.models.layers import TorchBatchNorm
+    from bcp_tpu_torch.ops import bn_relu as br
+    hbm = rates[2]
+    dev = torch.device("cuda")
+    cl = torch.channels_last_3d
+    eps, momentum, G = 1e-5, 0.9, BN_GROUPS
+    out = {}
+    for net, stages in (("unet3d", UNET3D_BN_STAGES),
+                        ("vnet", VNET_BN_STAGES)):
+        rows = []
+        for (C, X, Y, Z), per_forward in stages:
+            gen = torch.Generator(device=dev).manual_seed(SEED + C + X)
+            shape = (TRAIN_CONCAT, C, X, Y, Z)
+
+            def rnd(*s, scale=1.0, shift=0.0):
+                return (torch.randn(*s, generator=gen, device=dev) * scale
+                        + shift)
+            y = (rnd(*shape) * rnd(1, C, 1, 1, 1).abs().add(0.5)
+                 + rnd(1, C, 1, 1, 1)).to(torch.bfloat16).contiguous(
+                memory_format=cl)
+            g = rnd(*shape, scale=1e-3).to(torch.bfloat16).contiguous(
+                memory_format=cl)
+            cb32, w, b = rnd(C, scale=0.3), rnd(C, scale=0.2, shift=1.0), \
+                rnd(C, scale=0.2)
+            cb = cb32.to(torch.bfloat16)
+            row = {"shape": f"{TRAIN_CONCAT}x{C}@{X}x{Y}x{Z}",
+                   "groups": G, "per_forward": per_forward}
+
+            def running():
+                return (torch.full((C,), 0.1, device=dev),
+                        torch.full((C,), 0.9, device=dev),
+                        torch.zeros((), dtype=torch.long, device=dev))
+            want, st_ref = br.bn_relu_forward_reference(y, cb, w, b, G, eps)
+            if not torch.equal(br.bn_relu_apply(y, cb, st_ref, G), want):
+                fail(f"bn_relu {net} {row['shape']}: the apply differs "
+                     f"from the plain version's given its statistics")
+            run, ref = running(), running()
+            st = br.bn_relu_stats(y, cb, w, b, run, G, eps, momentum)
+            br.update_running_reference(*ref, st_ref, y[0, 0].numel()
+                                        * (TRAIN_CONCAT // G), momentum)
+            scale = st_ref[4].clamp(min=0).sqrt() + st_ref[0].abs()
+            stat_err = max(
+                float(((st[0] - st_ref[0]).abs() / scale).max()),
+                float(((st[1] - st_ref[1]).abs() / st_ref[1]).max()),
+                float(((st[4] - st_ref[4]).abs() / scale.square()).max()))
+            step_err = max(float(((st[i] - st_ref[i]).abs() / (
+                st_ref[i].abs() + 1e-6 * 2 ** 7)).max()) for i in (2, 3))
+            row["stats_rel_err"] = stat_err
+            row["mul_add_rel_err"] = step_err
+            if not (stat_err <= 1e-4 and step_err <= 2 ** -7
+                    and all(torch.allclose(a, c, rtol=1e-4, atol=1e-5)
+                            for a, c in zip(run[:2], ref[:2]))
+                    and int(run[2]) == int(ref[2]) == G):
+                fail(f"bn_relu {net} {row['shape']}: statistics or running "
+                     f"averages off the plain version's: {row}, running "
+                     f"{[t[:4].tolist() for t in run]} against "
+                     f"{[t[:4].tolist() for t in ref]}")
+            del want, st_ref, ref
+            st = br.bn_relu_stats(y, cb, w, b, None, G, eps, momentum)
+            dy, dcb, dw, db = br.bn_relu_grad(g, y, cb, w, st, G)
+            plain = br.bn_relu_backward_reference(g, y, cb, w, st, G)
+            a, p = dy.float(), plain[0].float()
+            dx_err = float(((a - p).abs() / (2 ** -7 * p.abs()
+                                             + 1e-3 * p.abs().max())).max())
+            par_err = max(float(((q - r).abs().max() / r.abs().max()))
+                          for q, r in ((dw, plain[2]), (db, plain[3])))
+            cb_err = float(((dcb - plain[1]).abs()
+                            / p.abs().sum(dim=(0, 2, 3, 4))).max())
+            row.update(dx_err_over_limit=dx_err, param_grad_rel_err=par_err,
+                       conv_bias_grad_rel_err=cb_err)
+            if not (dx_err <= 1.0 and par_err <= 1e-3 and cb_err <= 1e-3):
+                fail(f"bn_relu {net} {row['shape']}: the backward differs "
+                     f"from the plain version's: {row}")
+            del a, p, plain
+            again = br.bn_relu_stats(y, cb, w, b, None, G, eps, momentum)
+            twice = br.bn_relu_grad(g, y, cb, w, again, G)
+            if not (torch.equal(again, st) and all(
+                    torch.equal(q, r) for q, r in zip(twice,
+                                                      (dy, dcb, dw, db)))):
+                fail(f"bn_relu {net} {row['shape']}: two runs differ")
+            del again, twice, dy
+
+            # timed: the op's kernels, its plain version, the chain it
+            # replaced, the library yardstick (forward, then both)
+            bn = TorchBatchNorm(C, dtype=torch.bfloat16, groups=G).to(dev)
+            yg = y.clone().requires_grad_(True)
+            cbg = cb32.clone().requires_grad_(True)
+            bias5 = (lambda t: t.to(torch.bfloat16).view(1, -1, 1, 1, 1))
+
+            def chain_fwd():
+                with torch.no_grad():
+                    return F.relu(bn(y + bias5(cb32)))
+
+            def chain_both():
+                o = F.relu(bn(yg + bias5(cbg)))
+                torch.autograd.grad(o, (yg, cbg, bn.weight, bn.bias), g)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return F.relu(F.batch_norm(y + bias5(cb32), None, None,
+                                               w, b, True, 0.1, eps))
+
+            def lib_both():
+                wl = w.clone().requires_grad_(True)
+                o = F.relu(F.batch_norm(yg + bias5(cbg), None, None, wl, b,
+                                        True, 0.1, eps))
+                torch.autograd.grad(o, (yg, cbg, wl), g)
+
+            def plain_both():
+                o, s_ = br.bn_relu_forward_reference(y, cb, w, b, G, eps)
+                br.bn_relu_backward_reference(g, y, cb, w, s_, G)
+            fwd = lambda: br.bn_relu_apply(  # noqa: E731
+                y, cb, br.bn_relu_stats(y, cb, w, b, None, G, eps,
+                                        momentum), G)
+            n = y.numel()
+            row.update(
+                fwd_ms=cuda_ms(torch, fwd),
+                bwd_ms=cuda_ms(torch, lambda: br.bn_relu_grad(g, y, cb, w,
+                                                              st, G)),
+                plain_ms=cuda_ms(torch, plain_both),
+                replaced_fwd_ms=cuda_ms(torch, chain_fwd),
+                replaced_ms=cuda_ms(torch, chain_both),
+                library_fwd_ms=cuda_ms(torch, lib_fwd),
+                library_ms=cuda_ms(torch, lib_both),
+                bound_fwd_ms=6 * n / hbm * 1e3,
+                bound_ms=16 * n / hbm * 1e3)
+            row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+            rows.append(row)
+            print(f"kernel E bn_relu {net} {row['shape']} x{per_forward}: "
+                  f"fwd {row['fwd_ms']:.4f} + bwd {row['bwd_ms']:.4f} ms "
+                  f"(bound {row['bound_ms']:.4f}; replaced chain "
+                  f"{row['replaced_ms']:.4f}, F.batch_norm + relu "
+                  f"{row['library_ms']:.4f}, plain {row['plain_ms']:.4f}); "
+                  f"stats err {stat_err:.3g}, dx err/limit {dx_err:.3g}",
+                  flush=True)
+            del y, g, yg, st, bn
+            torch.cuda.empty_cache()
+        total = {k: sum(r[k] * r["per_forward"] for r in rows)
+                 for k in ("ms", "fwd_ms", "bwd_ms", "plain_ms",
+                           "replaced_ms", "replaced_fwd_ms", "library_ms",
+                           "library_fwd_ms", "bound_ms", "bound_fwd_ms")}
+        out[net] = {"total": total, "shapes": rows}
+        print(f"kernel E over the {sum(n for _, n in stages)} BatchNorms of "
+              f"a batch-{TRAIN_CONCAT} {net} forward and backward: "
+              + json.dumps(total), flush=True)
+    u = out["unet3d"]
+    return [{
+        "name": "batch_norm_relu",
+        "wrappers": ["bn_relu_stats", "bn_relu_apply", "bn_relu_grad"],
+        "route": "cuda",
+        "source": "bcp_tpu_torch/kernels/csrc/batch_norm_relu.cu",
+        "replaces": "no Pallas kernel (XLA fuses the JAX package's chain); "
+                    "the eager bias add, TorchBatchNorm and ReLU",
+        "max_err_over_limit": max(r["dx_err_over_limit"]
+                                  for r in u["shapes"]),
+        **u["total"], "bound_by": "bytes",
+        "per": f"the {sum(n for _, n in UNET3D_BN_STAGES)} BatchNorms of "
+               f"one full-width UNet3D forward and backward at batch "
+               f"{TRAIN_CONCAT} in {BN_GROUPS} groups",
+        "shapes": u["shapes"], "vnet": out["vnet"]}]
+
+
 def seeded_vnet(torch, device, seed: int):
     """Full-width V-Net with torch's default init drawn from a numpy
     generator, and BN statistics calibrated on one window so that the
@@ -1200,7 +1406,8 @@ def phase_main_path(torch, pth: str, workdir: str):
     want = {"scatter_add_windows": 0,
             "softmax_scatter_add_windows": 2 * chunks,
             "conv3x3x3_same": 2 * chunks * sum(n for _, n in CONV_STAGES),
-            "conv3x3x3_dx": 0, "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0}
+            "conv3x3x3_dx": 0, "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
+            **bn_relu_launches(0, 0)}
     print(f"main path launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"main path launches {launches}, expected {want}")
@@ -1282,6 +1489,8 @@ def check_chunk_epilogue(spans, chunks: int):
 
 
 def kernel_counters():
+    from bcp_tpu_torch.ops.bn_relu import (bn_relu_apply, bn_relu_grad,
+                                           bn_relu_stats)
     from bcp_tpu_torch.ops.conv3d import (conv3x3x3_dw, conv3x3x3_dx,
                                           conv3x3x3_dxdw, conv3x3x3_same)
     from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
@@ -1289,7 +1498,36 @@ def kernel_counters():
     return {f.__name__: f for f in (scatter_add_windows,
                                     softmax_scatter_add_windows,
                                     conv3x3x3_same, conv3x3x3_dx,
-                                    conv3x3x3_dw, conv3x3x3_dxdw)}
+                                    conv3x3x3_dw, conv3x3x3_dxdw,
+                                    bn_relu_stats, bn_relu_apply,
+                                    bn_relu_grad)}
+
+
+def bn_relu_launches(forwards: int, backwards: int):
+    """The fused bias + BatchNorm + ReLU's launches of a path: its
+    statistics and apply once a fused stage of a train-mode forward, its
+    backward once a stage of a backward."""
+    return {"bn_relu_stats": forwards, "bn_relu_apply": forwards,
+            "bn_relu_grad": backwards}
+
+
+def bn_relu_stages(model) -> int:
+    """The (3^3 conv, BatchNorm, ReLU) stages of ``model`` that
+    ``layers.conv_bn_relu`` runs: UNet3D's ``Conv3DBlock`` two, UNETR's
+    ``ConvBNReLU`` and ``DeconvBlock`` one, the V-Net ``ConvBlock``'s
+    ``ConvBNReLUStages`` one a triple."""
+    from bcp_tpu_torch.models.layers import ConvBNReLUStages
+    from bcp_tpu_torch.models.unet3d import Conv3DBlock
+    from bcp_tpu_torch.models.unetr import ConvBNReLU, DeconvBlock
+    n = 0
+    for m in model.modules():
+        if isinstance(m, ConvBNReLUStages):
+            n += len(m) // 3
+        elif isinstance(m, Conv3DBlock):
+            n += 2
+        elif isinstance(m, (ConvBNReLU, DeconvBlock)):
+            n += 1
+    return n
 
 
 def read_launches(counters, reset: bool = False):
@@ -1396,7 +1634,9 @@ def phase_training(torch, workdir: str):
             "conv3x3x3_same": convs * (3 * STAGE_ITERS + v * chunks),
             "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
-            "conv3x3x3_dxdw": 0}
+            "conv3x3x3_dxdw": 0,
+            **bn_relu_launches(VNET_BNS * 3 * STAGE_ITERS,
+                               VNET_BNS * 2 * STAGE_ITERS)}
     print(f"training path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} pre-train and {STAGE_ITERS} self-train steps, "
           f"{v} validations of {chunks} chunks, warm-ups included)",
@@ -1516,15 +1756,18 @@ def check_checkpoints(stages) -> None:
               f"the eval model", flush=True)
 
 
-def steady_step(clock, cfg, stage: str, fused: bool):
-    """The timed iterations of one stage: launches per step as expected,
-    ms/step, patches/s, peak memory and the two one-step traces."""
+def steady_step(clock, cfg, stage: str, fused: bool, bns: int = VNET_BNS):
+    """The timed iterations of one stage: launches per step as expected
+    (``bns`` fused BatchNorm stages a forward: LA's V-Net 21, pancreas'
+    instance-norm V-Net none), ms/step, patches/s, peak memory and the
+    two one-step traces."""
     convs = sum(n for _, n in CONV_STAGES)
     per = {"conv3x3x3_same": convs * (2 if stage == "self" else 1),
            "conv3x3x3_dx": 0 if fused else convs,
            "conv3x3x3_dw": 0 if fused else convs,
            "conv3x3x3_dxdw": convs if fused else 0,
-           "scatter_add_windows": 0, "softmax_scatter_add_windows": 0}
+           "scatter_add_windows": 0, "softmax_scatter_add_windows": 0,
+           **bn_relu_launches(bns * (2 if stage == "self" else 1), bns)}
     timed = clock.launches[stage]
     if timed != {k: n * STEADY_STEPS for k, n in per.items()}:
         fail(f"{STEADY_STEPS} {stage}-train steps (fused_bwd={fused}) "
@@ -1566,7 +1809,9 @@ def phase_training_fused(torch, workdir: str, shared):
             "softmax_scatter_add_windows": v * chunks,
             "conv3x3x3_same": convs * (2 * STAGE_ITERS + v * chunks),
             "conv3x3x3_dx": 0, "conv3x3x3_dw": 0,
-            "conv3x3x3_dxdw": convs * STAGE_ITERS}
+            "conv3x3x3_dxdw": convs * STAGE_ITERS,
+            **bn_relu_launches(VNET_BNS * 2 * STAGE_ITERS,
+                               VNET_BNS * STAGE_ITERS)}
     print(f"fused-backward path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} self-train steps, {v} validations)", flush=True)
     if launches != want or not cfg.fused_bwd:
@@ -1592,7 +1837,8 @@ def phase_training_fused(torch, workdir: str, shared):
     if resumed != [str(STAGE_ITERS)] \
             or steps != list(range(STAGE_ITERS + 1, last + 1)) \
             or again["launches"]["conv3x3x3_dxdw"] != convs * 3 \
-            or again["launches"]["conv3x3x3_dx"] != 0:
+            or again["launches"]["conv3x3x3_dx"] != 0 \
+            or again["launches"]["bn_relu_grad"] != VNET_BNS * 3:
         fail(f"resume went wrong: resumed at {resumed}, iterations {steps}, "
              f"launches {again['launches']}")
     more = stage_losses(again["stages"]["self"][1], again["clock"], "self",
@@ -2291,7 +2537,7 @@ def phase_pancreas_training(torch, workdir: str):
             "conv3x3x3_same": convs * (3 * STAGE_ITERS + 2 * v),
             "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
-            "conv3x3x3_dxdw": 0}
+            "conv3x3x3_dxdw": 0, **bn_relu_launches(0, 0)}
     print(f"pancreas training path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} pre-train and {STAGE_ITERS} self-train steps, {v} "
           f"validations of 2 one-window volumes, warm-ups included)",
@@ -2330,7 +2576,7 @@ def phase_pancreas_training(torch, workdir: str):
           f"weights and the Adam state of {len(pre_opt)} tensors at step "
           f"{STAGE_ITERS}", flush=True)
     for stage in ("pre", "self"):
-        steady = steady_step(clock, cfg, stage, fused=False)
+        steady = steady_step(clock, cfg, stage, fused=False, bns=0)
         steady["volumes_per_step"] = steady.pop("patches_per_step")
         steady["volumes_per_s"] = steady.pop("patches_per_s")
         print(f"steady pancreas {stage}-train step: " + json.dumps(steady),
@@ -2380,7 +2626,8 @@ def phase_pancreas_test(torch, best: str, workdir: str):
     convs = sum(n for _, n in PANC_STAGES)
     want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": 2,
             "conv3x3x3_same": 2 * convs, "conv3x3x3_dx": 0,
-            "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0}
+            "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
+            **bn_relu_launches(0, 0)}
     print(f"pancreas test path launches {launches} (expected {want})",
           flush=True)
     if launches != want:
@@ -3401,6 +3648,7 @@ def phase_data_parallel(torch, workdir: str, pth: str, smi: str):
             runs[(way, K)] = run
         launches[f"train_la_world1_k{K}"] = runs[("world", K)]["launches"]
         got, want = runs[("world", K)], runs[("plain", K)]
+        n_it = DP_ITERS[K]
         # the plain run's background worker validates once more a stage
         # (its evaluator warm-up); the world validates inline, no warm-up
         extra = want["trainer"].validations - got["trainer"].validations
@@ -3412,7 +3660,8 @@ def phase_data_parallel(torch, workdir: str, pth: str, smi: str):
         expect["softmax_scatter_add_windows"] -= extra * chunks
         expect["conv3x3x3_same"] -= extra * chunks * sum(
             n for _, n in CONV_STAGES)
-        if extra != 2 or got["launches"] != expect:
+        if extra != 2 or got["launches"] != expect \
+                or want["launches"]["bn_relu_grad"] != VNET_BNS * 2 * n_it:
             fail(f"phase 14 K={K}: the world's launches {got['launches']} "
                  f"({got['trainer'].validations} validations), the plain "
                  f"run's {want['launches']} ({extra} validations more)")
@@ -3737,6 +3986,16 @@ def phase_remat(torch, workdir: str, smi: str):
                          "peak_mem_gib": torch.cuda.max_memory_allocated()
                          / 2**30,
                          "state": snapshot(state)})
+        steps = 2 * (REMAT_WARMUP + REMAT_STEPS)
+        # a step: the teacher's forward, the student's, its recompute in
+        # the backward, then the backward (LA); pancreas' instance norm
+        # takes no fused op
+        bns = VNET_BNS if variant == "la" else 0
+        got = {k: launches[f"remat_{variant}"][k] for k in
+               ("bn_relu_stats", "bn_relu_apply", "bn_relu_grad")}
+        if got != bn_relu_launches(3 * bns * steps, bns * steps):
+            fail(f"remat {variant}: fused BatchNorm launches {got}, expected "
+                 f"{bn_relu_launches(3 * bns * steps, bns * steps)}")
         exact = all(_state_equal(runs[i]["state"], runs[i - 1]["state"])
                     for i in (1, 3))
         entry = {"runs": [{k: v for k, v in r.items() if k != "state"}
@@ -4320,10 +4579,10 @@ def phase_zoo_train(torch, smi: str):
         got = read_launches(counters)
         for h in hooks:
             h.remove()
-        n = len(convs)
+        n, bns = len(convs), bn_relu_stages(model)
         want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": 0,
                 "conv3x3x3_same": n, "conv3x3x3_dx": n, "conv3x3x3_dw": n,
-                "conv3x3x3_dxdw": 0}
+                "conv3x3x3_dxdw": 0, **bn_relu_launches(bns, bns)}
         if got != want:
             fail(f"zoo {net_type} train step launches {got}, expected "
                  f"{want}")
@@ -4573,7 +4832,8 @@ def phase_zoo_test_la(torch, workdir: str, smi: str):
     print(out.getvalue(), end="")
     want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": chunks,
             "conv3x3x3_same": chunks * n_convs, "conv3x3x3_dx": 0,
-            "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0}
+            "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
+            **bn_relu_launches(0, 0)}
     if launches != want or not np.isfinite(avg).all() or len(avg) != 4:
         fail(f"test_la --model unet_3D: launches {launches} (expected "
              f"{want}), metrics {avg}")
@@ -4802,7 +5062,8 @@ def phase_zoo_step(torch):
                          "softmax_scatter_add_windows": 0,
                          "conv3x3x3_same": 3 * n_convs,
                          "conv3x3x3_dx": 2 * n_convs,
-                         "conv3x3x3_dw": 2 * n_convs, "conv3x3x3_dxdw": 0}
+                         "conv3x3x3_dw": 2 * n_convs, "conv3x3x3_dxdw": 0,
+                         **bn_relu_launches(0, 0)}
         if launches != want_launches:
             fail(f"zoo f32 step {net}: launches {launches}, expected "
                  f"{want_launches}")
@@ -4873,6 +5134,7 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
     if cfg.net_type != net:
         fail(f"--model {net} reached the config as {cfg.net_type}")
     n = len(kernel_convs(trainer.eval_model))
+    bns = bn_relu_stages(trainer.eval_model)
     v = trainer.validations
     chunks = 0
     if variant == "la":
@@ -4883,10 +5145,12 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
             "softmax_scatter_add_windows": v * chunks,
             "conv3x3x3_same": n * (3 * iters + v * chunks),
             "conv3x3x3_dx": 2 * n * iters, "conv3x3x3_dw": 2 * n * iters,
-            "conv3x3x3_dxdw": 0}
+            "conv3x3x3_dxdw": 0,
+            **bn_relu_launches(3 * bns * iters, 2 * bns * iters)}
     if run["launches"] != want:
         fail(f"train_{variant} --model {net} K={K}: launches "
-             f"{run['launches']}, expected {want} ({n} kernel convs, {v} "
+             f"{run['launches']}, expected {want} ({n} kernel convs, {bns} "
+             f"fused BatchNorm stages, {v} "
              f"validations of {chunks} chunks)")
     line = {"card": smi, "net_type": net, "K": K, "iterations": iters,
             "kernel_convs": n, "validations": v, "chunks": chunks,
@@ -4898,7 +5162,9 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
         for stage in ("pre", "self"):
             steady = clock.steady(stage)
             per = {"conv3x3x3_same": n * (2 if stage == "self" else 1),
-                   "conv3x3x3_dx": n, "conv3x3x3_dw": n}
+                   "conv3x3x3_dx": n, "conv3x3x3_dw": n,
+                   **bn_relu_launches(
+                       bns * (2 if stage == "self" else 1), bns)}
             per = {k: float(c) for k, c in per.items() if c}
             if steady["kernel_launches_per_step"] != per:
                 fail(f"train_{variant} --model {net} K={K} {stage}-train "
@@ -5439,11 +5705,13 @@ def main() -> int:
             "zoo": lambda torch, workdir, smi: phase_zoo(torch, rates,
                                                          workdir, smi),
             "zoo_train": phase_zoo_training,
+            "bn_relu": lambda torch, workdir, smi: print(json.dumps(
+                {"kernels": phase_bn_relu(torch, rates)})) or True,
             "zoo_spatial": phase_zoo_spatial}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in only:
         # phase 14 (c) or 15 (c) alone, for a machine with several cards;
-        # phase 16, 17 or 18 alone on one
+        # kernel E's part of phase 2, phase 16, 17 or 18 alone on one
         with tempfile.TemporaryDirectory(dir=work_root) as workdir:
             if not only[sys.argv[2]](torch, workdir, smi):
                 fail(f"--only {sys.argv[2]} needs two visible cards")
@@ -5455,11 +5723,13 @@ def main() -> int:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
              f"--only data_parallel_cards, --only spatial_cards, --only "
-             f"zoo, --only zoo_train or --only zoo_spatial")
+             f"bn_relu, --only zoo, --only zoo_train or --only "
+             f"zoo_spatial")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
         entries += phase_backward_kernels(torch, rates)
+        entries += phase_bn_relu(torch, rates)
         pancreas = phase_pancreas_kernels(torch, rates)
         pth = os.path.join(workdir, "VNet_best_model.pth")
         torch.save(seeded_vnet(torch, DEVICE, SEED).state_dict(), pth)
@@ -5517,7 +5787,8 @@ def main() -> int:
         if e["name"] == "softmax_scatter_add_windows":
             # device ms a launch inside the evaluator (phase 4's trace)
             e["main_path_device_ms"] = a_ms
-        by_path = {path: counts[e["name"]]
+        by_path = {path: sum(counts.get(n, 0)
+                             for n in e.get("wrappers", [e["name"]]))
                    for path, counts in launches.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path

@@ -1,13 +1,14 @@
 """Zoo nets' train steps on the card: UNet3D (``ZOO``'s small widths,
 where every 3^3 conv past the first has Ci and Co multiples of 16)
 launches B, B-as-dx and C once a kernel-taking conv in a pre-train step
-and B twice in a self-train step, and its self-train step run as a CUDA
-graph replay inside a K = 4 dispatch group ends in the state of four eager
-steps with the same draws, bit for bit (cuDNN held to its deterministic
-algorithms); and one of a full-width UNet3D's shapes on halo'd slabs
-(``--sp_devices``) against the whole volume. Every test needs a CUDA
-device and skips without one; the file imports neither jax nor the JAX
-package:
+and B twice in a self-train step (and the fused bias + BatchNorm + ReLU
+once a BatchNorm a forward and a backward), and its self-train step run
+as a CUDA graph replay inside a K = 4 dispatch group ends in the state of
+four eager steps with the same draws, bit for bit (cuDNN held to its
+deterministic algorithms); and one of a full-width UNet3D's shapes on
+halo'd slabs (``--sp_devices``) against the whole volume. Every test
+needs a CUDA device and skips without one; the file imports neither jax
+nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_zoo_cuda.py
@@ -87,8 +88,12 @@ def test_zoo_step_launches_b_and_c_once_a_conv(cuda_device, stage):
     torch.cuda.synchronize()
     got = {k: v - before.get(k, 0) for k, v in kernels.launch_counts().items()
            if v - before.get(k, 0)}
+    # every (conv, BN, ReLU) on the fused op: one forward a network
+    bns = 2 * 9 * (1 if stage == "pre" else 2)
     assert got == {"conv3x3x3_same": n * (1 if stage == "pre" else 2),
-                   "conv3x3x3_dx": n, "conv3x3x3_dw": n}
+                   "conv3x3x3_dx": n, "conv3x3x3_dw": n,
+                   "bn_relu_stats": bns, "bn_relu_apply": bns,
+                   "bn_relu_grad": 2 * 9}
     assert all(np.isfinite(float(v)) for v in m.values())
 
 
