@@ -1,6 +1,8 @@
-"""The convolutions a step or a forward calls, recorded by a forward hook
-during warm-up, and each timed alone at its shapes for
-``conv_roofline.*``: the same work whatever implements it."""
+"""The convolutions and linear layers a step or a forward calls, recorded
+by a forward hook during warm-up: their operations, with the products
+the architecture's file adds, for ``mfu.*``, and each conv timed alone
+at its shapes for ``conv_roofline.*``: the same work whatever implements
+it."""
 
 from __future__ import annotations
 
@@ -10,26 +12,37 @@ import torch
 from torch import nn
 
 from benchmark import counts
+from benchmark.reference import nets
 
 CONVS = (nn.Conv3d, nn.ConvTranspose3d)
+RECORDED = CONVS + (nn.Linear,)
 
 
 class Recorder:
-    """Records each conv module call while ``role`` is set (a string such
-    as "teacher" or "student"): the module, its input's shape, dtype,
-    layout and whether it needs a gradient, and its output's shape."""
+    """Records each conv and linear module call while ``role`` is set (a
+    string such as "teacher" or "student"): the module, its input's shape,
+    dtype, layout and whether it needs a gradient, and its output's shape;
+    and, by :meth:`forward`, the samples each role's whole-net forwards
+    took."""
 
     def __init__(self, train_only: bool = True):
         self.role = None
         self.train_only = train_only
         self.calls: List[dict] = []
+        self.samples: Dict[str, int] = {}
         self.handle = nn.modules.module.register_module_forward_hook(
             self._hook)
+
+    def forward(self, x: torch.Tensor) -> None:
+        """Counts a whole-net forward of ``x`` for the current role."""
+        if self.role is not None:
+            self.samples[self.role] = (self.samples.get(self.role, 0)
+                                       + x.shape[0])
 
     def _hook(self, module, args, output):
         # ``train_only``: the train-mode nets only (the trainer's evaluator
         # runs on a thread of its own meanwhile)
-        if self.role is None or not isinstance(module, CONVS) \
+        if self.role is None or not isinstance(module, RECORDED) \
                 or (self.train_only and not module.training):
             return
         x = args[0]
@@ -40,6 +53,7 @@ class Recorder:
             and x.is_contiguous(memory_format=torch.channels_last_3d),
             "dx": x.requires_grad, "y": tuple(output.shape),
             "w": tuple(module.weight.shape),
+            "linear": isinstance(module, nn.Linear),
             "transposed": isinstance(module, nn.ConvTranspose3d),
             "bias": module.bias is not None})
 
@@ -48,7 +62,8 @@ class Recorder:
 
 
 def work(call: dict, backward: bool) -> Tuple[int, int]:
-    """(operations, bytes) of a recorded call, forward or backward."""
+    """(operations, bytes) of a recorded conv call, forward or
+    backward."""
     x, w, y = call["x"], call["w"], call["y"]
     item = torch.empty((), dtype=call["dtype"]).element_size()
     if backward:
@@ -60,15 +75,36 @@ def work(call: dict, backward: bool) -> Tuple[int, int]:
             counts.conv_bytes(x, w, y, call["bias"], item))
 
 
+def call_flops(call: dict, backward: bool) -> int:
+    """Operations of a recorded conv or linear call, forward or backward
+    (dW, and dx when the input needs a gradient: each costs a
+    forward)."""
+    if not call["linear"]:
+        return work(call, backward)[0]
+    f = counts.linear_flops(call["x"], call["w"])
+    return f * (1 + call["dx"]) if backward else f
+
+
 def flops(calls: List[dict], backward_roles=()) -> int:
     """Operations of the recorded calls: every forward, and the backward
     of the calls whose role is in ``backward_roles``."""
     total = 0
     for c in calls:
-        total += work(c, False)[0]
+        total += call_flops(c, False)
         if c["role"] in backward_roles:
-            total += work(c, True)[0]
+            total += call_flops(c, True)
     return total
+
+
+def extra_flops(net: str, widths: dict, patch, samples: Dict[str, int],
+                backward_roles=()) -> int:
+    """Operations of the products the architecture's file adds
+    (``nets.extra_flops``) for the samples each role's forwards took:
+    the forward, and for the roles in ``backward_roles`` twice it again
+    for the backward."""
+    return sum(nets.extra_flops(net, widths, patch, n)
+               * (3 if role in backward_roles else 1)
+               for role, n in samples.items())
 
 
 def _input(call: dict, device) -> torch.Tensor:
@@ -97,7 +133,8 @@ def time_calls(calls: List[dict], backward_roles=(), reps: int = 5
     events (forward, and the backward through autograd for the roles in
     ``backward_roles``), with its count in the recording: a list of
     {"flops", "bytes", "seconds", "count", "backward"}; empty off the
-    card."""
+    card. Linear calls are not timed."""
+    calls = [c for c in calls if not c["linear"]]
     if not calls or calls[0]["module"].weight.device.type != "cuda":
         return []
     seen: Dict[tuple, dict] = {}

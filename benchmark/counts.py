@@ -3,12 +3,15 @@ the table of peaks they are held against.
 
 A conv is counted from its shapes alone: 2 * N * Co * Ci * k^3
 operations per output voxel of a conv (per input voxel of a transposed
-conv, whose kernel scatters), the same for dx and again for dW. Bytes:
-each input read once and each output written once, in the compute
-dtype (bf16), whatever the kernel reads again. Only convolutions are
-counted: the norms, activations and losses add operations no peak is
-quoted for, so ``mfu`` is the share of the chip's matrix peak that the
-convolutions alone would fill.
+conv, whose kernel scatters), the same for dx and again for dW. A
+linear layer: 2 * rows * in * out, the same for dx and again for dW.
+The matrix products no module call shows (attention's) come from the
+reference architecture's file (``nets.extra_flops``). Bytes: each input
+read once and each output written once, in the compute dtype (bf16),
+whatever the kernel reads again. Only the matrix products are counted:
+the norms, activations and losses add operations no peak is quoted for,
+so ``mfu`` is the share of the chip's matrix peak that the matrix
+products alone would fill.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ def conv_flops(x_shape: Sequence[int], w_shape: Sequence[int],
     k = prod(w_shape[2:])
     voxels = prod(x_shape[2:]) if transposed else prod(y_shape[2:])
     return 2 * n * ci * co * k * voxels
+
+
+def linear_flops(x_shape: Sequence[int], w_shape: Sequence[int]) -> int:
+    """Operations of one linear layer's forward: every row of x times the
+    (out, in) weight."""
+    return 2 * prod(x_shape[:-1]) * w_shape[0] * w_shape[1]
 
 
 def conv_bytes(x_shape, w_shape, y_shape, bias: bool, itemsize: int = 2

@@ -13,9 +13,18 @@ per-layer metric is a file of its own, found by the name
   seconds, trace, device, shrink)``;
 - ``benchmark/metrics/<metric>.py``: a per-layer metric's reader,
   ``read(ctx)`` -> a number or None, with its ``LAYER`` and ``MOVES``.
+  ``ctx`` is the driver's: the window's numbers, the traces, and the
+  merged configuration (``ctx["config"]``) and the workload
+  (``ctx["workload"]``), from whose shapes a reader can work out a
+  kernel's bound;
+- ``benchmark/reference/archs/<reference_net>.py``: the plain reference
+  of the architecture a configuration names in ``reference_net``:
+  ``build(widths, quantize)``, ``dropout_shapes(widths, patch, n)`` and
+  optionally ``extra_flops(widths, patch, n)`` and ``seed_free(named,
+  generator)``, as ``benchmark/reference/nets.py`` sets out.
 
-Nothing here lists them, so a later change adds a configuration, a cell
-or a metric as new files and entries alone.
+Nothing here lists them, so a later change adds a configuration, a cell,
+a metric or an architecture as new files and entries alone.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""The evaluator's share of the card's bf16 peak: the convolutions'
+"""The evaluator's share of the card's bf16 peak: the matrix products'
 operations of a volume's real windows (padding windows not counted),
-counted from the shapes the forward's convs were called at, over the
-window's time a volume, over the peak."""
+counted from the shapes the forward's convs and linear layers were called
+at, with the products the architecture's file adds, over the window's
+time a volume, over the peak."""
 
 LAYER = "evaluator (eval/sliding_window.py)"
 MOVES = "infer_s_per_volume"

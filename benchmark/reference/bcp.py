@@ -6,7 +6,7 @@ SGD and the EMA, in plain PyTorch, numpy and scipy.
 The inputs are worked out again from what the benchmark hands both sides
 (the volumes, the seeded weights, the seed): the two-stream index stream
 and the random crops with their rot90 / flip (`dataloaders/dataset.py`),
-the copy-paste box (`context_mask`) and the channel dropouts' keep masks.
+the copy-paste box (`context_mask`) and the dropouts' keep masks.
 Their random numbers follow the draws the configuration's seed fixes for
 the program: numpy generators seeded from (seed, stage, iteration) and a
 ``torch.Generator`` on the compute device, as the configuration file
@@ -126,9 +126,11 @@ def dropout_seed(stage_seed: int, it: int) -> int:
     return int(seed >> 1)
 
 
-def keep_masks(gen: torch.Generator, shapes, device) -> List[torch.Tensor]:
-    return [torch.rand(tuple(s), generator=gen, device=device) < 0.5
-            for s in shapes]
+def keep_masks(gen: torch.Generator, drops, device) -> List[torch.Tensor]:
+    """The keep mask of each dropout, (shape, p) in forward order: kept
+    where ``rand(shape) < 1 - p``, the port's rule."""
+    return [torch.rand(tuple(s), generator=gen, device=device) < 1.0 - p
+            for s, p in drops]
 
 
 # ------------------------------------------------------------- the step
@@ -230,11 +232,11 @@ class SelfTrain:
         mask[tuple(slice(s, s + n) for s, n in zip(starts, sizes))] = 0
         self.gen.manual_seed(dropout_seed(self.seed + stage_seed, it))
         nu = b["uimg_a"].shape[0] * 2
-        tk = keep_masks(self.gen, nets.dropout_shapes(self.net, self.widths,
-                                                      nu), dev)
+        tk = keep_masks(self.gen, nets.dropout_shapes(
+            self.net, self.widths, patch, nu), dev)
         nl = b["img_a"].shape[0] * 2
-        sk = keep_masks(self.gen, nets.dropout_shapes(self.net, self.widths,
-                                                      nl), dev)
+        sk = keep_masks(self.gen, nets.dropout_shapes(
+            self.net, self.widths, patch, nl), dev)
         ua, ub = teacher(self.ema, b, tk)
         plab_a = cut_mask(ua, t["nms"])
         plab_b = cut_mask(ub, t["nms"])

@@ -78,15 +78,22 @@ def root_with_vnet_train(tmp) -> str:
     return root
 
 
-def dry_run(name: str, trace: bool = False, root: str = ROOT,
+def dry_out(name: str, trace: bool = False, root: str = ROOT,
             seconds: float = 1.0, seed: int = SEED):
-    """(cell, result line) of one run of cell ``name`` on the CPU at the
-    driver's tiny size."""
+    """(cell, the driver's outcome) of one run of cell ``name`` on the CPU
+    at the driver's tiny size."""
     cell = harness.Registry(root).cell(name)
     shrink = SHRINK[cell.workload["driver"]]
     # fewer groups and volumes around the window than on the card
     cell.workload.update({k: v for k, v in FEWER.items()
                           if k in cell.workload})
-    out = cell.driver.run(cell, seed, seconds, trace, "cpu",
-                          time.perf_counter(), shrink)
+    return cell, cell.driver.run(cell, seed, seconds, trace, "cpu",
+                                 time.perf_counter(), shrink)
+
+
+def dry_run(name: str, trace: bool = False, root: str = ROOT,
+            seconds: float = 1.0, seed: int = SEED):
+    """(cell, result line) of one run of cell ``name`` on the CPU at the
+    driver's tiny size."""
+    cell, out = dry_out(name, trace, root, seconds, seed)
     return cell, harness.result_line(cell, out, trace)

@@ -22,7 +22,8 @@ from benchmark import harness, compare, control, convs, counts, data, trace
 from benchmark.reference import bcp, nets, sliding
 reg = harness.Registry(ROOT)
 for name in reg.cells():
-    reg.cell(name)          # its driver and every metric reader
+    cell = reg.cell(name)   # its driver and every metric reader
+    nets.arch(cell.config["reference_net"])     # its architecture file
 import bcp_tpu_torch.cli.train_la, bcp_tpu_torch.cli.test_la
 import bcp_tpu_torch.train.trainer
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
@@ -58,8 +59,9 @@ def _imports(path):
 
 
 def test_reference_imports_nothing_of_the_port():
-    files = glob.glob(os.path.join(ROOT, "benchmark", "reference", "*.py"))
-    assert files
+    files = glob.glob(os.path.join(ROOT, "benchmark", "reference", "**",
+                                   "*.py"), recursive=True)
+    assert any(os.sep + "archs" + os.sep in f for f in files)
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in (

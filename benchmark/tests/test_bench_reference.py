@@ -115,7 +115,7 @@ def test_one_volume_score_map_in_f64():
     ev = SlidingWindowEvaluator(model, PATCH, 2, 18, 4, batch=4,
                                 device="cpu")
     label, score = ev.infer(vol, return_score=True)
-    ref = nets.RefVNet(4, 2).double().eval()
+    ref = nets.build("vnet", VNET).double().eval()
     ref.load_state_dict(weights)
     want = sliding.scores(ref, vol.astype(np.float64), PATCH, 18, 4, 2,
                           "cpu", 4)

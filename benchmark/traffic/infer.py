@@ -11,7 +11,9 @@ fixed order, cycling, until ``seconds`` have passed, and takes every
 label the evaluator yields until it has drained: the time a volume takes
 and the tail of the times between consecutive results, over all of them.
 A traced run then traces whole volumes on the device, then on the host,
-and times each conv of the forward alone at its shapes.
+and times each conv of the forward alone at its shapes. The metric
+readers' ``ctx`` holds the merged configuration (``config``) and the
+workload (``workload``) besides the window's numbers.
 
 Correctness: a sample of the window's results, drawn from the seed, is
 kept; once the window has closed and the evaluator is freed, the plain
@@ -118,10 +120,14 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
         windows = len(sliding.window_origins(
             d["volume_shape"], patch, ev["stride_xy"], ev["stride_z"]))
         computed = -(-windows // ev["eval_batch"]) * ev["eval_batch"]
+        # the first volume's forwards took ``computed`` windows
+        forward_flops = convs.flops(recorder.calls) + nets.extra_flops(
+            cfg["reference_net"], cfg["widths"], patch, computed)
         ctx = {"device": dev, "window_s": window_s, "volumes": volumes,
-               "volume_flops": convs.flops(recorder.calls) * windows
-               / computed, "traces": traces, "conv_times": conv_times,
-               "peaks": harness.card_peaks(dev)}
+               "volume_flops": forward_flops * windows / computed,
+               "traces": traces, "conv_times": conv_times,
+               "peaks": harness.card_peaks(dev), "config": cfg,
+               "workload": w}
         out = {"metrics": {
             "infer_s_per_volume": window_s / volumes,
             "infer_s_per_volume_p95": float(np.percentile(gaps, 95)),

@@ -14,7 +14,9 @@ the first group's end ``seconds`` later, both after a device
 synchronisation: the patches of the window's whole steps over its time.
 No validation falls inside it (``eval_every`` is the stage's length). A
 traced run then traces whole groups on the device, then on the host, and
-times each conv the step calls alone at its shapes.
+times each conv the step calls alone at its shapes. The metric readers'
+``ctx`` holds the merged configuration (``config``) and the workload
+(``workload``) besides the window's numbers.
 
 Correctness: a forward pre-hook on every module, on during the first
 group only, keeps the first step's gradients before the student's second
@@ -196,11 +198,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
             if not next(iter(params.values())).requires_grad:
                 mods.setdefault("teacher", module)
                 recorder.role = "teacher" if seen["student"] == 0 else None
+                recorder.forward(args_[0])
                 return
             mods.setdefault("student", module)
             seen["student"] += 1
             n = seen["student"]
             recorder.role = "student" if n == 1 else None
+            recorder.forward(args_[0])
             # kept on the host: the device's peak is the program's
             if n == 2:
                 kept["g1"] = {k: v.grad.detach().to("cpu", copy=True)
@@ -237,11 +241,14 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
                          if clock.start_it < it <= clock.end_it]
         failed = sum(not math.isfinite(v) for v in window_losses)
         calls = recorder.calls
-        step_flops = convs.flops(calls, ("student",))
+        step_flops = convs.flops(calls, ("student",)) + convs.extra_flops(
+            cfg["reference_net"], cfg["widths"], cfg["patch_size"],
+            recorder.samples, ("student",))
         ctx = {"device": dev, "window_s": window_s, "steps": steps,
                "step_flops": step_flops, "traces": clock.traces,
                "conv_times": clock.conv_times,
-               "peaks": harness.card_peaks(dev)}
+               "peaks": harness.card_peaks(dev), "config": cfg,
+               "workload": w}
         out = {"metrics": {
             "train_patches_per_s": steps * cfg["batch_size"] / window_s,
             "train_peak_gib": peak / 2**30, "setup_s": setup_s},
