@@ -17,6 +17,8 @@ N times it, and the training volumes stay on the host feed. With
 each volume's x extent is split over S ranks (halo exchanges around the
 conv kernels), and the global batch is N/S times the reference's.
 ``--remat 1`` recomputes each V-Net block's activations in the backward.
+``--patch_size X Y Z`` replaces LA's 112 x 112 x 80 patch (``--model
+swin_unetr`` takes extents that 32 divides, e.g. 96 96 96).
 """
 
 from __future__ import annotations
@@ -76,6 +78,10 @@ def build_parser():
                    help="1: dx and dW of every Ci == Co 3^3 conv from the "
                         "one fused backward kernel; 0: the conv kernel on dy "
                         "plus the dW kernel")
+    p.add_argument("--patch_size", type=int, nargs=3, default=None,
+                   help="the training patch (default LA's 112 112 80; "
+                        "swin_unetr takes extents that 32 divides, e.g. "
+                        "96 96 96)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -99,7 +105,9 @@ def config_from_args(args, **overrides):
         num_devices=n, sp_devices=args.sp_devices, remat=bool(args.remat),
         device_data_cache=bool(args.device_data_cache) and n == 1,
         steps_per_dispatch=args.steps_per_dispatch,
-        fused_bwd=bool(args.fused_bwd)).replace(**overrides)
+        fused_bwd=bool(args.fused_bwd),
+        **({"patch_size": tuple(args.patch_size)} if args.patch_size
+           else {})).replace(**overrides)
 
 
 def build_trainer(args, train_dataset=None, val_cases=None, on_step=None,

@@ -68,6 +68,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "batch_norm_relu_backward_bf16": (_P,) * 11 + (_L, _I, _I, _I, _I,
                                                        _P),
     },
+    "window_attn": {
+        "window_attn_fwd_bf16": (_P,) * 5 + (_I,) * 4 + (_P,),
+        "window_attn_bwd_bf16": (_P,) * 10 + (_I,) * 5 + (_P,),
+    },
 }
 
 

@@ -1,10 +1,11 @@
-"""Model registry: ``bcp_tpu/models/factory.py`` for the port, all thirteen
+"""Model registry: ``bcp_tpu/models/factory.py`` for the port, the thirteen
 net types of the JAX package's ``MODEL_REGISTRY`` (`factory.py:28-129`):
 the LA ``"VNet"``, the ACDC ``"unet"``, the pancreas ``"VNet_pancreas"``
 and the model zoo (``"git_VNet"``, ``"unet_3D"``, ``"unet_3D_dtc"``,
 ``"unetr"``, ``"unetr_dtc"``, ``"sep_unet_2d"``, ``"unet_2d_bcp"``,
 ``"unet_tsne"``, ``"net_D"``, ``"unet_3D_trilinear"``), with the JAX
-factory's defaults.
+factory's defaults; and a fourteenth that only the port has,
+``"swin_unetr"`` (MONAI's SwinUNETR, ``models/swin_unetr.py``).
 
 ``fused_bwd`` (kernel D's backward of the V-Net's 3^3 convs) and
 ``remat`` (the V-Net's rematerialised blocks) are taken by the three
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 from bcp_tpu_torch.device import resolve_device
+from bcp_tpu_torch.models.swin_unetr import SwinUNETR
 from bcp_tpu_torch.models.unet2d import UNet2D
 from bcp_tpu_torch.models.unet3d import UNet3D
 from bcp_tpu_torch.models.unet_extras import (NetD, SepUNet2D, UNet2DBCP,
@@ -26,6 +28,8 @@ from bcp_tpu_torch.models.vnet3d import GitVNet, VNet3D, VNetPancreas
 
 #: the net types whose blocks take ``fused_bwd`` and ``remat``
 VNETS = ("VNet", "VNet_pancreas", "git_VNet")
+#: the net types only the port has (no flax module to convert from)
+PORT_ONLY = ("swin_unetr",)
 
 
 def _unet(class_num: int, mode: str, n_filters=None, **kw):
@@ -87,6 +91,10 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "net_D": _net_d,
     "unet_3D_trilinear": lambda class_num, mode, **kw: UNet3DTrilinear(
         n_classes=class_num, **kw),
+    # MONAI's SwinUNETR at its published widths; ``n_filters`` is its
+    # feature_size (48)
+    "swin_unetr": lambda class_num, mode, n_filters=None, **kw: SwinUNETR(
+        n_classes=class_num, feature_size=n_filters or 48, **kw),
 }
 
 

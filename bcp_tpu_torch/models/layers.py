@@ -55,14 +55,15 @@ class Conv3x3x3(nn.Conv3d):
     (the V-Net's Ci = 1 first conv) use ``F.conv3d``, as the JAX package
     leaves those to XLA. The bias is added after the conv, in the compute
     dtype (`layers.py:249`); ``add_bias=False`` leaves it out
-    (:func:`conv_bn_relu` hands it to the fused op). Under a space split
+    (:func:`conv_bn_relu` hands it to the fused op), and ``bias=False``
+    builds the conv without one (SwinUNETR's decoder). Under a space split
     both routes take the halo-padded slab and are VALID in x."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None,
-                 fused_bwd: bool = False):
+                 fused_bwd: bool = False, bias: bool = True):
         super().__init__(in_channels, out_channels, kernel_size=3,
-                         padding=1)
+                         padding=1, bias=bias)
         self.compute_dtype = dtype
         self.fused_bwd = fused_bwd
 
@@ -76,7 +77,9 @@ class Conv3x3x3(nn.Conv3d):
             y = Conv3x3x3Function.apply(x, w, self.fused_bwd, split)
         else:
             y = F.conv3d(x, w, None, padding=(0, 1, 1) if split else 1)
-        return self.add_bias(y) if add_bias else y
+        if add_bias and self.bias is not None:
+            return self.add_bias(y)
+        return y
 
     def add_bias(self, y: torch.Tensor) -> torch.Tensor:
         """``y`` plus the bias, in y's (the compute) dtype."""
@@ -119,10 +122,10 @@ class Conv3d(nn.Conv3d):
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
-    """``nn.ConvTranspose3d`` computed in the compute dtype: the V-Net's
-    stride-2 up-convs. The weight keeps torch's (Ci, Co, k, k, k) layout;
-    ``convert.state_dict_from_flax`` undoes the flax kernel's spatial
-    flip."""
+    """``nn.ConvTranspose3d`` computed in the compute dtype, with or
+    without a bias: the V-Net's stride-2 up-convs. The weight keeps
+    torch's (Ci, Co, k, k, k) layout; ``convert.state_dict_from_flax``
+    undoes the flax kernel's spatial flip."""
 
     def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
         super().__init__(*args, **kw)
@@ -130,8 +133,8 @@ class ConvTranspose3d(nn.ConvTranspose3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
-        return F.conv_transpose3d(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype), self.stride,
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose3d(x, self.weight.to(x.dtype), b, self.stride,
                                   self.padding, self.output_padding,
                                   self.groups, self.dilation)
 
@@ -174,7 +177,8 @@ class ConvTransposeSame3d(ConvTranspose3d):
 
 class Linear(nn.Linear):
     """``nn.Linear`` computed in the compute dtype: flax's ``nn.Dense``
-    with ``dtype`` (kernel (in, out) is the transposed weight)."""
+    with ``dtype`` (kernel (in, out) is the transposed weight), with or
+    without a bias."""
 
     def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
         super().__init__(*args, **kw)
@@ -182,7 +186,8 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -119,6 +119,7 @@ from bcp_tpu_torch.device import resolve_device
 from bcp_tpu_torch.convert import load_checkpoint
 from bcp_tpu_torch.eval.slice2d import Slice2DEvaluator
 from bcp_tpu_torch.eval.sliding_window import SlidingWindowEvaluator
+from bcp_tpu_torch.models import swin_unetr
 from bcp_tpu_torch.models.factory import VNETS
 from bcp_tpu_torch.ops.masks import (Box, boxes_mask, cuboid_sizes,
                                      cuboid_starts, fixed_starts, grid_boxes,
@@ -196,16 +197,35 @@ UNTRAINABLE = {
 
 def check_trainable(cfg: Config, model=None) -> None:
     """Refuse a net the BCP steps cannot train: a key of
-    :data:`UNTRAINABLE`; with ``model`` (the config's net, built) also
-    UNETR at a patch other than the window its position embeddings fix
-    (the trainer passes no ``img_shape``, so the factory's 128^3). Every
-    net it takes also runs under a space split."""
+    :data:`UNTRAINABLE`; SwinUNETR under a space split (``sp_devices`` >
+    1) or at a patch whose extents ``swin_unetr.DIVISOR`` does not divide;
+    with ``model`` (the config's net, built) also SwinUNETR on the card
+    where its window attention kernels do not take it
+    (``swin_unetr.card_refusal``), and UNETR at a patch other than the
+    window its position embeddings fix (the trainer passes no
+    ``img_shape``, so the factory's 128^3). Every other net it takes also
+    runs under a space split."""
     net = cfg.net_type
     if net in UNTRAINABLE:
         raise ValueError(f"net_type {net!r} cannot be trained by the BCP "
                          f"steps: {UNTRAINABLE[net]}")
+    if net == "swin_unetr":
+        if int(cfg.sp_devices) > 1:
+            raise ValueError(
+                f"net_type {net!r} has no space split: its shifted windows "
+                f"and patch merging need the whole grid, so sp_devices="
+                f"{cfg.sp_devices} is refused")
+        if any(int(s) % swin_unetr.DIVISOR for s in cfg.patch_size):
+            raise ValueError(
+                f"net_type {net!r} takes patches whose extents "
+                f"{swin_unetr.DIVISOR} divides (a patch embedding of 2, "
+                f"then four 2x merges); got {tuple(cfg.patch_size)}")
     if model is None:
         return
+    if net == "swin_unetr" and next(model.parameters()).is_cuda:
+        why = swin_unetr.card_refusal(model)
+        if why is not None:
+            raise ValueError(f"net_type {net!r} on the card: {why}")
     window = getattr(model, "img_shape", None)
     if window is not None and tuple(window) != tuple(cfg.patch_size):
         raise ValueError(

@@ -49,7 +49,13 @@ Phases, each of which fails the run (non-zero exit, no final line):
    E's launches with the rest: a bf16 train-mode forward on the card
    launches its statistics and apply once a (conv, BatchNorm, ReLU)
    stage, a backward its backward once (a world of one rank too); eval,
-   f32, instance norm and the worlds of several ranks launch none;
+   f32, instance norm and the worlds of several ranks launch none.
+   Kernel F, SwinUNETR's window attention, at every block shape of a
+   96^3 self-train pass of 4 samples, unshifted and shifted: O, dQKV and
+   the table's gradient against the composition in f64 from the same
+   bf16 inputs, bit for bit on a second run, timed beside its bound and
+   the plain bf16 composition (``phase_window_attn``). Only the
+   SwinUNETR paths (phase 17 (f)) launch it;
 3. the whole slice in f32 on the card against the same slice on the CPU:
    the full-width V-Net (n_filters 16, seeded weights, saved as a
    reference-layout .pth) through the evaluator on one 112x112x80 volume,
@@ -208,8 +214,15 @@ described by their functions.)
     A-D; (e) ``scripts/run_full_torch.py`` once a variant at a cut of its
     schedule (``RUN_FULL_CUTS``) at the JAX scripts' split sizes: exit 0,
     a parsed ``stage ... done:`` line a stage, the card's name in its
-    JSON, the launches of its path. ``python3 chip_smoke.py --only
-    zoo_train`` runs phase 17 alone.
+    JSON, the launches of its path; (f) ``cli.train_la --model swin_unetr
+    --patch_size 96 96 96`` at full width (feature size 48, batch 8,
+    bf16) at K = 1 and K = 4 as (b), every launch checked exactly, kernel
+    F's forward once a SwinUNETR block of every forward and its backward
+    once a block of every backward (8 blocks a pass), so no attention call
+    on the card is left to the plain composition (the op refuses what the
+    kernels do not take). ``python3 chip_smoke.py --only zoo_train`` runs
+    phase 17 alone; ``--only window_attn`` runs kernel F's part of phase
+    2 and (f).
 
 18. The zoo under a space split (``phase_zoo_spatial``): (a) every 3^3
     conv and ``ConvTransposeSame3d`` of a full-width UNet3D (LA patch) and
@@ -1059,6 +1072,176 @@ def phase_bn_relu(torch, rates):
         "shapes": u["shapes"], "vnet": out["vnet"]}]
 
 
+#: kernel F's shapes: the SwinUNETR's blocks at a 96^3 patch, each pass
+#: of a self-train step on SWIN_PASS samples (the teacher's forward on the
+#: unlabelled half of batch 8, the student's forward and backward on the
+#: mixed labelled half): (padded grid, window, heads) -> (unshifted,
+#: shifted) blocks a forward. Stage 4's 6^3 grid takes a clipped 6^3
+#: window and no shift
+SWIN_PATCH = (96, 96, 96)
+SWIN_PASS = 4
+SWIN_STAGES = [(((49,) * 3, (7,) * 3, 3), (1, 1)),
+               (((28,) * 3, (7,) * 3, 6), (1, 1)),
+               (((14,) * 3, (7,) * 3, 12), (1, 1)),
+               (((6,) * 3, (6,) * 3, 24), (2, 0))]
+#: kernel F against the plain composition in f64 (the norm of the
+#: difference over the norm), and the most it may exceed the plain
+#: composition's own error in bf16 by: ``tests/test_torch_window_attn_cuda.py``
+SWIN_TOL = {"out": 1e-2, "dqkv": 2e-2, "dtable": 2e-2}
+SWIN_FACTOR = 3.0
+
+
+def phase_window_attn(torch, rates):
+    """Kernel F, SwinUNETR's window attention (``ops/window_attn.py``),
+    against its plain composition on the card at every block shape of a
+    96^3 self-train pass (SWIN_STAGES, SWIN_PASS samples), unshifted and
+    shifted: O, dQKV and the table's gradient held against the
+    composition in f64 from the same bf16 inputs at the CUDA test's
+    limits (SWIN_TOL, and no worse than SWIN_FACTOR times the bf16
+    composition's own error), a second forward and backward bit for bit.
+    Timed (CUDA events, median of 10): the forward kernel, the backward
+    (``window_attn_bwd``: dQ and the table's partials, dK and dV, the
+    table's sum), the plain bf16 composition's forward and its forward
+    and backward, beside the bound: the larger of operations (4 W N^2 C
+    forward, 10 W N^2 C backward) at the bf16 tensor rate and bytes (q,
+    k, v, O and the log-sum-exp forward; those plus dO, dQ, dK, dV and
+    the table's partials backward) at the HBM rate. A step is the
+    teacher's forward, the student's forward and its backward. Returns
+    the kernels-line entry, summed over a step."""
+    from bcp_tpu_torch.ops import window_attn as wa
+    from bcp_tpu_torch.ops.conv3d import _sm_count
+    flops_rate, hbm = rates[0], rates[2]
+    dev = torch.device("cuda")
+    sms = _sm_count(0)
+    rows = []
+    for (padded, window, heads), (plain_blocks, shifted_blocks) in \
+            SWIN_STAGES:
+        for shifted, per_forward in ((False, plain_blocks),
+                                     (True, shifted_blocks)):
+            if not per_forward:
+                continue
+            shift = tuple(3 if shifted else 0 for _ in window)
+            geo = (padded, window, shift)
+            n = window[0] * window[1] * window[2]
+            windows = wa.window_count(padded, window)
+            bw, c = SWIN_PASS * windows, 16 * heads
+            gen = torch.Generator(device=dev).manual_seed(SEED + heads
+                                                          + 7 * shifted)
+            qkv = (torch.randn(bw, n, 3 * c, generator=gen, device=dev)
+                   * 1.5).to(torch.bfloat16)
+            table = torch.randn(wa.table_size(), heads, generator=gen,
+                                device=dev) * 0.5
+            g = (torch.randn(bw, n, c, generator=gen, device=dev)
+                 * 1e-2).to(torch.bfloat16)
+            row = {"shape": f"{bw}x{n}x{heads}x16 on "
+                            f"{'x'.join(map(str, padded))}",
+                   "shifted": shifted, "per_forward": per_forward}
+
+            def both(fn, q_, t_, g_):
+                q_ = q_.detach().clone().requires_grad_(True)
+                t_ = t_.detach().clone().requires_grad_(True)
+                o = fn(q_, t_, *geo)
+                o.backward(g_.to(o.dtype))
+                return o.detach(), q_.grad, t_.grad
+            got = both(wa.window_attention, qkv, table, g)
+            exact = both(wa.plain_window_attn, qkv.double(), table.double(),
+                         g.double())
+            plain = both(wa.plain_window_attn, qkv, table, g)
+            for name, a, p_, e in zip(("out", "dqkv", "dtable"), got, plain,
+                                      exact):
+                err = float((a.double() - e).norm() / e.norm())
+                base = float((p_.double() - e).norm() / e.norm())
+                row[f"{name}_rel_err"], row[f"{name}_plain_rel_err"] = \
+                    err, base
+                if not (err < SWIN_TOL[name]
+                        and err < SWIN_FACTOR * base + 1e-4):
+                    fail(f"window_attn {row['shape']} shifted={shifted}: "
+                         f"{name} off the f64 composition by {err:.3e} "
+                         f"(the bf16 composition {base:.3e})")
+            del exact, plain
+            again = both(wa.window_attention, qkv, table, g)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"window_attn {row['shape']} shifted={shifted}: two "
+                     f"runs differ")
+            del got, again
+            torch.cuda.empty_cache()
+
+            # timed: the kernels alone, the plain bf16 composition
+            table_t = table.t().contiguous()
+            regions = (wa._device_regions(padded, window, shift, dev)
+                       if shifted else None)
+            out, lse = wa.window_attn_fwd(qkv, table_t, regions, windows)
+            qg = qkv.clone().requires_grad_(True)
+            tg = table.clone().requires_grad_(True)
+
+            def plain_fwd():
+                with torch.no_grad():
+                    return wa.plain_window_attn(qkv, table, *geo)
+
+            def plain_both():
+                o = wa.plain_window_attn(qg, tg, *geo)
+                torch.autograd.grad(o, (qg, tg), g)
+            tokens = bw * n
+            slots = wa.bwd_slots(bw, heads, sms)
+            fwd_ops, bwd_ops = 4 * bw * n * n * c, 10 * bw * n * n * c
+            fwd_bytes = tokens * (3 * c * 2 + c * 2 + heads * 4)
+            bwd_bytes = fwd_bytes + tokens * (c * 2 + 3 * c * 2) \
+                + slots * heads * wa.table_size() * 4
+            row.update(
+                fwd_ms=cuda_ms(torch, lambda: wa.window_attn_fwd(
+                    qkv, table_t, regions, windows)),
+                bwd_ms=cuda_ms(torch, lambda: wa.window_attn_bwd(
+                    g, qkv, table_t, regions, out, lse, windows)),
+                plain_fwd_ms=cuda_ms(torch, plain_fwd),
+                plain_both_ms=cuda_ms(torch, plain_both),
+                bound_fwd_ms=max(fwd_ops / flops_rate, fwd_bytes / hbm) * 1e3,
+                bound_bwd_ms=max(bwd_ops / flops_rate, bwd_bytes / hbm) * 1e3,
+                fwd_bound_by="operations" if fwd_ops / flops_rate
+                > fwd_bytes / hbm else "bytes",
+                bwd_bound_by="operations" if bwd_ops / flops_rate
+                > bwd_bytes / hbm else "bytes",
+                gflop=(2 * fwd_ops + bwd_ops) / 1e9,
+                gb=(2 * fwd_bytes + bwd_bytes) / 1e9)
+            # a step: the teacher's forward, the student's forward and
+            # backward
+            row["ms"] = 2 * row["fwd_ms"] + row["bwd_ms"]
+            row["plain_ms"] = row["plain_fwd_ms"] + row["plain_both_ms"]
+            row["bound_ms"] = 2 * row["bound_fwd_ms"] + row["bound_bwd_ms"]
+            rows.append(row)
+            print(f"kernel F window_attn {row['shape']} shifted={shifted} "
+                  f"x{per_forward}: fwd {row['fwd_ms']:.4f} (bound "
+                  f"{row['bound_fwd_ms']:.4f}) + bwd {row['bwd_ms']:.4f} "
+                  f"(bound {row['bound_bwd_ms']:.4f}) ms; plain fwd "
+                  f"{row['plain_fwd_ms']:.4f}, fwd + bwd "
+                  f"{row['plain_both_ms']:.4f}; errors O "
+                  f"{row['out_rel_err']:.3e}, dQKV {row['dqkv_rel_err']:.3e}"
+                  f", dT {row['dtable_rel_err']:.3e}", flush=True)
+            del qkv, g, qg, tg, out, lse
+            torch.cuda.empty_cache()
+    total = {k: sum(r[k] * r["per_forward"] for r in rows)
+             for k in ("ms", "fwd_ms", "bwd_ms", "plain_ms", "plain_fwd_ms",
+                       "plain_both_ms", "bound_ms", "bound_fwd_ms",
+                       "bound_bwd_ms", "gflop", "gb")}
+    print(f"kernel F over the {sum(sum(b) for _, b in SWIN_STAGES)} blocks "
+          f"of a 96^3 SwinUNETR self-train step ({SWIN_PASS} samples a "
+          f"pass): " + json.dumps(total), flush=True)
+    return [{
+        "name": "window_attn",
+        "wrappers": ["window_attn_fwd", "window_attn_bwd"],
+        "route": "cuda",
+        "source": "bcp_tpu_torch/kernels/csrc/window_attn.cu",
+        "replaces": "no Pallas kernel (the JAX package has no SwinUNETR); "
+                    "the plain composition of q k^T, the gathered bias, "
+                    "the mask, softmax and P v",
+        "max_err": max(max(r["out_rel_err"], r["dqkv_rel_err"],
+                           r["dtable_rel_err"]) for r in rows),
+        **total,
+        "per": f"the 8 blocks of a SwinUNETR self-train step at 96^3: the "
+               f"teacher's forward and the student's forward and backward, "
+               f"{SWIN_PASS} samples each",
+        "shapes": rows}]
+
+
 def seeded_vnet(torch, device, seed: int):
     """Full-width V-Net with torch's default init drawn from a numpy
     generator, and BN statistics calibrated on one window so that the
@@ -1407,7 +1590,7 @@ def phase_main_path(torch, pth: str, workdir: str):
             "softmax_scatter_add_windows": 2 * chunks,
             "conv3x3x3_same": 2 * chunks * sum(n for _, n in CONV_STAGES),
             "conv3x3x3_dx": 0, "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
-            **bn_relu_launches(0, 0)}
+            **fused_launches(0, 0)}
     print(f"main path launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"main path launches {launches}, expected {want}")
@@ -1495,20 +1678,27 @@ def kernel_counters():
                                           conv3x3x3_dxdw, conv3x3x3_same)
     from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
                                            softmax_scatter_add_windows)
+    from bcp_tpu_torch.ops.window_attn import (window_attn_bwd,
+                                               window_attn_fwd)
     return {f.__name__: f for f in (scatter_add_windows,
                                     softmax_scatter_add_windows,
                                     conv3x3x3_same, conv3x3x3_dx,
                                     conv3x3x3_dw, conv3x3x3_dxdw,
                                     bn_relu_stats, bn_relu_apply,
-                                    bn_relu_grad)}
+                                    bn_relu_grad, window_attn_fwd,
+                                    window_attn_bwd)}
 
 
-def bn_relu_launches(forwards: int, backwards: int):
-    """The fused bias + BatchNorm + ReLU's launches of a path: its
+def fused_launches(forwards: int, backwards: int, attn_forwards: int = 0,
+                   attn_backwards: int = 0):
+    """The fused ops' launches of a path: the bias + BatchNorm + ReLU's
     statistics and apply once a fused stage of a train-mode forward, its
-    backward once a stage of a backward."""
+    backward once a stage of a backward; the window attention's forward
+    once a SwinUNETR block of a forward, its backward once a block of a
+    backward (no other net launches it)."""
     return {"bn_relu_stats": forwards, "bn_relu_apply": forwards,
-            "bn_relu_grad": backwards}
+            "bn_relu_grad": backwards, "window_attn_fwd": attn_forwards,
+            "window_attn_bwd": attn_backwards}
 
 
 def bn_relu_stages(model) -> int:
@@ -1528,6 +1718,14 @@ def bn_relu_stages(model) -> int:
         elif isinstance(m, (ConvBNReLU, DeconvBlock)):
             n += 1
     return n
+
+
+def attn_blocks(model) -> int:
+    """The SwinUNETR blocks of ``model`` (0 for every other net): each
+    launches the window attention's forward once a forward and its
+    backward once a backward."""
+    from bcp_tpu_torch.models.swin_unetr import WindowAttention
+    return sum(isinstance(m, WindowAttention) for m in model.modules())
 
 
 def read_launches(counters, reset: bool = False):
@@ -1635,7 +1833,7 @@ def phase_training(torch, workdir: str):
             "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dxdw": 0,
-            **bn_relu_launches(VNET_BNS * 3 * STAGE_ITERS,
+            **fused_launches(VNET_BNS * 3 * STAGE_ITERS,
                                VNET_BNS * 2 * STAGE_ITERS)}
     print(f"training path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} pre-train and {STAGE_ITERS} self-train steps, "
@@ -1767,7 +1965,7 @@ def steady_step(clock, cfg, stage: str, fused: bool, bns: int = VNET_BNS):
            "conv3x3x3_dw": 0 if fused else convs,
            "conv3x3x3_dxdw": convs if fused else 0,
            "scatter_add_windows": 0, "softmax_scatter_add_windows": 0,
-           **bn_relu_launches(bns * (2 if stage == "self" else 1), bns)}
+           **fused_launches(bns * (2 if stage == "self" else 1), bns)}
     timed = clock.launches[stage]
     if timed != {k: n * STEADY_STEPS for k, n in per.items()}:
         fail(f"{STEADY_STEPS} {stage}-train steps (fused_bwd={fused}) "
@@ -1810,7 +2008,7 @@ def phase_training_fused(torch, workdir: str, shared):
             "conv3x3x3_same": convs * (2 * STAGE_ITERS + v * chunks),
             "conv3x3x3_dx": 0, "conv3x3x3_dw": 0,
             "conv3x3x3_dxdw": convs * STAGE_ITERS,
-            **bn_relu_launches(VNET_BNS * 2 * STAGE_ITERS,
+            **fused_launches(VNET_BNS * 2 * STAGE_ITERS,
                                VNET_BNS * STAGE_ITERS)}
     print(f"fused-backward path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} self-train steps, {v} validations)", flush=True)
@@ -2537,7 +2735,7 @@ def phase_pancreas_training(torch, workdir: str):
             "conv3x3x3_same": convs * (3 * STAGE_ITERS + 2 * v),
             "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
-            "conv3x3x3_dxdw": 0, **bn_relu_launches(0, 0)}
+            "conv3x3x3_dxdw": 0, **fused_launches(0, 0)}
     print(f"pancreas training path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} pre-train and {STAGE_ITERS} self-train steps, {v} "
           f"validations of 2 one-window volumes, warm-ups included)",
@@ -2627,7 +2825,7 @@ def phase_pancreas_test(torch, best: str, workdir: str):
     want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": 2,
             "conv3x3x3_same": 2 * convs, "conv3x3x3_dx": 0,
             "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
-            **bn_relu_launches(0, 0)}
+            **fused_launches(0, 0)}
     print(f"pancreas test path launches {launches} (expected {want})",
           flush=True)
     if launches != want:
@@ -2801,7 +2999,8 @@ def dispatch_cli(variant: str, root: str, K: int,
                  iters: int = DISPATCH_ITERS, flags=()):
     """(CLI module, parsed flags, config overrides) of a dispatch run: the
     CLI's defaults, ``iters`` iterations a stage with a validation at the
-    last, ``--steps_per_dispatch K``, and ``flags`` (``--model``)."""
+    last, ``--steps_per_dispatch K``, and ``flags`` (``--model``,
+    ``--patch_size``)."""
     extra = list(flags)
     n = str(iters)
     if variant == "la":
@@ -2809,7 +3008,8 @@ def dispatch_cli(variant: str, root: str, K: int,
         flags = ["--labelnum", "4", "--root_path", root, "--snapshot_root",
                  root, "--device", DEVICE, "--pre_max_iteration", n,
                  "--self_max_iteration", n]
-        over = {"patch_size": PATCH}
+        # the LA patch unless the flags give one (``--patch_size``)
+        over = {} if "--patch_size" in extra else {"patch_size": PATCH}
     elif variant == "acdc":
         from bcp_tpu_torch.cli import train_acdc as cli
         flags = acdc_flags(root, "--pre_iterations", n, "--max_iterations",
@@ -3991,11 +4191,11 @@ def phase_remat(torch, workdir: str, smi: str):
         # the backward, then the backward (LA); pancreas' instance norm
         # takes no fused op
         bns = VNET_BNS if variant == "la" else 0
-        got = {k: launches[f"remat_{variant}"][k] for k in
-               ("bn_relu_stats", "bn_relu_apply", "bn_relu_grad")}
-        if got != bn_relu_launches(3 * bns * steps, bns * steps):
+        got = {k: launches[f"remat_{variant}"][k]
+               for k in fused_launches(0, 0)}
+        if got != fused_launches(3 * bns * steps, bns * steps):
             fail(f"remat {variant}: fused BatchNorm launches {got}, expected "
-                 f"{bn_relu_launches(3 * bns * steps, bns * steps)}")
+                 f"{fused_launches(3 * bns * steps, bns * steps)}")
         exact = all(_state_equal(runs[i]["state"], runs[i - 1]["state"])
                     for i in (1, 3))
         entry = {"runs": [{k: v for k, v in r.items() if k != "state"}
@@ -4582,7 +4782,7 @@ def phase_zoo_train(torch, smi: str):
         n, bns = len(convs), bn_relu_stages(model)
         want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": 0,
                 "conv3x3x3_same": n, "conv3x3x3_dx": n, "conv3x3x3_dw": n,
-                "conv3x3x3_dxdw": 0, **bn_relu_launches(bns, bns)}
+                "conv3x3x3_dxdw": 0, **fused_launches(bns, bns)}
         if got != want:
             fail(f"zoo {net_type} train step launches {got}, expected "
                  f"{want}")
@@ -4833,7 +5033,7 @@ def phase_zoo_test_la(torch, workdir: str, smi: str):
     want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": chunks,
             "conv3x3x3_same": chunks * n_convs, "conv3x3x3_dx": 0,
             "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
-            **bn_relu_launches(0, 0)}
+            **fused_launches(0, 0)}
     if launches != want or not np.isfinite(avg).all() or len(avg) != 4:
         fail(f"test_la --model unet_3D: launches {launches} (expected "
              f"{want}), metrics {avg}")
@@ -5063,7 +5263,7 @@ def phase_zoo_step(torch):
                          "conv3x3x3_same": 3 * n_convs,
                          "conv3x3x3_dx": 2 * n_convs,
                          "conv3x3x3_dw": 2 * n_convs, "conv3x3x3_dxdw": 0,
-                         **bn_relu_launches(0, 0)}
+                         **fused_launches(0, 0)}
         if launches != want_launches:
             fail(f"zoo f32 step {net}: launches {launches}, expected "
                  f"{want_launches}")
@@ -5086,7 +5286,8 @@ def device_kernel_split(trace_path: str, steps: int):
     (the transposed convs and the 1^3 convs), the BatchNorm and
     elementwise passes, reductions, copies; and the top kernels by
     name."""
-    families = (("B (conv3x3x3_bf16_kernel)", ("conv3x3x3_bf16",)),
+    families = (("F (window_attn kernels)", ("window_attn",)),
+                ("B (conv3x3x3_bf16_kernel)", ("conv3x3x3_bf16",)),
                 ("C (dw kernels)", ("dw_bf16", "dw_reduce")),
                 ("B/C weight packing and split reduce", ("pack_weights",
                                                          "reduce_splits")),
@@ -5117,6 +5318,12 @@ def device_kernel_split(trace_path: str, steps: int):
                              for t in summary["top"]]}
 
 
+#: the CLI flags a zoo net's ``train_la`` run adds: SwinUNETR takes
+#: extents that 32 divides
+ZOO_CLI_FLAGS = {"swin_unetr": ("--patch_size",)
+                 + tuple(str(s) for s in SWIN_PATCH)}
+
+
 def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
                 K: int, data, iters: int = DISPATCH_ITERS):
     """``cli.train_{la,acdc} --model net --steps_per_dispatch K``'s core at
@@ -5124,17 +5331,19 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
     validation at the last, through ``dispatch_run``; every kernel launch
     of the run checked exactly: per pre-train step B, B-as-dx and C once a
     kernel-taking conv, per self-train step B twice; per validation chunk
-    A's fused entry once and B once a conv; D never. Returns (the run, its
-    launches, its line)."""
+    A's fused entry once and B once a conv; the fused BatchNorm op and the
+    window attention as every forward and backward runs them; D never.
+    Returns (the run, its launches, its line)."""
     from bcp_tpu_torch.eval.sliding_window import window_starts
     root = os.path.join(workdir, f"{variant}_{net}_k{K}")
     run = dispatch_run(torch, variant, K, root, data, f"{net}_k{K}", iters,
-                       flags=("--model", net))
+                       flags=("--model", net) + ZOO_CLI_FLAGS.get(net, ()))
     trainer, cfg = run["trainer"], run["cfg"]
     if cfg.net_type != net:
         fail(f"--model {net} reached the config as {cfg.net_type}")
     n = len(kernel_convs(trainer.eval_model))
     bns = bn_relu_stages(trainer.eval_model)
+    blocks = attn_blocks(trainer.eval_model)
     v = trainer.validations
     chunks = 0
     if variant == "la":
@@ -5146,14 +5355,17 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
             "conv3x3x3_same": n * (3 * iters + v * chunks),
             "conv3x3x3_dx": 2 * n * iters, "conv3x3x3_dw": 2 * n * iters,
             "conv3x3x3_dxdw": 0,
-            **bn_relu_launches(3 * bns * iters, 2 * bns * iters)}
+            **fused_launches(3 * bns * iters, 2 * bns * iters,
+                             blocks * (3 * iters + v * chunks),
+                             2 * blocks * iters)}
     if run["launches"] != want:
         fail(f"train_{variant} --model {net} K={K}: launches "
              f"{run['launches']}, expected {want} ({n} kernel convs, {bns} "
-             f"fused BatchNorm stages, {v} "
+             f"fused BatchNorm stages, {blocks} attention blocks, {v} "
              f"validations of {chunks} chunks)")
     line = {"card": smi, "net_type": net, "K": K, "iterations": iters,
-            "kernel_convs": n, "validations": v, "chunks": chunks,
+            "patch": list(cfg.patch_size), "kernel_convs": n,
+            "attention_blocks": blocks, "validations": v, "chunks": chunks,
             "launches": run["launches"],
             "graph_counts": trainer.graph_counts, "cli_s": run["wall"],
             "best_dice": {s: d for s, (d, _) in run["stages"].items()}}
@@ -5163,8 +5375,9 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
             steady = clock.steady(stage)
             per = {"conv3x3x3_same": n * (2 if stage == "self" else 1),
                    "conv3x3x3_dx": n, "conv3x3x3_dw": n,
-                   **bn_relu_launches(
-                       bns * (2 if stage == "self" else 1), bns)}
+                   **fused_launches(
+                       bns * (2 if stage == "self" else 1), bns,
+                       blocks * (2 if stage == "self" else 1), blocks)}
             per = {k: float(c) for k, c in per.items() if c}
             if steady["kernel_launches_per_step"] != per:
                 fail(f"train_{variant} --model {net} K={K} {stage}-train "
@@ -5174,28 +5387,38 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
     return run, run["launches"], line
 
 
-def phase_zoo_cli(torch, workdir: str, smi: str):
+#: (b) and (f)'s ``train_la`` runs of the zoo's 3-D nets: (net, K)
+ZOO_CLI_LA = (("unet_3D", 1), ("unet_3D", DISPATCH_K), ("swin_unetr", 1),
+              ("swin_unetr", DISPATCH_K))
+
+
+def phase_zoo_cli(torch, workdir: str, smi: str, runs=None):
     """(b) ``train_la --model unet_3D`` at full width (feature channels
     64-1024, 112x112x80, batch 8, bf16) at K = 1 and K = 4, phase 12's
     data and timing windows: exact launches, ms a step, idle share, peak
     GiB, finite losses, and the device time of the K = 1 run's traced
-    self-train steps by kernel family; (c) ``train_la --model git_VNet``
-    at K = 1 for GIT_VNET_ITERS iterations a stage, exact launches; (d)
+    self-train steps by kernel family; (f) the same of ``train_la --model
+    swin_unetr --patch_size 96 96 96`` (feature size 48, kernel F's
+    forward once a block of each forward, its backward once a block of
+    each backward, 8 blocks a pass); (c) ``train_la --model git_VNet`` at
+    K = 1 for GIT_VNET_ITERS iterations a stage, exact launches; (d)
     ``train_acdc --model unet_2d_bcp`` at full width (256x256, batch 24)
-    at K = 1 and K = 4, no launch of A-D. Returns {path: launches}."""
+    at K = 1 and K = 4, no launch of A-D. ``runs`` picks (net, K) pairs
+    of ZOO_CLI_LA alone. Returns {path: launches}."""
     launches = {}
     la = dispatch_data("la")
-    acdc = dispatch_data("acdc")
-    for variant, net, K, data, iters in (
-            ("la", "unet_3D", 1, la, DISPATCH_ITERS),
-            ("la", "unet_3D", DISPATCH_K, la, DISPATCH_ITERS),
-            ("la", "git_VNet", 1, la, GIT_VNET_ITERS),
-            ("acdc", "unet_2d_bcp", 1, acdc, DISPATCH_ITERS),
-            ("acdc", "unet_2d_bcp", DISPATCH_K, acdc, DISPATCH_ITERS)):
+    todo = [("la", net, K, la, DISPATCH_ITERS) for net, K in ZOO_CLI_LA
+            if runs is None or (net, K) in runs]
+    if runs is None:
+        acdc = dispatch_data("acdc")
+        todo += [("la", "git_VNet", 1, la, GIT_VNET_ITERS),
+                 ("acdc", "unet_2d_bcp", 1, acdc, DISPATCH_ITERS),
+                 ("acdc", "unet_2d_bcp", DISPATCH_K, acdc, DISPATCH_ITERS)]
+    for variant, net, K, data, iters in todo:
         torch.cuda.empty_cache()
         run, counts, line = zoo_cli_run(torch, workdir, smi, variant, net,
                                         K, data, iters)
-        if net == "unet_3D" and K == 1:
+        if net in ("unet_3D", "swin_unetr") and K == 1:
             line["self_step_device_time"] = device_kernel_split(
                 run["clock"].traces[("self", "device")], DISPATCH_K)
         print(f"zoo train_{variant} --model {net} K={K}: "
@@ -5707,11 +5930,18 @@ def main() -> int:
             "zoo_train": phase_zoo_training,
             "bn_relu": lambda torch, workdir, smi: print(json.dumps(
                 {"kernels": phase_bn_relu(torch, rates)})) or True,
+            "window_attn": lambda torch, workdir, smi: print(json.dumps(
+                {"kernels": phase_window_attn(torch, rates),
+                 "launches": phase_zoo_cli(
+                     torch, workdir, smi,
+                     runs=[p for p in ZOO_CLI_LA
+                           if p[0] == "swin_unetr"])})) or True,
             "zoo_spatial": phase_zoo_spatial}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in only:
         # phase 14 (c) or 15 (c) alone, for a machine with several cards;
-        # kernel E's part of phase 2, phase 16, 17 or 18 alone on one
+        # kernel E's part of phase 2, kernel F's with phase 17 (f), phase
+        # 16, 17 or 18 alone on one
         with tempfile.TemporaryDirectory(dir=work_root) as workdir:
             if not only[sys.argv[2]](torch, workdir, smi):
                 fail(f"--only {sys.argv[2]} needs two visible cards")
@@ -5723,13 +5953,14 @@ def main() -> int:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
              f"--only data_parallel_cards, --only spatial_cards, --only "
-             f"bn_relu, --only zoo, --only zoo_train or --only "
-             f"zoo_spatial")
+             f"bn_relu, --only window_attn, --only zoo, --only zoo_train "
+             f"or --only zoo_spatial")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
         entries += phase_backward_kernels(torch, rates)
         entries += phase_bn_relu(torch, rates)
+        entries += phase_window_attn(torch, rates)
         pancreas = phase_pancreas_kernels(torch, rates)
         pth = os.path.join(workdir, "VNet_best_model.pth")
         torch.save(seeded_vnet(torch, DEVICE, SEED).state_dict(), pth)

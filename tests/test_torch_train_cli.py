@@ -141,7 +141,8 @@ def test_fused_bwd_flag_reaches_the_train_model_only(tmp_path):
 
 def test_flags_are_the_jax_clis():
     """Same flags and defaults as the JAX CLI (the device store on), plus
-    the port's own ``--device`` and ``--fused_bwd``."""
+    the port's own ``--device``, ``--fused_bwd`` and ``--patch_size``
+    (None: LA's patch, for the port's SwinUNETR)."""
     def flags(parser):
         return {a.dest: a.default for a in parser._actions
                 if a.dest != "help"}
@@ -150,4 +151,5 @@ def test_flags_are_the_jax_clis():
     assert ref["device_data_cache"] == 1 and port["device_data_cache"] == 1
     assert port.pop("device") == "cuda"
     assert port.pop("fused_bwd") == 0
+    assert port.pop("patch_size") is None
     assert port == ref

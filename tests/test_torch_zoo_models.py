@@ -25,8 +25,12 @@ def test_eval_forward_matches_flax_f32(name):
 
 def test_registry_has_the_jax_packages_thirteen_keys():
     from bcp_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
-    assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY)
-    assert len(MODEL_REGISTRY) == 13
+    from bcp_tpu_torch.models.factory import PORT_ONLY
+    ported = sorted(set(MODEL_REGISTRY) - set(PORT_ONLY))
+    assert ported == sorted(JAX_REGISTRY)
+    assert len(ported) == 13
+    assert not set(PORT_ONLY) & set(JAX_REGISTRY)
+    assert set(PORT_ONLY) <= set(MODEL_REGISTRY)
 
 
 @pytest.mark.parametrize("net_type", ["unet_3D", "unetr", "sep_unet_2d",
