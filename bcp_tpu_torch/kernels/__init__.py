@@ -49,6 +49,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "conv3x3x3": {
         "conv3x3x3_bf16": (_P,) * 7,
+        "conv3x3x3_bf16_bn_relu": (_P,) * 11 + (_F, _P),
         "conv3x3x3_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "conv3x3x3_dw": {

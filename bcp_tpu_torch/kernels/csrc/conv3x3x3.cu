@@ -69,6 +69,18 @@
 //   once to bf16 (no atomics: two runs give the same bits).
 // - Epilogue. A warp stages its 16 rows of a tile in its quarter of the
 //   halo just multiplied and writes them out as whole 16-byte vectors.
+// - Eval-mode (conv bias, BatchNorm, ReLU) in the store (EPI, the entry
+//   conv3x3x3_bf16_bn_relu): the stored value is
+//       relu(bf16(bf16(bf16(y + cb) * mul) + add)),  y = bf16(conv sum)
+//   per output channel, with the BatchNorm's affine from its running
+//   averages as TorchBatchNorm's eval branch rounds it (`eval_coef`), so the
+//   stage's output is the eager chain's, bit for bit, written once. A CTA
+//   computes its BN channels' (cb, mul, add) once, into shared memory past
+//   the ring (the accumulators hold the registers), a pair of channels'
+//   three bf16 pairs in one 16-byte entry: one load gives a lane its two
+//   columns' for both rows of a tile. A K split's reduce_splits applies the
+//   same epilogue to its sums. EPI = false is the plain store, for the
+//   train forward and dx.
 //
 // Which (MT, BN, WG, stages, persist_w, K split, grid) runs is chosen per
 // shape by the wrapper (bcp_tpu_torch/ops/conv3d.py::conv_variant).
@@ -98,6 +110,46 @@ __device__ __forceinline__ void decode(long long m, const Geom& g, int& b,
   m /= g.Y;
   x = (int)(m % g.X);
   b = (int)(m / g.X);
+}
+
+// The eval-mode BatchNorm of the epilogue: its running averages, weight and
+// bias, the conv's bias (null: none), all f32 of Co, and eps as a bf16
+// value.
+struct Epi {
+  const float* mean;
+  const float* var;
+  const float* gamma;
+  const float* beta;
+  const float* cbias;
+  float eps;
+};
+
+__device__ __forceinline__ float bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// (cb, mul, add) of channel c, each a bf16 value, in TorchBatchNorm's eval
+// rounding: inv = bf16(rsqrt(bf16(bf16(var) + eps))), mul = bf16(inv *
+// bf16(gamma)), add = bf16(bf16(beta) - bf16(bf16(bf16(mean) * inv) *
+// bf16(gamma))); cb = bf16(conv bias), 0 without one.
+__device__ __forceinline__ float3 eval_coef(const Epi& e, int c) {
+  const float inv = bf(rsqrtf(bf(__fadd_rn(bf(e.var[c]), e.eps))));
+  const float gamma = bf(e.gamma[c]);
+  const float mul = bf(__fmul_rn(inv, gamma));
+  const float add = bf(__fsub_rn(
+      bf(e.beta[c]), bf(__fmul_rn(bf(__fmul_rn(bf(e.mean[c]), inv)), gamma))));
+  return make_float3(e.cbias ? bf(e.cbias[c]) : 0.f, mul, add);
+}
+
+// The stored value of a conv sum `acc` under the epilogue: the chain's bias
+// add (skipped without a conv bias, as the chain skips it), multiply and add,
+// each rounded to bf16, then torch's ReLU (NaN and -0 pass).
+__device__ __forceinline__ float bn_relu(float acc, float cb, float mul,
+                                         float add, bool has_cb) {
+  float z = bf(acc);
+  if (has_cb) z = bf(__fadd_rn(z, cb));
+  const float o = bf(__fadd_rn(bf(__fmul_rn(z, mul)), add));
+  return o < 0.f ? 0.f : o;
 }
 
 // Offset of x[b, sx, sy, sz, ci], or -1 when (sx, sy, sz) is padding.
@@ -133,13 +185,14 @@ __device__ __forceinline__ void box_origin(const Plan& p, int mt, int box,
   b = box / p.nbx;
 }
 
-template <int BN, int WG, int MT>
+template <int BN, int WG, int MT, bool EPI>
 __global__ void __launch_bounds__(128 * WG,
                                   WG == 2 && BN * MT <= 64 ? 2 : 1)
     conv3x3x3_bf16_kernel(const __nv_bfloat16* __restrict__ xin,
                           const __nv_bfloat16* __restrict__ wpk,
                           __nv_bfloat16* __restrict__ yout,
-                          float* __restrict__ partial, Geom g, Plan p) {
+                          float* __restrict__ partial, Geom g, Plan p,
+                          Epi e) {
   using H = Halo<MT>;
   constexpr int WVECS = TAPS * 2 * BN;  // 16-byte vectors of a weight chunk
   constexpr int WBYTES = WVECS * 16;
@@ -233,6 +286,23 @@ __global__ void __launch_bounds__(128 * WG,
 
   float acc[MT][NR];
 
+  // EPI: this CTA's (cb, mul, add) past the ring, entry q = the bf16 pairs
+  // of channels n0 + 2q, n0 + 2q + 1 (EPI runs without a K split, so n0 is
+  // the CTA's own)
+  uint4* coef =
+      reinterpret_cast<uint4*>(smem + (ring0 - bars) + p.stages * stage_bytes);
+  if constexpr (EPI) {
+    if (tid < BN / 2) {
+      const float3 a = eval_coef(e, n0 + 2 * tid);
+      const float3 b = eval_coef(e, n0 + 2 * tid + 1);
+      const __nv_bfloat162 v[4] = {__floats2bfloat162_rn(a.x, b.x),
+                                   __floats2bfloat162_rn(a.y, b.y),
+                                   __floats2bfloat162_rn(a.z, b.z),
+                                   __floats2bfloat162_rn(0.f, 0.f)};
+      coef[tid] = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+
   if (tid == 0) {
     for (int s = 0; s <= MAX_STAGES; ++s) mbar_init(bars + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -324,15 +394,39 @@ __global__ void __launch_bounds__(128 * WG,
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         __syncwarp();
+        if constexpr (EPI) {
+          // columns 2q, 2q + 1 of the tile: their coefficients once for
+          // both rows
+          const bool has_cb = e.cbias != nullptr;
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int j = 0; j < BN / 8; ++j) {
+            const uint4 k = coef[(lane & 3) + 4 * j];
+            const float2 cb = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&k.x));
+            const float2 mul = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&k.y));
+            const float2 add = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&k.z));
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(
-                stg_ptr + ((lane >> 2) + h * 8) * SROW +
-                ((lane & 3) * 2 + j * 8) * 2) =
-                __floats2bfloat162_rn(acc[i][4 * j + 2 * h],
-                                      acc[i][4 * j + 2 * h + 1]);
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  stg_ptr + ((lane >> 2) + h * 8) * SROW +
+                  ((lane & 3) * 2 + j * 8) * 2) = __floats2bfloat162_rn(
+                  bn_relu(acc[i][4 * j + 2 * h], cb.x, mul.x, add.x, has_cb),
+                  bn_relu(acc[i][4 * j + 2 * h + 1], cb.y, mul.y, add.y,
+                          has_cb));
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  stg_ptr + ((lane >> 2) + h * 8) * SROW +
+                  ((lane & 3) * 2 + j * 8) * 2) =
+                  __floats2bfloat162_rn(acc[i][4 * j + 2 * h],
+                                        acc[i][4 * j + 2 * h + 1]);
+        }
         __syncwarp();
         const int oz = z0 + i;
 #pragma unroll
@@ -401,10 +495,14 @@ __global__ void __launch_bounds__(64)
 }
 
 // y = bf16(sum over the K splits, in split order, of their f32 partials);
-// one thread per 4 neighbouring values
+// one thread per 4 neighbouring values (4 channels of one voxel: Co % 16 ==
+// 0). EPI: the stored value is the epilogue's of that sum, each thread
+// computing its 4 channels' coefficients.
+template <bool EPI>
 __global__ void __launch_bounds__(256)
     reduce_splits(const float4* __restrict__ partial,
-                  uint2* __restrict__ yout, long long n4, int ksplit) {
+                  uint2* __restrict__ yout, long long n4, int ksplit, Epi e,
+                  int co) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n4) return;
   float4 s = partial[i];
@@ -415,6 +513,18 @@ __global__ void __launch_bounds__(256)
     s.z += v.z;
     s.w += v.w;
   }
+  if constexpr (EPI) {
+    const int c = (int)(i * 4 % co);
+    const bool has_cb = e.cbias != nullptr;
+    float3 k = eval_coef(e, c);
+    s.x = bn_relu(s.x, k.x, k.y, k.z, has_cb);
+    k = eval_coef(e, c + 1);
+    s.y = bn_relu(s.y, k.x, k.y, k.z, has_cb);
+    k = eval_coef(e, c + 2);
+    s.z = bn_relu(s.z, k.x, k.y, k.z, has_cb);
+    k = eval_coef(e, c + 3);
+    s.w = bn_relu(s.w, k.x, k.y, k.z, has_cb);
+  }
   const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
   uint2 out;
@@ -423,43 +533,59 @@ __global__ void __launch_bounds__(256)
   yout[i] = out;
 }
 
-template <int BN, int WG, int MT>
-int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                __nv_bfloat16* y, float* partial, const Geom& g,
-                const Plan& p, int gx, cudaStream_t s) {
-  auto kernel = conv3x3x3_bf16_kernel<BN, WG, MT>;
+// One launch of conv3x3x3_bf16_kernel<BN, WG, MT, EPI> (and reduce_splits
+// after a K split); EPI with a K split runs the plain kernel, whose f32
+// partials reduce_splits<true> finishes.
+template <int BN, int WG, int MT, bool EPI>
+int launch_kernel(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                  __nv_bfloat16* y, float* partial, const Geom& g,
+                  const Plan& p, const Epi& e, int gx, cudaStream_t s) {
+  auto kernel = conv3x3x3_bf16_kernel<BN, WG, MT, EPI>;
   const long long wbytes = (long long)TAPS * 2 * BN * 16;
   const long long slab = p.persist_w ? (g.Ci / KC / p.ksplit) * wbytes : 0;
   const long long stage =
       (long long)WG * Halo<MT>::BYTES + (p.persist_w ? 0 : wbytes);
-  const long long smem = BAR_BYTES + slab + p.stages * stage;
+  const long long smem =
+      BAR_BYTES + slab + p.stages * stage + (EPI ? BN / 2 * 16 : 0);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return (int)e;
+    if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const dim3 grid((unsigned)gx, (unsigned)(g.Co / BN * p.ksplit));
-  kernel<<<grid, 128 * WG, (size_t)smem, s>>>(x, w, y, partial, g, p);
-  if (p.ksplit > 1) {
-    const long long n4 = (long long)g.B * g.X * g.Y * g.Z * g.Co / 4;
-    reduce_splits<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
-        reinterpret_cast<const float4*>(partial), reinterpret_cast<uint2*>(y),
-        n4, p.ksplit);
-  }
+  kernel<<<grid, 128 * WG, (size_t)smem, s>>>(x, w, y, partial, g, p, e);
   return (int)cudaGetLastError();
 }
 
-template <int BN, int WG>
+template <int BN, int WG, int MT, bool EPI>
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                __nv_bfloat16* y, float* partial, const Geom& g,
+                const Plan& p, const Epi& e, int gx, cudaStream_t s) {
+  const int code =
+      p.ksplit > 1
+          ? launch_kernel<BN, WG, MT, false>(x, w, y, partial, g, p, e, gx, s)
+          : launch_kernel<BN, WG, MT, EPI>(x, w, y, partial, g, p, e, gx, s);
+  if (code != 0 || p.ksplit == 1) return code;
+  const long long n4 = (long long)g.B * g.X * g.Y * g.Z * g.Co / 4;
+  reduce_splits<EPI><<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<uint2*>(y),
+      n4, p.ksplit, e, g.Co);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, int WG, bool EPI>
 int launch_bf16_mt(int mt, const __nv_bfloat16* x, const __nv_bfloat16* w,
                    __nv_bfloat16* y, float* partial, const Geom& g,
-                   const Plan& p, int gx, cudaStream_t s) {
-  if (mt == 2) return launch_bf16<BN, WG, 2>(x, w, y, partial, g, p, gx, s);
+                   const Plan& p, const Epi& e, int gx, cudaStream_t s) {
+  if (mt == 2)
+    return launch_bf16<BN, WG, 2, EPI>(x, w, y, partial, g, p, e, gx, s);
   // four warpgroups have 128 registers a thread: 64 accumulators at most
   if constexpr (WG * BN <= 128) {
-    if (mt == 4) return launch_bf16<BN, WG, 4>(x, w, y, partial, g, p, gx, s);
+    if (mt == 4)
+      return launch_bf16<BN, WG, 4, EPI>(x, w, y, partial, g, p, e, gx, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -575,14 +701,11 @@ struct ConvArgs {
   int mt, bn, wg, stages, persist_w, ksplit, flip, gx;
 };
 
-// x: NDHWC bf16; w: the weights, (Co, Ci, 27) by strides; wpk: workspace of
-// 27*Ci*Co bf16 for the weights packed as [Ci/16][Co/bn][27][2][bn][8]
-// (chunk, co tile, tap, k half, output channel, 8 input channels); y: NDHWC
-// bf16; partial: f32 workspace of ksplit * B*X*Y*Z*Co values (unused when
-// ksplit == 1).
-extern "C" int conv3x3x3_bf16(const void* x, const void* w, void* wpk,
-                              void* y, void* partial, const ConvArgs* a,
-                              void* stream) {
+namespace {
+
+template <bool EPI>
+int run_bf16(const void* x, const void* w, void* wpk, void* y, void* partial,
+             const ConvArgs* a, const Epi& e, void* stream) {
   const int B = a->B, X = a->X, Y = a->Y, Z = a->Z, Ci = a->Ci, Co = a->Co;
   const int mt = a->mt, bn = a->bn, wg = a->wg, stages = a->stages;
   const int persist_w = a->persist_w, ksplit = a->ksplit, flip = a->flip;
@@ -607,14 +730,49 @@ extern "C" int conv3x3x3_bf16(const void* x, const void* w, void* wpk,
   auto* yb = static_cast<__nv_bfloat16*>(y);
   auto* pf = static_cast<float*>(partial);
   switch (bn * 10 + wg) {
-    case 644: return launch_bf16_mt<64, 4>(mt, xb, wb, yb, pf, g, p, gx, s);
-    case 324: return launch_bf16_mt<32, 4>(mt, xb, wb, yb, pf, g, p, gx, s);
-    case 164: return launch_bf16_mt<16, 4>(mt, xb, wb, yb, pf, g, p, gx, s);
-    case 642: return launch_bf16_mt<64, 2>(mt, xb, wb, yb, pf, g, p, gx, s);
-    case 322: return launch_bf16_mt<32, 2>(mt, xb, wb, yb, pf, g, p, gx, s);
-    case 162: return launch_bf16_mt<16, 2>(mt, xb, wb, yb, pf, g, p, gx, s);
+    case 644:
+      return launch_bf16_mt<64, 4, EPI>(mt, xb, wb, yb, pf, g, p, e, gx, s);
+    case 324:
+      return launch_bf16_mt<32, 4, EPI>(mt, xb, wb, yb, pf, g, p, e, gx, s);
+    case 164:
+      return launch_bf16_mt<16, 4, EPI>(mt, xb, wb, yb, pf, g, p, e, gx, s);
+    case 642:
+      return launch_bf16_mt<64, 2, EPI>(mt, xb, wb, yb, pf, g, p, e, gx, s);
+    case 322:
+      return launch_bf16_mt<32, 2, EPI>(mt, xb, wb, yb, pf, g, p, e, gx, s);
+    case 162:
+      return launch_bf16_mt<16, 2, EPI>(mt, xb, wb, yb, pf, g, p, e, gx, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// x: NDHWC bf16; w: the weights, (Co, Ci, 27) by strides; wpk: workspace of
+// 27*Ci*Co bf16 for the weights packed as [Ci/16][Co/bn][27][2][bn][8]
+// (chunk, co tile, tap, k half, output channel, 8 input channels); y: NDHWC
+// bf16; partial: f32 workspace of ksplit * B*X*Y*Z*Co values (unused when
+// ksplit == 1).
+extern "C" int conv3x3x3_bf16(const void* x, const void* w, void* wpk,
+                              void* y, void* partial, const ConvArgs* a,
+                              void* stream) {
+  return run_bf16<false>(x, w, wpk, y, partial, a, Epi{}, stream);
+}
+
+// The same forward (flip 0) with the eval-mode epilogue: y = relu(BN(conv(x)
+// + cbias)) in TorchBatchNorm's eval rounding. mean, var, gamma, beta: the
+// BatchNorm's running averages, weight and bias, f32 of Co; cbias: the conv's
+// bias, f32 of Co, or null; eps: the BatchNorm's eps as a bf16 value.
+extern "C" int conv3x3x3_bf16_bn_relu(const void* x, const void* w, void* wpk,
+                                      void* y, void* partial,
+                                      const ConvArgs* a, const float* mean,
+                                      const float* var, const float* gamma,
+                                      const float* beta, const float* cbias,
+                                      float eps, void* stream) {
+  if (a->flip || !mean || !var || !gamma || !beta)
+    return (int)cudaErrorInvalidValue;
+  return run_bf16<true>(x, w, wpk, y, partial, a,
+                        Epi{mean, var, gamma, beta, cbias, eps}, stream);
 }
 
 // w: (27, Ci, Co) f32.

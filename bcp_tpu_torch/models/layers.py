@@ -6,7 +6,8 @@ layers and LayerNorm with a compute dtype, the trilinear resize and the
 gradient reversal. The 3-D nets' (3^3 conv, BatchNorm, ReLU) stages go
 through :func:`conv_bn_relu`, which in train mode on the card hands the
 conv's bias, the BatchNorm and the ReLU to one fused op
-(``ops/bn_relu.py``).
+(``ops/bn_relu.py``), and in eval mode without autograd to kernel B's
+store (``ops.conv3d.conv3x3x3_same_bn_relu``).
 
 Counterpart of ``bcp_tpu/models/layers.py``. Parameters stay f32 and keep
 ``nn.Conv2d`` / ``nn.Conv3d`` / ``nn.BatchNorm*d`` names and layouts, so a
@@ -36,7 +37,10 @@ from torch import nn
 
 from bcp_tpu_torch import kernels
 from bcp_tpu_torch.ops.bn_relu import BnReLUFunction, fused_route
-from bcp_tpu_torch.ops.conv3d import Conv3x3x3Function, kernel_takes
+from bcp_tpu_torch.ops.conv3d import (Conv3x3x3Function,
+                                      batch_norm_eval_affine,
+                                      conv3x3x3_same_bn_relu, epilogue_reads,
+                                      kernel_takes)
 from bcp_tpu_torch.parallel import mesh
 
 
@@ -56,8 +60,12 @@ class Conv3x3x3(nn.Conv3d):
     leaves those to XLA. The bias is added after the conv, in the compute
     dtype (`layers.py:249`); ``add_bias=False`` leaves it out
     (:func:`conv_bn_relu` hands it to the fused op), and ``bias=False``
-    builds the conv without one (SwinUNETR's decoder). Under a space split
-    both routes take the halo-padded slab and are VALID in x."""
+    builds the conv without one (SwinUNETR's decoder). With ``bn`` (an
+    eval-mode :class:`TorchBatchNorm`, on :func:`eval_fused_route`'s calls
+    alone) the call is the whole stage, relu(bn(conv(x))), from kernel B's
+    epilogue: a module call still, with the conv's input and output
+    shapes. Under a space split both routes take the halo-padded slab and
+    are VALID in x."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None,
@@ -67,9 +75,14 @@ class Conv3x3x3(nn.Conv3d):
         self.compute_dtype = dtype
         self.fused_bwd = fused_bwd
 
-    def forward(self, x: torch.Tensor, add_bias: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add_bias: bool = True,
+                bn: Optional["TorchBatchNorm"] = None) -> torch.Tensor:
         x = _cast(x, self.compute_dtype)
         w = self.weight.to(x.dtype)
+        if bn is not None:
+            return conv3x3x3_same_bn_relu(x, w, self.bias, bn.running_mean,
+                                          bn.running_var, bn.weight, bn.bias,
+                                          bn.eps)
         split = mesh.space_split()
         if split:
             x = mesh.halo(x)
@@ -318,19 +331,13 @@ class TorchBatchNorm(nn.Module):
         x = _cast(x, self.compute_dtype)
         dt = x.dtype
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        if self.training and x.is_cuda:
-            kernels.count_launch(plain_train_batch_norm)
+        if x.is_cuda:
+            kernels.count_launch(plain_train_batch_norm if self.training
+                                 else plain_eval_batch_norm)
         if not self.training:
-            mean = self.running_mean.to(dt)
-            var = self.running_var.to(dt)
-            scale = self.weight.to(dt)
-            # eps rounded to dt first, as the JAX package's weakly typed
-            # add; a 0-dim host tensor enters the kernel as a scalar, while
-            # one made on the card would be a blocking copy that stalls the
-            # host
-            inv = torch.rsqrt(var + torch.tensor(self.eps, dtype=dt))
-            mul = inv * scale
-            add = self.bias.to(dt) - mean * inv * scale
+            mul, add = batch_norm_eval_affine(
+                self.running_mean, self.running_var, self.weight, self.bias,
+                self.eps, dt)
             return x * mul.view(shape) + add.view(shape)
         G = self.groups
         n = x.shape[0]
@@ -395,6 +402,37 @@ def plain_train_batch_norm() -> None:
 plain_train_batch_norm.launches = 0
 
 
+def plain_eval_batch_norm() -> None:
+    """Holds the count (``.launches``) of eval-mode :class:`TorchBatchNorm`
+    calls on the card that took the plain chain rather than kernel B's
+    epilogue (:func:`eval_fused_route`)."""
+
+
+plain_eval_batch_norm.launches = 0
+
+
+def eval_fused_route(conv: Conv3x3x3, bn: TorchBatchNorm,
+                     x: torch.Tensor) -> bool:
+    """Whether the stage ``relu(bn(conv(x)))`` runs as kernel B with its
+    eval epilogue (``conv(x, bn=bn)``): the BatchNorm in eval mode, autograd
+    off (the evaluator's ``no_grad``; the kernel has no backward), x on the
+    card and the conv computing in bf16 with the BatchNorm in the same
+    dtype, channels kernel B takes (not the Ci = 1 first conv), no space
+    split (a slab's conv is VALID in x), and the BatchNorm's running
+    averages, weight and bias and the conv's bias dense f32 of C on x's
+    device, as the kernel reads them. Every other stage keeps the plain
+    chain."""
+    return (not bn.training and not torch.is_grad_enabled() and x.is_cuda
+            and x.numel() > 0
+            and (conv.compute_dtype or x.dtype) == torch.bfloat16
+            and bn.compute_dtype in (None, torch.bfloat16)
+            and kernel_takes(conv.in_channels, conv.out_channels)
+            and not mesh.space_split()
+            and epilogue_reads((bn.running_mean, bn.running_var, bn.weight,
+                                bn.bias, conv.bias), conv.out_channels,
+                               x.device))
+
+
 def conv_bn_relu(conv: Conv3x3x3, bn: TorchBatchNorm,
                  x: torch.Tensor) -> torch.Tensor:
     """``relu(bn(conv(x)))``, the conv, BatchNorm, ReLU of the 3-D nets'
@@ -402,10 +440,14 @@ def conv_bn_relu(conv: Conv3x3x3, bn: TorchBatchNorm,
     fused_route` takes the conv's output (bf16 on the card, C % 8 == 0, no
     world of several ranks), the conv's bias, the BatchNorm and the ReLU
     are one op with its own backward
-    (:meth:`TorchBatchNorm.relu_of_biased`); elsewhere, and in eval mode,
-    the plain chain, whose train-mode calls on the card
-    :func:`plain_train_batch_norm` counts."""
+    (:meth:`TorchBatchNorm.relu_of_biased`); in eval mode, where
+    :func:`eval_fused_route` takes the call, one launch of kernel B whose
+    store applies them; elsewhere the plain chain, whose calls on the card
+    :func:`plain_train_batch_norm` and :func:`plain_eval_batch_norm`
+    count."""
     if not bn.training:
+        if eval_fused_route(conv, bn, x):
+            return conv(x, bn=bn)
         return F.relu(bn(conv(x)))
     y = conv(x, add_bias=False)
     if fused_route(y, bn.compute_dtype, (bn.weight, bn.bias,

@@ -27,6 +27,11 @@ On a CUDA tensor:
   split and grid from the shape and the SM count alone. dx is the same
   kernel on dy with the io-transposed weights, read in reversed tap order
   (the spatial flip). f32 runs on CUDA cores;
+- :func:`conv3x3x3_same_bn_relu` launches the same bf16 forward with an
+  epilogue in its store: the conv's bias, an eval-mode BatchNorm's affine
+  from its running averages and the ReLU, rounded as the eager chain
+  (:func:`batch_norm_eval_affine`) rounds them, so an eval (conv, BN,
+  ReLU) stage writes its output once and reads nothing more;
 - :func:`conv3x3x3_dw` launches ``kernels/csrc/conv3x3x3_dw.cu`` (kernel
   C). In bf16 it runs kernel D's dW engine on ``wgmma``: a CTA owns a
   (ci tile, co group) block of dW in registers and walks boxes of 8 x 8 x
@@ -53,6 +58,7 @@ On a CUDA tensor:
 
 On a CPU tensor each runs its plain version: 27 shifted tap matmuls with
 f32 accumulation (:func:`conv3x3x3_same_reference`,
+:func:`conv3x3x3_same_bn_relu_reference` with the chain after it,
 :func:`conv3x3x3_dw_reference`, and the two composed,
 :func:`conv3x3x3_dxdw_reference`). Shapes the kernels do not take
 (:func:`kernel_takes`) are the caller's to route to ``F.conv3d``.
@@ -126,6 +132,9 @@ CONV_SMEM_LIMIT = 232448
 CONV_SM_SMEM = 233472
 CONV_BAR_BYTES = 128        # the mbarriers' share of a CTA's shared memory
 CONV_CTA_RESERVED = 1024
+#: the eval epilogue's (conv bias, mul, add) of one output channel: a pair
+#: of channels' three bf16 pairs padded to 16 bytes
+CONV_EPI_BYTES = 8
 
 
 def halo_bytes(tiles: int) -> int:
@@ -158,25 +167,27 @@ class ConvVariant(NamedTuple):
         """Output voxels of one warpgroup."""
         return (*CONV_TILE, self.tiles)
 
-    def smem_bytes(self, ci: int) -> int:
-        """Dynamic shared memory of one CTA (`launch_bf16` in the source)."""
+    def smem_bytes(self, ci: int, epi: bool = False) -> int:
+        """Dynamic shared memory of one CTA (`launch_kernel` in the
+        source); ``epi``: with the eval epilogue's coefficients."""
         chunk = 27 * 16 * self.bn * 2
         slab = chunk * (ci // 16 // self.ksplit) if self.persist_w else 0
         stage = (self.warpgroups * halo_bytes(self.tiles)
                  + (0 if self.persist_w else chunk))
-        return CONV_BAR_BYTES + slab + self.stages * stage
+        coef = CONV_EPI_BYTES * self.bn if epi else 0
+        return CONV_BAR_BYTES + slab + self.stages * stage + coef
 
     def ctas(self, co: int) -> int:
         return self.grid_x * (co // self.bn) * self.ksplit
 
 
-def _conv_ctas_per_sm(v: ConvVariant, ci: int) -> int:
+def _conv_ctas_per_sm(v: ConvVariant, ci: int, epi: bool = False) -> int:
     """CTAs of variant ``v`` that one SM holds: by shared memory (each CTA
     reserves ``CONV_CTA_RESERVED`` bytes more) and by the registers the
     kernel is compiled to (`__launch_bounds__` in the source). 0 when not
     even one fits."""
     by_regs = 2 if v.warpgroups == 2 and v.bn * v.tiles <= 64 else 1
-    by_smem = CONV_SM_SMEM // (v.smem_bytes(ci) + CONV_CTA_RESERVED)
+    by_smem = CONV_SM_SMEM // (v.smem_bytes(ci, epi) + CONV_CTA_RESERVED)
     return min(by_regs, by_smem)
 
 
@@ -188,7 +199,7 @@ def conv_tiles(Z: int) -> Tuple[int, ...]:
 
 
 def _conv_candidate(tiles: int, B: int, X: int, Y: int, Z: int, ci: int,
-                    co: int, sms: int):
+                    co: int, sms: int, epi: bool):
     """The best variant with boxes of ``tiles`` planes, and its resident
     warpgroups per SM."""
     boxes = B * math.prod(math.ceil(v / t) for v, t in zip(
@@ -199,7 +210,7 @@ def _conv_candidate(tiles: int, B: int, X: int, Y: int, Z: int, ci: int,
 
     def slab_fits(ksplit: int) -> bool:
         v = ConvVariant(tiles, bn, 2, 2, True, ksplit, 1)
-        return v.smem_bytes(ci) <= CONV_SMEM_LIMIT
+        return v.smem_bytes(ci, epi) <= CONV_SMEM_LIMIT
 
     splits = [k for k in range(1, chunks + 1) if chunks % k == 0]
     ksplit = 1
@@ -218,7 +229,7 @@ def _conv_candidate(tiles: int, B: int, X: int, Y: int, Z: int, ci: int,
         groups = math.ceil(boxes / wg)
         for persist_w in (True, False):
             v = ConvVariant(tiles, bn, wg, 2, persist_w, ksplit, 1)
-            per_sm = _conv_ctas_per_sm(v, ci)
+            per_sm = _conv_ctas_per_sm(v, ci, epi)
             grid_x = min(groups, max(1, per_sm * sms // (cols * ksplit)))
             if per_sm and (groups > grid_x or not persist_w):
                 found.append((min(wg * per_sm, 4), -wg,
@@ -231,14 +242,14 @@ def _conv_candidate(tiles: int, B: int, X: int, Y: int, Z: int, ci: int,
     room = CONV_SM_SMEM // per_sm - CONV_CTA_RESERVED
     stages = max(s for s in range(2, CONV_MAX_STAGES + 1)
                  if s == 2
-                 or v._replace(stages=s).smem_bytes(ci) <= min(
+                 or v._replace(stages=s).smem_bytes(ci, epi) <= min(
                      room, CONV_SMEM_LIMIT))
     return resident, v._replace(stages=stages)
 
 
 @functools.lru_cache(maxsize=None)
 def conv_variant(B: int, X: int, Y: int, Z: int, ci: int, co: int,
-                 sms: int) -> ConvVariant:
+                 sms: int, epi: bool = False) -> ConvVariant:
     """Kernel B's variant for one shape, from the shape and the SM count
     alone (the rules follow ``scripts/torch_conv_variants.py --sweep``).
 
@@ -252,8 +263,9 @@ def conv_variant(B: int, X: int, Y: int, Z: int, ci: int, co: int,
     CTA (boxes sharing a weight tile) and CTAs per SM are chosen for the
     most resident warpgroups, up to the four that saturate the tensor
     cores' operand fetch; then for the larger box, then for the smaller
-    CTA. The ring takes the stages that still fit."""
-    found = [_conv_candidate(t, B, X, Y, Z, ci, co, sms)
+    CTA. The ring takes the stages that still fit; ``epi`` counts the
+    eval epilogue's coefficients in each CTA's shared memory."""
+    found = [_conv_candidate(t, B, X, Y, Z, ci, co, sms, epi)
              for t in conv_tiles(Z)]
     return max(found, key=lambda f: (f[0], f[1].tiles))[1]
 
@@ -273,6 +285,46 @@ def conv3x3x3_same_reference(x: torch.Tensor,
             for k in range(3):
                 out += xp[:, i:i + X, j:j + Y, k:k + Z] @ wt[:, :, i, j, k].T
     return out.permute(0, 4, 1, 2, 3).to(x.dtype)
+
+
+def batch_norm_eval_affine(mean: torch.Tensor, var: torch.Tensor,
+                           gamma: torch.Tensor, beta: torch.Tensor,
+                           eps: float, dt: torch.dtype
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mul, add) of an eval-mode BatchNorm in the compute dtype ``dt``
+    (``TorchBatchNorm``'s eval branch, `layers.py:299-304`): inv =
+    rsqrt(var + eps), mul = inv * gamma, add = beta - mean * inv * gamma,
+    each operand and each step rounded to ``dt``."""
+    mean, var, gamma = mean.to(dt), var.to(dt), gamma.to(dt)
+    # eps rounded to dt first, as the JAX package's weakly typed add; a
+    # 0-dim host tensor enters the kernel as a scalar, while one made on
+    # the card would be a blocking copy that stalls the host
+    inv = torch.rsqrt(var + torch.tensor(eps, dtype=dt))
+    return inv * gamma, beta.to(dt) - mean * inv * gamma
+
+
+def bn_relu_eval_chain(y: torch.Tensor, conv_bias: Optional[torch.Tensor],
+                       mean: torch.Tensor, var: torch.Tensor,
+                       gamma: torch.Tensor, beta: torch.Tensor,
+                       eps: float) -> torch.Tensor:
+    """relu(BN(y + conv_bias)) of a conv's output ``y`` as the eager
+    chain runs it (``Conv3x3x3.add_bias``, ``TorchBatchNorm``'s eval
+    branch, ``F.relu``) in y's dtype; no bias add without a conv bias."""
+    shape = (1, -1) + (1,) * (y.dim() - 2)
+    if conv_bias is not None:
+        y = y + conv_bias.to(y.dtype).view(shape)
+    mul, add = batch_norm_eval_affine(mean, var, gamma, beta, eps, y.dtype)
+    return F.relu(y * mul.view(shape) + add.view(shape))
+
+
+def conv3x3x3_same_bn_relu_reference(
+        x: torch.Tensor, w: torch.Tensor, conv_bias: Optional[torch.Tensor],
+        mean: torch.Tensor, var: torch.Tensor, gamma: torch.Tensor,
+        beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """Plain version of :func:`conv3x3x3_same_bn_relu`: the plain conv,
+    then the eager chain."""
+    return bn_relu_eval_chain(conv3x3x3_same_reference(x, w), conv_bias,
+                              mean, var, gamma, beta, eps)
 
 
 def _check_kernel_args(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
@@ -319,9 +371,13 @@ def _conv_args(shape: Tuple[int, ...], strides: Tuple[int, int],
 
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, what: str,
                  flip: bool = False,
-                 variant: Optional[ConvVariant] = None) -> torch.Tensor:
+                 variant: Optional[ConvVariant] = None,
+                 epi: Optional[tuple] = None) -> torch.Tensor:
     """One launch of kernel B: y = conv(x, w), channels_last_3d; with
-    ``flip``, conv(x, w flipped along its three spatial axes). ``variant``
+    ``flip``, conv(x, w flipped along its three spatial axes); with
+    ``epi`` (the data pointers of the BatchNorm's running mean, running
+    variance, weight and bias and of the conv's bias or None, then eps as a
+    bf16 value), bf16 only, the eval epilogue in the store. ``variant``
     overrides :func:`conv_variant` (the tuning script's sweep); the launcher
     refuses one that does not fit in shared memory."""
     _check_kernel_args(x, w, what)
@@ -334,7 +390,8 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, what: str,
     stream = kernels.stream_handle(x.device)
     if x.dtype == torch.bfloat16:
         v = variant or conv_variant(B, X, Y, Z, Ci, Co,
-                                    _sm_count(x.device.index or 0))
+                                    _sm_count(x.device.index or 0),
+                                    epi is not None)
         # the launcher packs w, read through its strides (dx passes a
         # transposed view), into the order wgmma reads it
         if w.stride()[2:] != (9, 3, 1):
@@ -344,9 +401,12 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, what: str,
         ws = (torch.empty((v.ksplit, B, X, Y, Z, Co), dtype=torch.float32,
                           device=x.device) if v.ksplit > 1 else None)
         _, args = _conv_args((B, X, Y, Z, Ci, Co), w.stride()[:2], v, flip)
-        code = lib.conv3x3x3_bf16(
-            x.data_ptr(), w.data_ptr(), wk.data_ptr(), y.data_ptr(),
-            ws.data_ptr() if ws is not None else None, args, stream)
+        ptrs = (x.data_ptr(), w.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                ws.data_ptr() if ws is not None else None, args)
+        if epi is None:
+            code = lib.conv3x3x3_bf16(*ptrs, stream)
+        else:
+            code = lib.conv3x3x3_bf16_bn_relu(*ptrs, *epi, stream)
     else:
         if flip:
             w = w.flip((2, 3, 4))
@@ -364,6 +424,61 @@ def conv3x3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3x3_same_reference(x, w)
     y = _launch_conv(x, w, "conv3x3x3_same")
     kernels.count_launch(conv3x3x3_same)
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_value(v: float) -> float:
+    """``v`` rounded to bf16 as ``torch.tensor(v, dtype=bf16)`` rounds
+    it."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+def epilogue_reads(params: Tuple[Optional[torch.Tensor], ...], co: int,
+                   device) -> bool:
+    """Whether the eval epilogue reads each of ``params`` (the BatchNorm's
+    and the conv's tensors, None: no conv bias) as it is: dense f32 of
+    ``co`` on ``device``."""
+    return all(p is None or (p.dtype == torch.float32 and p.shape == (co,)
+                             and p.is_contiguous() and p.device == device)
+               for p in params)
+
+
+def _check_epilogue(x: torch.Tensor, co: int,
+                    params: Tuple[Optional[torch.Tensor], ...]) -> None:
+    """What the epilogue would misread: it runs in bf16 only, and
+    :func:`epilogue_reads` its tensors."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3x3_same_bn_relu: the epilogue runs in bf16, "
+                        f"got {x.dtype}")
+    if not epilogue_reads(params, co, x.device):
+        got = [(p.dtype, tuple(p.shape), str(p.device)) for p in params
+               if p is not None]
+        raise ValueError(f"conv3x3x3_same_bn_relu: a BatchNorm or bias tensor "
+                         f"is not dense f32 of {co} on {x.device}: {got}")
+
+
+def conv3x3x3_same_bn_relu(x: torch.Tensor, w: torch.Tensor,
+                           conv_bias: Optional[torch.Tensor],
+                           mean: torch.Tensor, var: torch.Tensor,
+                           gamma: torch.Tensor, beta: torch.Tensor,
+                           eps: float) -> torch.Tensor:
+    """An eval-mode (3^3 SAME conv, BatchNorm, ReLU) stage: relu(BN(conv(x,
+    w) + conv_bias)) with the BatchNorm's running averages ``mean``,
+    ``var``, weight ``gamma`` and bias ``beta`` (f32 of Co), in the eager
+    chain's rounding (:func:`bn_relu_eval_chain`). On the card one launch
+    of kernel B with the epilogue in its store, bf16 only (else it raises:
+    the caller keeps the chain for what the kernel does not take); on the
+    CPU the plain version."""
+    if x.device.type == "cpu":
+        return conv3x3x3_same_bn_relu_reference(x, w, conv_bias, mean, var,
+                                                gamma, beta, eps)
+    params = (mean, var, gamma, beta, conv_bias)
+    _check_epilogue(x, w.shape[0], params)
+    epi = tuple(p.data_ptr() if p is not None else None for p in params)
+    y = _launch_conv(x, w, "conv3x3x3_same_bn_relu",
+                     epi=(*epi, _bf16_value(eps)))
+    kernels.count_launch(conv3x3x3_same_bn_relu)
     return y
 
 
@@ -850,6 +965,7 @@ class Conv3x3x3Function(torch.autograd.Function):
 
 #: kernel launches; a caller sets them to 0 before the run it counts
 conv3x3x3_same.launches = 0
+conv3x3x3_same_bn_relu.launches = 0
 conv3x3x3_dx.launches = 0
 conv3x3x3_dw.launches = 0
 conv3x3x3_dxdw.launches = 0

@@ -50,6 +50,13 @@ Phases, each of which fails the run (non-zero exit, no final line):
    launches its statistics and apply once a (conv, BatchNorm, ReLU)
    stage, a backward its backward once (a world of one rank too); eval,
    f32, instance norm and the worlds of several ranks launch none.
+   Kernel B's eval epilogue over a bf16 eval pass of the full-width
+   UNet3D and V-Net at LA's window and eval batch: logits bit for bit
+   with the route on and off, the launches each way, the CUDA-event ms of
+   a pass each way (``phase_eval_epilogue``; ``python3 chip_smoke.py
+   --only eval_epilogue`` runs it alone). Every eval path below counts
+   B's fused launches (``conv3x3x3_same_bn_relu``) where its stages'
+   plain ``conv3x3x3_same`` was.
    Kernel F, SwinUNETR's window attention, at every block shape of a
    96^3 self-train pass of 4 samples, unshifted and shifted: O, dQKV and
    the table's gradient against the composition in f64 from the same
@@ -70,11 +77,12 @@ Phases, each of which fails the run (non-zero exit, no final line):
    launch count reset before and read after; two case lines of four finite
    metrics, and class probabilities of the cropped score map summing to
    1 +- 1e-2 per voxel. Every chunk takes kernel A's fused entry (no
-   launch of its probs entry). Then the steady-state time of the same
-   evaluator over both volumes, and a ``torch.profiler`` trace of one
-   volume: device time by kernel name, busy time and idle share, one
-   fused overlap-add a chunk (its device ms a launch) and no softmax
-   kernel;
+   launch of its probs entry) and runs each of the V-Net's 20 kernel B
+   stages as B with its eval epilogue (no ``conv3x3x3_same``). Then the
+   steady-state time of the same evaluator over both volumes, and a
+   ``torch.profiler`` trace of one volume: device time by kernel name,
+   busy time and idle share, one fused overlap-add a chunk (its device ms
+   a launch) and no softmax kernel;
 5. the training path: ``bcp_tpu_torch.cli.train_la``'s core function at
    full width (V-Net n_filters 16, 112x112x80 patches, batch 8 with
    labeled_bs 4, bf16, NMS on) on 8 synthetic 140x140x90 train volumes
@@ -191,11 +199,12 @@ described by their functions.)
     full width (the 3-D nets at 32^3, the 2-D nets at 256x256 with their
     heads, ``net_D`` on Sep_UNet_2d's feature), probabilities to atol
     1e-3; (d) ``cli.test_la --model unet_3D`` on one 240x200x96 volume
-    from the port's own checkpoint (34 launches of A's fused entry, B 17
-    a chunk, s/volume) and the evaluator's f32 score map card against CPU
-    on a reduced volume; (e) ``cli.export_torch`` loading strictly into a
-    module with the reference's dead heads and ``cli.kde_demo`` writing
-    its PNG. ``python3 chip_smoke.py --only zoo`` runs phase 16 alone.
+    from the port's own checkpoint (34 launches of A's fused entry, B
+    with its eval epilogue 17 a chunk, s/volume) and the evaluator's f32
+    score map card against CPU on a reduced volume; (e)
+    ``cli.export_torch`` loading strictly into a module with the
+    reference's dead heads and ``cli.kde_demo`` writing its PNG.
+    ``python3 chip_smoke.py --only zoo`` runs phase 16 alone.
 
 17. Zoo nets through the train CLIs and the full-schedule script
     (``phase_zoo_training``): (a) one pre-train and one self-train update
@@ -207,8 +216,9 @@ described by their functions.)
     data and windows: every launch of A-D checked exactly against the
     net's 17 kernel convs (a pre-train step B, B-as-dx and C once each, a
     self-train step B twice, a validation chunk A's fused entry once and B
-    once a conv, D never), ms a step, idle share, peak GiB, finite losses,
-    the device time of the traced self-train steps by kernel family; (c)
+    with its eval epilogue once a conv, D never), ms a step, idle share,
+    peak GiB, finite losses, the device time of the traced self-train
+    steps by kernel family; (c)
     ``--model git_VNet`` at K = 1, its launches; (d) ``cli.train_acdc
     --model unet_2d_bcp`` at full width at K = 1 and K = 4, no launch of
     A-D; (e) ``scripts/run_full_torch.py`` once a variant at a cut of its
@@ -1091,6 +1101,78 @@ SWIN_TOL = {"out": 1e-2, "dqkv": 2e-2, "dtable": 2e-2}
 SWIN_FACTOR = 3.0
 
 
+def phase_eval_epilogue(torch, smi: str):
+    """Kernel B's eval epilogue (``ops.conv3d.conv3x3x3_same_bn_relu``)
+    over whole eval passes at LA's window and eval batch: the full-width
+    UNet3D (feature channels 64-1024) and V-Net (16-256) in bf16, BN
+    statistics calibrated on the pass's input, under ``no_grad``. The
+    logits with the route on are those with it off (B's plain store, then
+    the eager bias add, BatchNorm and ReLU) bit for bit; each pass's
+    launches by path (on: every kernel B stage fused, the plain eval
+    BatchNorm only after cuDNN's convs; off: none fused); and the
+    CUDA-event ms of a pass each way (median of 10, the two ways in
+    turns, twice)."""
+    from bcp_tpu_torch.models import layers
+    from bcp_tpu_torch.models.layers import plain_eval_batch_norm
+    counters = kernel_counters()
+    counters["plain_eval_batch_norm"] = plain_eval_batch_norm
+    real = layers.eval_fused_route
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    x = torch.randn((EVAL_BATCH, 1, *PATCH), generator=gen, device=DEVICE)
+    lines = []
+    for net, kw in (("unet_3D", {}), ("VNet", {"n_filters": 16})):
+        model = zoo_model(torch, net, kw, "test", dtype=torch.bfloat16)
+        fused = eval_route_convs(model)
+        bns = sum(isinstance(m, layers.TorchBatchNorm)
+                  for m in model.modules())
+
+        def run(route):
+            layers.eval_fused_route = real if route else (lambda *a: False)
+            try:
+                with torch.no_grad():
+                    return layers.logits_of(model(x))
+            finally:
+                layers.eval_fused_route = real
+        layers.eval_fused_route = lambda *a: False
+        try:
+            calibrate_bn(torch, model, x)
+        finally:
+            layers.eval_fused_route = real
+        got = {}
+        for route in (True, False):
+            read_launches(counters, reset=True)
+            out = run(route)
+            torch.cuda.synchronize()
+            got[route] = (out, read_launches(counters))
+        want_on = {"conv3x3x3_same_bn_relu": fused, "conv3x3x3_same": 0,
+                   "plain_eval_batch_norm": bns - fused}
+        want_off = {"conv3x3x3_same_bn_relu": 0, "conv3x3x3_same": fused,
+                    "plain_eval_batch_norm": bns}
+        on_n = {k: got[True][1][k] for k in want_on}
+        off_n = {k: got[False][1][k] for k in want_off}
+        same = bool(torch.equal(got[True][0], got[False][0]))
+        ms = {True: [], False: []}
+        for _ in range(2):
+            for route in (False, True):
+                ms[route].append(cuda_ms(torch, lambda: run(route), 10))
+        line = {"card": smi, "batch": EVAL_BATCH, "window": list(PATCH),
+                "fused_stages": fused, "launches_on": on_n,
+                "launches_off": off_n, "logits_bit_identical": same,
+                "ms_plain_chain": ms[False], "ms_epilogue": ms[True],
+                "saved_ms": float(np.median(ms[False])
+                                  - np.median(ms[True]))}
+        print(f"eval epilogue {net} bf16 eval pass: " + json.dumps(line),
+              flush=True)
+        if not same or on_n != want_on or off_n != want_off:
+            fail(f"eval epilogue {net}: logits bit identical {same}, "
+                 f"launches {on_n} (expected {want_on}) and {off_n} "
+                 f"(expected {want_off})")
+        lines.append(line)
+        del model, got
+        torch.cuda.empty_cache()
+    return lines
+
+
 def phase_window_attn(torch, rates):
     """Kernel F, SwinUNETR's window attention (``ops/window_attn.py``),
     against its plain composition on the card at every block shape of a
@@ -1588,9 +1670,10 @@ def phase_main_path(torch, pth: str, workdir: str):
     print(out.getvalue(), end="")
     want = {"scatter_add_windows": 0,
             "softmax_scatter_add_windows": 2 * chunks,
-            "conv3x3x3_same": 2 * chunks * sum(n for _, n in CONV_STAGES),
+            "conv3x3x3_same": 0,
             "conv3x3x3_dx": 0, "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
-            **fused_launches(0, 0)}
+            **fused_launches(0, 0, eval_stages=2 * chunks * sum(
+                n for _, n in CONV_STAGES))}
     print(f"main path launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"main path launches {launches}, expected {want}")
@@ -1675,7 +1758,8 @@ def kernel_counters():
     from bcp_tpu_torch.ops.bn_relu import (bn_relu_apply, bn_relu_grad,
                                            bn_relu_stats)
     from bcp_tpu_torch.ops.conv3d import (conv3x3x3_dw, conv3x3x3_dx,
-                                          conv3x3x3_dxdw, conv3x3x3_same)
+                                          conv3x3x3_dxdw, conv3x3x3_same,
+                                          conv3x3x3_same_bn_relu)
     from bcp_tpu_torch.ops.scatter import (scatter_add_windows,
                                            softmax_scatter_add_windows)
     from bcp_tpu_torch.ops.window_attn import (window_attn_bwd,
@@ -1686,38 +1770,58 @@ def kernel_counters():
                                     conv3x3x3_dw, conv3x3x3_dxdw,
                                     bn_relu_stats, bn_relu_apply,
                                     bn_relu_grad, window_attn_fwd,
-                                    window_attn_bwd)}
+                                    window_attn_bwd, conv3x3x3_same_bn_relu)}
 
 
 def fused_launches(forwards: int, backwards: int, attn_forwards: int = 0,
-                   attn_backwards: int = 0):
+                   attn_backwards: int = 0, eval_stages: int = 0):
     """The fused ops' launches of a path: the bias + BatchNorm + ReLU's
     statistics and apply once a fused stage of a train-mode forward, its
     backward once a stage of a backward; the window attention's forward
     once a SwinUNETR block of a forward, its backward once a block of a
-    backward (no other net launches it)."""
+    backward (no other net launches it); kernel B with its eval epilogue
+    once an ``eval_stages`` stage (:func:`eval_route_convs`: a bf16 eval
+    forward without autograd, where it replaces that stage's
+    ``conv3x3x3_same``)."""
     return {"bn_relu_stats": forwards, "bn_relu_apply": forwards,
             "bn_relu_grad": backwards, "window_attn_fwd": attn_forwards,
-            "window_attn_bwd": attn_backwards}
+            "window_attn_bwd": attn_backwards,
+            "conv3x3x3_same_bn_relu": eval_stages}
 
 
-def bn_relu_stages(model) -> int:
-    """The (3^3 conv, BatchNorm, ReLU) stages of ``model`` that
+def bn_relu_stage_convs(model) -> list:
+    """The conv of each (3^3 conv, BatchNorm, ReLU) stage of ``model`` that
     ``layers.conv_bn_relu`` runs: UNet3D's ``Conv3DBlock`` two, UNETR's
     ``ConvBNReLU`` and ``DeconvBlock`` one, the V-Net ``ConvBlock``'s
     ``ConvBNReLUStages`` one a triple."""
     from bcp_tpu_torch.models.layers import ConvBNReLUStages
     from bcp_tpu_torch.models.unet3d import Conv3DBlock
     from bcp_tpu_torch.models.unetr import ConvBNReLU, DeconvBlock
-    n = 0
+    convs = []
     for m in model.modules():
         if isinstance(m, ConvBNReLUStages):
-            n += len(m) // 3
+            convs += list(m)[::3]
         elif isinstance(m, Conv3DBlock):
-            n += 2
+            convs += [m.conv1, m.conv2]
         elif isinstance(m, (ConvBNReLU, DeconvBlock)):
-            n += 1
-    return n
+            convs.append(m.conv)
+    return convs
+
+
+def bn_relu_stages(model) -> int:
+    """The (3^3 conv, BatchNorm, ReLU) stages of ``model``."""
+    return len(bn_relu_stage_convs(model))
+
+
+def eval_route_convs(model) -> int:
+    """The stages of ``model`` whose conv kernel B takes: in a bf16 eval
+    forward without autograd on the card (the evaluator's) each is one
+    launch of B with its eval epilogue (``conv3x3x3_same_bn_relu``) and no
+    ``conv3x3x3_same``; the model's other kernel convs stay
+    ``conv3x3x3_same``."""
+    from bcp_tpu_torch.ops.conv3d import kernel_takes
+    return sum(kernel_takes(c.in_channels, c.out_channels)
+               for c in bn_relu_stage_convs(model))
 
 
 def attn_blocks(model) -> int:
@@ -1829,12 +1933,13 @@ def phase_training(torch, workdir: str):
     v = trainer.validations
     want = {"scatter_add_windows": 0,
             "softmax_scatter_add_windows": v * chunks,
-            "conv3x3x3_same": convs * (3 * STAGE_ITERS + v * chunks),
+            "conv3x3x3_same": convs * 3 * STAGE_ITERS,
             "conv3x3x3_dx": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dw": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dxdw": 0,
             **fused_launches(VNET_BNS * 3 * STAGE_ITERS,
-                               VNET_BNS * 2 * STAGE_ITERS)}
+                               VNET_BNS * 2 * STAGE_ITERS,
+                               eval_stages=convs * v * chunks)}
     print(f"training path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} pre-train and {STAGE_ITERS} self-train steps, "
           f"{v} validations of {chunks} chunks, warm-ups included)",
@@ -2005,11 +2110,12 @@ def phase_training_fused(torch, workdir: str, shared):
     v = trainer.validations
     want = {"scatter_add_windows": 0,
             "softmax_scatter_add_windows": v * chunks,
-            "conv3x3x3_same": convs * (2 * STAGE_ITERS + v * chunks),
+            "conv3x3x3_same": convs * 2 * STAGE_ITERS,
             "conv3x3x3_dx": 0, "conv3x3x3_dw": 0,
             "conv3x3x3_dxdw": convs * STAGE_ITERS,
             **fused_launches(VNET_BNS * 2 * STAGE_ITERS,
-                               VNET_BNS * STAGE_ITERS)}
+                               VNET_BNS * STAGE_ITERS,
+                               eval_stages=convs * v * chunks)}
     print(f"fused-backward path launches {launches} (expected {want}: "
           f"{STAGE_ITERS} self-train steps, {v} validations)", flush=True)
     if launches != want or not cfg.fused_bwd:
@@ -3858,7 +3964,7 @@ def phase_data_parallel(torch, workdir: str, pth: str, smi: str):
                    // got["cfg"].eval_batch)
         expect = dict(want["launches"])
         expect["softmax_scatter_add_windows"] -= extra * chunks
-        expect["conv3x3x3_same"] -= extra * chunks * sum(
+        expect["conv3x3x3_same_bn_relu"] -= extra * chunks * sum(
             n for _, n in CONV_STAGES)
         if extra != 2 or got["launches"] != expect \
                 or want["launches"]["bn_relu_grad"] != VNET_BNS * 2 * n_it:
@@ -5030,10 +5136,11 @@ def phase_zoo_test_la(torch, workdir: str, smi: str):
     wall = time.perf_counter() - t0
     launches = read_launches(counters)
     print(out.getvalue(), end="")
+    n_eval = eval_route_convs(model)
     want = {"scatter_add_windows": 0, "softmax_scatter_add_windows": chunks,
-            "conv3x3x3_same": chunks * n_convs, "conv3x3x3_dx": 0,
-            "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
-            **fused_launches(0, 0)}
+            "conv3x3x3_same": chunks * (n_convs - n_eval),
+            "conv3x3x3_dx": 0, "conv3x3x3_dw": 0, "conv3x3x3_dxdw": 0,
+            **fused_launches(0, 0, eval_stages=chunks * n_eval)}
     if launches != want or not np.isfinite(avg).all() or len(avg) != 4:
         fail(f"test_la --model unet_3D: launches {launches} (expected "
              f"{want}), metrics {avg}")
@@ -5331,7 +5438,9 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
     validation at the last, through ``dispatch_run``; every kernel launch
     of the run checked exactly: per pre-train step B, B-as-dx and C once a
     kernel-taking conv, per self-train step B twice; per validation chunk
-    A's fused entry once and B once a conv; the fused BatchNorm op and the
+    A's fused entry once and B once a conv, with its eval epilogue where
+    the conv is a (conv, BatchNorm, ReLU) stage's
+    (:func:`eval_route_convs`); the fused BatchNorm op and the
     window attention as every forward and backward runs them; D never.
     Returns (the run, its launches, its line)."""
     from bcp_tpu_torch.eval.sliding_window import window_starts
@@ -5350,14 +5459,16 @@ def zoo_cli_run(torch, workdir: str, smi: str, variant: str, net: str,
         chunks = -(-len(window_starts(data[1][0][0].shape, cfg.patch_size,
                                       cfg.stride_xy, cfg.stride_z))
                    // cfg.eval_batch)
+    n_eval = eval_route_convs(trainer.eval_model)
     want = {"scatter_add_windows": 0,
             "softmax_scatter_add_windows": v * chunks,
-            "conv3x3x3_same": n * (3 * iters + v * chunks),
+            "conv3x3x3_same": n * 3 * iters + (n - n_eval) * v * chunks,
             "conv3x3x3_dx": 2 * n * iters, "conv3x3x3_dw": 2 * n * iters,
             "conv3x3x3_dxdw": 0,
             **fused_launches(3 * bns * iters, 2 * bns * iters,
                              blocks * (3 * iters + v * chunks),
-                             2 * blocks * iters)}
+                             2 * blocks * iters,
+                             eval_stages=n_eval * v * chunks)}
     if run["launches"] != want:
         fail(f"train_{variant} --model {net} K={K}: launches "
              f"{run['launches']}, expected {want} ({n} kernel convs, {bns} "
@@ -5936,7 +6047,9 @@ def main() -> int:
                      torch, workdir, smi,
                      runs=[p for p in ZOO_CLI_LA
                            if p[0] == "swin_unetr"])})) or True,
-            "zoo_spatial": phase_zoo_spatial}
+            "zoo_spatial": phase_zoo_spatial,
+            "eval_epilogue": lambda torch, workdir, smi: bool(
+                phase_eval_epilogue(torch, smi))}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in only:
         # phase 14 (c) or 15 (c) alone, for a machine with several cards;
@@ -5953,13 +6066,14 @@ def main() -> int:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
              f"--only data_parallel_cards, --only spatial_cards, --only "
-             f"bn_relu, --only window_attn, --only zoo, --only zoo_train "
-             f"or --only zoo_spatial")
+             f"bn_relu, --only window_attn, --only zoo, --only zoo_train, "
+             f"--only zoo_spatial or --only eval_epilogue")
     with tempfile.TemporaryDirectory(dir=work_root) as workdir:
         entries = phase_overlap_add(torch, rates, workdir)
         entries += phase_kernels(torch, rates)
         entries += phase_backward_kernels(torch, rates)
         entries += phase_bn_relu(torch, rates)
+        phase_eval_epilogue(torch, smi)
         entries += phase_window_attn(torch, rates)
         pancreas = phase_pancreas_kernels(torch, rates)
         pth = os.path.join(workdir, "VNet_best_model.pth")
